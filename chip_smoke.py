@@ -7,18 +7,34 @@ NVIDIA card.
 Phases, each reported on its own line:
 
 1. the card: ``nvidia-smi --query-gpu=name,power.limit`` verbatim;
-2. the nvcc build of ``src/repro_torch/csrc`` into ``build/``;
+2. the nvcc builds of ``src/repro_torch/csrc/*.cu`` into ``build/``, one
+   nvcc per source, all started together;
 3. each checkpoint-codec kernel (fingerprint, fused capture, XOR) held
    bit for bit against its plain PyTorch version on the card, at the
-   main path's shapes, with its time, its bound and the plain version's
-   time (and ``torch.bitwise_xor``'s for the XOR);
-4. the main path: phi4-mini-3.8b at full width and depth (bf16 params
-   from seeded ``torch.Generator``s) serves 6 requests on 4 slots under
-   a ``CheckpointSession`` with chained snapshots, is killed about half
-   way, comes back through ``restore("latest")`` and must finish every
-   request token for token as the uninterrupted run did — once with
-   sparse capture on, once with ``sparse=False``. Every kernel must have
-   launched during this phase.
+   serving path's shapes, with its time, its bound and the plain
+   version's time (and ``torch.bitwise_xor``'s for the XOR);
+4. each flash-attention kernel (forward, dq, dk/dv) held against its
+   plain PyTorch version at the training shape in bf16 and at a ragged
+   f32 shape with a window, with its time, its bound, the plain
+   version's time and ``scaled_dot_product_attention``'s (forward; its
+   autograd backward for dq and dk/dv together);
+5. the serving path: phi4-mini-3.8b at full width and depth (bf16
+   params from seeded ``torch.Generator``s) serves 6 requests on 4
+   slots under a ``CheckpointSession`` with chained snapshots, is
+   killed about half way, comes back through ``restore("latest")`` and
+   must finish every request token for token as the uninterrupted run
+   did — once with sparse capture on, once with ``sparse=False``. Every
+   codec kernel must have launched, and no flash kernel (serving never
+   takes the training route);
+6. the training path: one f32 step of starcoder2-3b-smoke on the card
+   matches the same step on the CPU; then starcoder2-3b at full width
+   and depth trains 8 steps of 2 x 4096 tokens under a
+   ``CheckpointSession`` (one full 30.3 GB snapshot, after step 6), is
+   dropped, comes back through ``restore("latest")`` at step 6 and
+   trains 2 steps: the losses of steps 7-8 and the digest of params,
+   optimizer state, step and data cursor must equal the uninterrupted
+   run's bit for bit. Every flash kernel must have launched during this
+   phase.
 
 Before the last line it prints ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -26,6 +42,7 @@ without that line; so does a machine with no CUDA device.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -33,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -42,12 +60,23 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12     # H100 SXM peak outside the tensor cores
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 ARCH = "phi4-mini-3.8b"
 N_SLOTS, MAX_SEQ, N_REQ, MAX_NEW = 4, 1024, 6, 48
+TRAIN_ARCH, TRAIN_SHAPE, TRAIN_STEPS = "starcoder2-3b", "train_s4096_b2", 8
+# one full snapshot, after step 6, with no chain (so no dirty-chunk
+# capture either): a snapshot of the training state is 30.3 GB and the
+# card's machine accepts 45 GiB of disk writes per run, so a chain's
+# link (another ~30 GB) cannot be written there; training links run at
+# smoke size in the tests instead
+TRAIN_POLICY = dict(interval=6, chain=1, keep_last=1)
+
+
+_T0 = time.monotonic()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    print(f"[{time.monotonic() - _T0:7.1f} s] {msg}", flush=True)
 
 
 # GPU cycles to spin before each timed call: the card waits while the
@@ -78,9 +107,9 @@ def time_ms(fn, iters: int, flush) -> float:
     return times[len(times) // 2]
 
 
-def bound_ms(nbytes: int, ops: int):
+def bound_ms(nbytes: int, ops: int, ops_per_s: float = CUDA_CORE_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -181,6 +210,130 @@ def check_kernels(torch, ops, ref):
     return out
 
 
+def attended_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave visible — the work the
+    attention kernels must do for these inputs."""
+    import numpy as np
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq,
+                                                                   np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def check_flash(torch, fa):
+    """Phase 4: each flash kernel against its plain version on the card,
+    at the training shape (bf16) and a ragged f32 shape with a window."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    flush = l2.zero_
+    out = {}
+    # each output, elementwise: |kernel - plain| <= rtol * |plain| + atol.
+    # bf16: both versions sum in f32 and round to bf16 once, so they may
+    # differ by one bf16 ulp, at most 2^-7 of the value (rtol 1e-2), and
+    # by the order of the f32 sums (atol 1e-5, ~1/3000 of a typical
+    # forward or dq value at the training shape). f32: the order only.
+    # The LSE is f32 in both cases.
+    tols = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (1e-4, 1e-5)}
+    lse_tol = (0.0, 1e-4)
+    parts = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
+             "flash_dkv": ("dk", "dv")}
+    cases = [("training", torch.bfloat16, 2, 24, 2, 4096, 128, 0),
+             ("ragged", torch.float32, 1, 4, 2, 1000, 128, 64)]
+    for label, dt, B, H, Hkv, S, hd, window in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dt)
+        q, k, v, do = rnd(B, H, S, hd), rnd(B, Hkv, S, hd), \
+            rnd(B, Hkv, S, hd), rnd(B, H, S, hd)
+        kw = dict(causal=True, window=window)
+        o, lse = fa.flash_fwd(q, k, v, **kw)
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
+        delta = fa.attention_delta(o_p, do)
+        got = {"flash_fwd": (o, lse),
+               "flash_dq": (fa.flash_dq(q, k, v, do, lse_p, delta, **kw),),
+               "flash_dkv": fa.flash_dkv(q, k, v, do, lse_p, delta, **kw)}
+        want = {"flash_fwd": (o_p, lse_p),
+                "flash_dq": (fa.flash_dq_plain(q, k, v, do, lse_p, delta,
+                                               **kw),),
+                "flash_dkv": fa.flash_dkv_plain(q, k, v, do, lse_p, delta,
+                                                **kw)}
+        torch.cuda.synchronize()
+        errs, readings, bad = {}, [], []
+        for name in fa.KERNELS:
+            errs[name] = 0.0
+            for part, a, b in zip(parts[name], got[name], want[name]):
+                rtol, atol = lse_tol if part == "lse" else tols[dt]
+                a, b = a.float(), b.float()
+                err = (a - b).abs()
+                # the worst element's error as a share of its limit
+                share = float((err / (atol + rtol * b.abs())).max())
+                errs[name] = max(errs[name], float(err.max()))
+                readings.append(
+                    f"{part} {float(err.max()):.2e} (rms of the plain "
+                    f"{float(b.square().mean().sqrt()):.2e}, rtol {rtol:g} "
+                    f"atol {atol:g}, worst element {share:.2f} of its limit)")
+                if share > 1:
+                    bad.append(f"{name} ({part})")
+        log(f"kernel flash ({label}): q {(B, H, S, hd)} k/v "
+            f"{(B, Hkv, S, hd)} {str(dt)[6:]} causal window {window}: fwd, "
+            f"dq, dk/dv against the plain versions, max abs err "
+            + "; ".join(readings))
+        if bad:
+            raise AssertionError(f"{label}: kernels disagree with their "
+                                 f"plain versions past the limit: {bad}")
+        if label != "training":
+            continue
+        pairs = B * H * attended_pairs(S, S, True, window)
+        esz = q.element_size()
+        qb, kvb, st = q.numel() * esz, k.numel() * esz, B * H * S * 4
+        work = {"flash_fwd": (2 * qb + 2 * kvb + st, 2 * 2 * hd * pairs),
+                "flash_dq": (3 * qb + 2 * kvb + 2 * st, 3 * 2 * hd * pairs),
+                "flash_dkv": (2 * qb + 4 * kvb + 2 * st, 4 * 2 * hd * pairs)}
+        calls = {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
+                          lambda: fa.flash_fwd_plain(q, k, v, **kw)),
+            "flash_dq": (lambda: fa.flash_dq(q, k, v, do, lse, delta, **kw),
+                         lambda: fa.flash_dq_plain(q, k, v, do, lse, delta,
+                                                   **kw)),
+            "flash_dkv": (lambda: fa.flash_dkv(q, k, v, do, lse, delta, **kw),
+                          lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
+                                                     **kw))}
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                                  enable_gqa=True)
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 10, flush)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qr, kr, vr), do, retain_graph=True), 10, flush)
+        for name in fa.KERNELS:
+            nbytes, ops_n = work[name]
+            b, o_by = bound_ms(nbytes, ops_n, BF16_OPS_PER_S)
+            out[name] = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces={"flash_fwd": "src/repro/kernels/flash_attention/"
+                                       "kernel.py:86",
+                          "flash_dq": "src/repro/kernels/flash_attention/"
+                                      "backward.py:161",
+                          "flash_dkv": "src/repro/kernels/flash_attention/"
+                                       "backward.py:185"}[name],
+                max_abs_err=errs[name],
+                ms=time_ms(calls[name][0], 5, flush),
+                plain_ms=time_ms(calls[name][1], 2, flush),
+                bound_ms=b, bound_by=o_by,
+                library_ms=lib_fwd if name == "flash_fwd" else lib_bwd)
+            log(f"timing {name}: {out[name]['ms']:.4f} ms (bound "
+                f"{b:.4f} ms by {o_by}, {ops_n / 1e9:.1f} GFLOP), plain "
+                f"{out[name]['plain_ms']:.4f} ms, library "
+                f"{out[name]['library_ms']:.4f} ms")
+        del qr, kr, vr, sdpa_out
+    del l2
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_small_reference(torch, M, get_smoke_config):
     """The model on the card agrees with the same model on the CPU at a
     small size (float32, TF32 off)."""
@@ -265,7 +418,8 @@ def profile_decode(torch, np, eng, Request, prompts) -> None:
     eng.run_until_drained()
 
 
-def main_path(torch, np, ops):
+def main_path(torch, np, ops, fa):
+    """Phase 5, the serving path."""
     from repro_torch.api import CheckpointSession, Policy
     from repro_torch.configs import get_smoke_config, resolve_config
     from repro_torch.models import model as M
@@ -287,6 +441,7 @@ def main_path(torch, np, ops):
         f"tokens, max_new {MAX_NEW}, {N_SLOTS} slots, max_seq {MAX_SEQ}")
 
     ops.reset_counts()
+    fa.reset_counts()
     eng, reqs, toks, dt = serve(torch, np, ServingEngine, Request, params,
                                 prompts)
     ref = {r.rid: list(r.out) for r in reqs}
@@ -363,9 +518,251 @@ def main_path(torch, np, ops):
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    flash = fa.counts("cuda")
+    if any(flash.values()):
+        raise AssertionError(f"serving launched flash kernels: {flash}")
     log(f"main path kernel launches: {total} (sparse {per_policy['sparse']},"
-        f" dense {per_policy['dense']})")
+        f" dense {per_policy['dense']}); flash kernels: none, as expected")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     return total
+
+
+def check_train_reference(torch, np, fa):
+    """One f32 train step of the smoke model on the card (flash kernels)
+    against the same step on the CPU (the model's plain attention): TF32
+    off, so the two differ only in the order of their sums. Tolerances: loss and
+    grad norm 1e-5 relative; params 1e-6 absolute at lr 3e-4 (a step
+    moves a param by ~lr); moments 1e-4 relative."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.optim import AdamWConfig, ScheduleConfig, init_opt_state
+    from repro_torch.parallel.planner import make_plan
+    from repro_torch.train.step import make_train_step
+    from repro_torch.tree import flatten_with_paths, tree_map
+    cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32")
+    shape = get_shape("train_s192_b2")       # 3 q tiles, ragged-free
+    step_fn = make_train_step(cfg, make_plan(cfg, shape), AdamWConfig(),
+                              ScheduleConfig())
+    batch = TokenPipeline(DataConfig(seed=7, vocab_size=cfg.vocab_size,
+                                     seq_len=shape.seq_len, global_batch=2,
+                                     n_shards=2)).batch_at(0)
+    p_cpu = M.init_params(cfg, seed=3, device="cpu")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        opt = init_opt_state(params, AdamWConfig())
+        before = fa.counts(dev)
+        params, opt, met = step_fn(
+            params, opt, {k: torch.from_numpy(v).to(dev)
+                          for k, v in batch.items()}, 150,
+            torch.tensor(1.0))
+        ran = {k: fa.counts(dev)[k] - before[k] for k in fa.KERNELS}
+        if dev == "cuda" and not all(ran.values()):
+            raise AssertionError(f"the card's step missed a flash kernel: "
+                                 f"{ran}")
+        res[dev] = (met, dict(flatten_with_paths(params)),
+                    dict(flatten_with_paths(opt)))
+    worst = 0.0
+    for key in ("loss", "grad_norm"):
+        a, b = float(res["cpu"][0][key]), float(res["cuda"][0][key])
+        if abs(a - b) > 1e-5 * abs(a):
+            raise AssertionError(f"train step {key}: CPU {a} vs card {b}")
+    for i, (rtol, atol) in ((1, (0, 1e-6)), (2, (1e-4, 1e-8))):
+        for path, a in res["cpu"][i].items():
+            b = res["cuda"][i][path].cpu()
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+            if not torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol):
+                raise AssertionError(f"train step state {path}: card and "
+                                     "CPU disagree")
+    log(f"small reference: {TRAIN_ARCH}-smoke f32 train step "
+        f"(seq {shape.seq_len}, lr {float(res['cpu'][0]['lr']):.3e}) on the "
+        f"card matches the CPU: loss {float(res['cuda'][0]['loss']):.6f}, "
+        f"max abs state diff {worst:.2e}")
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _kernel_name(name: str) -> str:
+    """A profiler kernel name without its return type, namespaces and
+    argument list."""
+    n = name.replace("void ", "", 1).replace("(anonymous namespace)::", "") \
+        .replace("at::native::", "")
+    depth, out = 0, []
+    for ch in n:
+        if ch == "(" and depth == 0:
+            break
+        depth += (ch == "<") - (ch == ">")
+        out.append(ch)
+    return "".join(out)[:64]
+
+
+def profile_train_step(torch, tr):
+    """Wall time of one train step against the device time of its
+    kernels (torch.profiler), hence the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        met = tr.train_steps(1)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        key = _kernel_name(e.name)
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"train profile: {wall:.1f} ms wall, {dev:.1f} ms of device kernels "
+        f"({len(kernels)} launches), device idle "
+        f"{100 * (1 - dev / wall):.1f}% of the step; by kernel: "
+        + "; ".join(f"{n} {t:.1f} ms" for n, t in top))
+    return met, wall
+
+
+def train_path(torch, np, ops, fa):
+    """Phase 6, the training path (see the module docstring)."""
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.configs import resolve_config
+    from repro_torch.train.loop import Trainer, TrainJob
+
+    check_train_reference(torch, np, fa)
+    cfg = resolve_config(TRAIN_ARCH)
+    n = cfg.n_params()
+    snap = n * (2 + 4 + 4)                      # bf16 params, f32 mu and nu
+    store = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    disk, mem = shutil.disk_usage(store).free, _mem_available()
+    log(f"train path: {TRAIN_ARCH} full width and depth ({n} params), "
+        f"{TRAIN_SHAPE}; a snapshot is {snap / 1e9:.1f} GB; free disk "
+        f"{disk / 1e9:.1f} GB, MemAvailable {mem / 1e9:.1f} GB")
+    if disk < 1.05 * snap or mem < 1.5 * snap:
+        raise AssertionError(
+            f"the snapshot needs ~{1.05 * snap / 1e9:.0f} GB of disk and "
+            f"~{1.5 * snap / 1e9:.0f} GB of host memory (page-locked "
+            f"staging, then the restore's decode); have {disk / 1e9:.1f} "
+            f"GB disk, {mem / 1e9:.1f} GB MemAvailable")
+    policy = Policy(**TRAIN_POLICY)
+    torch.use_deterministic_algorithms(True)
+    ops.reset_counts()
+    fa.reset_counts()
+    try:
+        t0 = time.monotonic()
+        sess = CheckpointSession(f"localfs:{store}", policy)
+        tr = Trainer(TrainJob(TRAIN_ARCH, TRAIN_SHAPE), manager=sess.manager)
+        tr.init_state()
+        sess.attach(tr)
+        torch.cuda.synchronize()
+        log(f"train path: cold start (seeded bf16 params, zero moments) in "
+            f"{time.monotonic() - t0:.2f} s; plan {tr.plan}")
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for i in range(TRAIN_STEPS):
+            if i == 4:
+                met, ms = profile_train_step(torch, tr)
+            else:
+                t1 = time.monotonic()
+                met = tr.train_steps(1)
+                ms = (time.monotonic() - t1) * 1e3
+            step_ms.append(ms)
+            losses.append(met["loss"])
+            if sess.maybe_snapshot() is not None:
+                log(f"train path: snapshot after step {i + 1}; "
+                    f"MemAvailable {_mem_available() / 1e9:.1f} GB")
+        t1 = time.monotonic()
+        sess.wait()
+        drain = time.monotonic() - t1
+        st = dict(sess.stats)
+        peak = torch.cuda.max_memory_allocated()
+        want = tr.state_digest()
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        log(f"train path: losses {losses}; step {steady:.1f} ms (median of "
+            f"steps 2-{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms) = "
+            f"{2 * 4096 / steady * 1e3:.0f} tokens/s; peak device memory "
+            f"{peak / 1e9:.2f} GB")
+        saves = max(st["saves"], 1)
+        log(f"train path: {st['saves']} snapshot(s) ({st['chain_links']} chain "
+            f"links), capture stall {st['capture_seconds'] / saves:.2f} s per "
+            f"snapshot, encode+commit {st['encode_commit_seconds'] / saves:.1f}"
+            f" s per snapshot (background; {drain:.1f} s left to drain after "
+            f"step {TRAIN_STEPS}), bytes written {st['bytes_written'] / saves:.0f}"
+            f" per snapshot, dirty/clean chunks {st['dirty_chunks']}/"
+            f"{st['clean_chunks']}")
+        sess.close()
+        del tr, sess                                 # the kill
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"train path: trainer dropped; device memory "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, MemAvailable "
+            f"{_mem_available() / 1e9:.1f} GB")
+        t0 = time.monotonic()
+        sess2 = CheckpointSession(f"localfs:{store}", policy)
+        tr2 = sess2.restore("latest", expect_kind="train")
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        back = tr2.checkpoint_step()
+        timings = tr2.incarnation.timings
+        again = [tr2.train_steps(1)["loss"]
+                 for _ in range(TRAIN_STEPS - back)]
+        got = tr2.state_digest()
+        sess2.close()
+        del tr2, sess2
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(store, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"train path: restored step {back} in {restore_s:.1f} s (materialize "
+        f"{timings.get('materialize_s', 0):.1f} s, replay "
+        f"{timings.get('replay_s', 0):.2f} s, rebind "
+        f"{timings.get('rebind_s', 0):.1f} s); losses after restore {again}")
+    if back != 6 or again != losses[back:]:
+        raise AssertionError(f"restored run diverged: step {back}, losses "
+                             f"{again} vs {losses[back:]}")
+    if got != want:
+        raise AssertionError(f"state digest after restore {got} != "
+                             f"uninterrupted {want}")
+    flash, codec = fa.counts("cuda"), ops.counts("cuda")
+    missing = [k for k, v in flash.items() if v == 0]
+    if missing:
+        raise AssertionError(f"flash kernels never launched on the "
+                             f"training path: {missing}")
+    log(f"train path: losses and state digest {got} bit-identical to the "
+        f"uninterrupted run; kernel launches {flash} (fwd twice per layer "
+        f"under remat), codec {codec}")
+    return flash
+
+
+def ptxas_summary(report: str):
+    """``kernel<type,hd>: registers[, spill bytes]`` per entry function
+    of an ``nvcc -Xptxas -v`` report."""
+    import re
+    out, name = [], "?"
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"\d([a-z][a-z_]*_kernel)"
+                          r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", m.group(1))
+            name = t.group(1) if t and not t.group(2) else (
+                f"{t.group(1)}<{'bf16' if 'bfloat' in t.group(2) else 'f32'}"
+                f",{t.group(3)}>" if t else m.group(1)[-32:])
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and m.group(1) != "0":
+            name += f" (spills {m.group(1)} B)"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{name} {m.group(1)} regs")
+    return out
 
 
 def main() -> int:
@@ -374,8 +771,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch.kernels.ckpt_codec import cuda as kcuda
     from repro_torch.kernels.ckpt_codec import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.nvcc import ARCH_FLAGS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -387,16 +785,21 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.monotonic()
-    kcuda.library()
-    info = kcuda.build_info
-    log(f"build: nvcc {' '.join(kcuda.ARCH_FLAGS)} -> {info['path']} in "
+    libs = (ops.LIB, fa.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.library(), libs))
+    log(f"build: {len(libs)} nvcc {' '.join(ARCH_FLAGS)} in parallel, "
         f"{time.monotonic() - t0:.1f} s")
-    for line in info.get("ptxas", "").splitlines():
-        if "Used" in line:
-            log(f"build: ptxas {line.split(':', 1)[1].strip()}")
+    for lib in libs:
+        info = lib.build_info
+        log(f"build: {lib.source.name} -> {info['path']} in "
+            f"{info['seconds']:.1f} s; ptxas: "
+            + "; ".join(ptxas_summary(info.get("ptxas", ""))))
 
     kernels = check_kernels(torch, ops, ref)
-    launches = main_path(torch, np, ops)
+    kernels.update(check_flash(torch, fa))
+    launches = main_path(torch, np, ops, fa)
+    launches.update(train_path(torch, np, ops, fa))
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -200,10 +200,7 @@ APP_KINDS: Dict[str, Callable[..., Any]] = {}
 # each built-in binder is imported on first restore of that kind.
 _LAZY_KINDS = {
     "serving": "repro_torch.serving.engine",
-}
-# kinds the JAX package serves that the port does not yet
-_WAITING_KINDS = {
-    "train": "ROADMAP A5 (train/loop.py)",
+    "train": "repro_torch.train.loop",
 }
 
 
@@ -242,9 +239,6 @@ def register_app_kind(kind: str, *, replace: bool = False) -> Callable:
 
 
 def resolve_app_kind(kind: str) -> Callable:
-    if kind not in APP_KINDS and kind in _WAITING_KINDS:
-        raise PolicyError(f"checkpoint kind {kind!r} is not ported yet: "
-                          f"it waits for {_WAITING_KINDS[kind]}")
     if kind not in APP_KINDS and kind in _LAZY_KINDS:
         importlib.import_module(_LAZY_KINDS[kind])
     try:

@@ -1,4 +1,5 @@
-"""Carry weights and KV caches across from the JAX package.
+"""Carry weights, optimizer state and KV caches across from the JAX
+package.
 
 The JAX package's trees reach the port as numpy (``jax.tree.map(
 np.asarray, params)`` on the JAX side); these helpers turn them into the
@@ -18,7 +19,9 @@ from repro_torch.tree import tree_map
 
 
 def _leaf_to_tensor(a: Any, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(np.asarray(a))
+    # order="C", not ascontiguousarray: that one turns a 0-d leaf (the
+    # optimizer's count) into shape (1,)
+    a = np.asarray(a, order="C")
     if str(a.dtype) == "bfloat16":     # ml_dtypes.bfloat16 on the JAX side
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     else:
@@ -39,8 +42,28 @@ def cache_from_numpy(tree, device=None):
     return params_from_numpy(tree, device)
 
 
+def opt_state_from_numpy(tree, device=None):
+    """The JAX package's AdamW state as numpy (``mu``, ``nu`` — f32
+    leaves or ``QMoment(q, scale)`` named tuples — and the int32
+    ``count``) -> the port's, on ``device``, with the port's ``QMoment``
+    and identical bits."""
+    from repro_torch.optim import QMoment
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return QMoment(*(conv(getattr(node, f))
+                             for f in QMoment._fields))
+        return _leaf_to_tensor(node, dev)
+
+    return conv(tree)
+
+
 def tree_to_numpy(tree):
     """The port's tensors -> numpy on the host, bfloat16 as its uint16
     bit view (``.view(ml_dtypes.bfloat16)`` recovers the values where
-    ``ml_dtypes`` is installed)."""
+    ``ml_dtypes`` is installed). Named tuples (an optimizer state's
+    ``QMoment``) keep their type; 0-d leaves stay 0-d."""
     return tree_map(host_array, tree)

@@ -227,6 +227,32 @@ def _fp_host_threaded(buf: np.ndarray, chunk_bytes: int,
     return np.vstack(list(parts))
 
 
+# page-locked staging at or above this size is an exact-size buffer
+# registered with cudaHostRegister: ``pin_memory=True`` goes through
+# PyTorch's caching host allocator, which rounds every block up to a
+# power of two — 53 GB of page-locked memory for starcoder2-3b's 30.3 GB
+# of params and moments. Allocations this large come from their own
+# mmap, so no two registered ranges share a page.
+_REGISTER_MIN_BYTES = 64 << 20
+
+
+def _pinned_empty(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An empty page-locked host tensor of exactly its own size."""
+    nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    if nbytes < _REGISTER_MIN_BYTES:
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    buf = torch.empty(shape, dtype=dtype)
+    rt = torch.cuda.cudart()
+    ptr = buf.data_ptr()
+    err = int(rt.cudaHostRegister(ptr, nbytes, 0))
+    if err != 0:
+        raise SnapshotError(f"cudaHostRegister of a {nbytes} B staging "
+                            f"buffer failed (CUDA error {err})")
+    # unpin before the allocator frees the pages
+    weakref.finalize(buf, rt.cudaHostUnregister, ptr)
+    return buf
+
+
 class _StagingSlot:
     """Reusable host buffers for one in-flight snapshot (page-locked for
     leaves on the card, so the device->host copy runs at full rate)."""
@@ -248,8 +274,9 @@ class _StagingSlot:
             src = v.detach()
             if not isinstance(buf, torch.Tensor) \
                     or buf.shape != src.shape or buf.dtype != src.dtype:
-                buf = torch.empty(src.shape, dtype=src.dtype,
-                                  pin_memory=src.is_cuda)
+                buf = (_pinned_empty(tuple(src.shape), src.dtype)
+                       if src.is_cuda else
+                       torch.empty(src.shape, dtype=src.dtype))
                 pool[path] = buf
             buf.copy_(src)
             return buf

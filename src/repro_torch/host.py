@@ -117,7 +117,7 @@ def to_tensor(v: Any, dtype: torch.dtype,
     if isinstance(v, torch.Tensor):
         t = v
     else:
-        a = np.ascontiguousarray(np.asarray(v))
+        a = np.asarray(v, order="C")    # keeps 0-d leaves 0-d
         if not a.flags.writeable:   # torch.from_numpy wants a writable
             a = a.copy()            # buffer (decoded blobs are read-only)
         if dtype == torch.bfloat16 and a.dtype == np.uint16:

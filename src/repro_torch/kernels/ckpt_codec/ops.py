@@ -4,8 +4,9 @@ fused dirty-chunk capture, and the byte XOR of chained snapshots.
 Each kernel has two implementations behind one wrapper:
 
 * on a CUDA tensor, the hand-written CUDA kernel of
-  ``csrc/ckpt_codec.cu`` (built and bound by ``cuda.py``), launched on
-  the current stream of the calling thread; a refused launch raises;
+  ``csrc/ckpt_codec.cu`` (built and bound through
+  ``repro_torch.kernels.nvcc``), launched on the current stream of the
+  calling thread; a refused launch raises;
 * on a CPU tensor, its plain PyTorch version below — the same integer
   arithmetic (int64 products masked to 32 bits) — which the CPU tests
   hold against the numpy oracle ``ref.py`` and the JAX package's Pallas
@@ -24,6 +25,7 @@ the overflow fallback, ``dirty_chunk_capture``, ``delta_encode`` and
 """
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -31,8 +33,8 @@ import numpy as np
 import torch
 
 from repro_torch.host import host_np_dtype, resolve_device
-from repro_torch.kernels.ckpt_codec import cuda as _cuda
 from repro_torch.kernels.ckpt_codec.ref import BLOCK, FP_CHUNK_BYTES
+from repro_torch.kernels.nvcc import CudaLibrary
 
 # fingerprint mixing constants — shared with ref.fingerprint_ref
 _FP_XOR_C = 0x5BD1E995
@@ -40,6 +42,14 @@ _FP_MUL_C = 0x9E3779B1
 _MASK32 = 0xFFFFFFFF
 
 KERNELS = ("fingerprint", "fused_capture", "xor")
+
+_VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+LIB = CudaLibrary("ckpt_codec", {
+    "ckpt_fingerprint": [_VP, _LL, _LL, _VP, _VP],
+    "ckpt_fused_capture": [_VP, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP,
+                           _VP, _VP],
+    "ckpt_xor": [_VP, _VP, _VP, _LL, _VP],
+}, error_fn="ckpt_error_string")
 
 _count_lock = threading.Lock()
 _counts: Dict[str, Dict[str, int]] = {
@@ -243,10 +253,10 @@ def _fingerprint_cuda(u8: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
     fp = torch.empty((_n_chunks(u8.numel(), chunk_bytes), 2),
                      dtype=torch.int32, device=u8.device)
     with torch.cuda.device(u8.device):
-        code = _cuda.library().ckpt_fingerprint(
+        code = LIB.library().ckpt_fingerprint(
             u8.data_ptr(), u8.numel(), chunk_bytes, fp.data_ptr(),
             _stream(u8.device))
-    _cuda.check(code, "ckpt_fingerprint")
+    LIB.check(code, "ckpt_fingerprint")
     _count("cuda", "fingerprint")
     return fp
 
@@ -266,11 +276,11 @@ def _fused_capture_cuda(u8: torch.Tensor, prev_fp: torch.Tensor,
                       dtype=torch.uint8, device=u8.device)
     cnt, idx, compact = _fused_views(buf, capacity, chunk_bytes)
     with torch.cuda.device(u8.device):
-        code = _cuda.library().ckpt_fused_capture(
+        code = LIB.library().ckpt_fused_capture(
             u8.data_ptr(), u8.numel(), chunk_bytes, prev_fp.data_ptr(),
             capacity, fp.data_ptr(), flags.data_ptr(), cnt.data_ptr(),
             idx.data_ptr(), compact.data_ptr(), _stream(u8.device))
-    _cuda.check(code, "ckpt_fused_capture")
+    LIB.check(code, "ckpt_fused_capture")
     _count("cuda", "fused_capture")
     return fp, buf
 
@@ -282,10 +292,10 @@ def _xor_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("XOR operands need equal length on one device")
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
-        code = _cuda.library().ckpt_xor(a.data_ptr(), b.data_ptr(),
+        code = LIB.library().ckpt_xor(a.data_ptr(), b.data_ptr(),
                                         out.data_ptr(), a.numel(),
                                         _stream(a.device))
-    _cuda.check(code, "ckpt_xor")
+    LIB.check(code, "ckpt_xor")
     _count("cuda", "xor")
     return out
 

@@ -2,6 +2,12 @@
 cache, and the MLP — the port of ``repro.models.layers`` for the dense
 decoder.
 
+Attention without a cache (the training forward, positions
+``arange(S)``) goes through the flash-attention kernels on a CUDA
+tensor: there the kernels' index masks equal the position masks. On the
+CPU, and on every cache path (prefill, decode), it stays the plain
+dense/chunked attention below.
+
 The arithmetic follows the JAX functions step for step (float32 norms,
 RoPE and softmax; ``-1e30`` instead of ``-inf`` for masked scores), so
 the two packages agree to float rounding. One deliberate difference:
@@ -20,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.params import P
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
@@ -246,6 +253,9 @@ def attention_forward(
             # trailing window; every query still sees its own context here)
             att_k, att_v, att_pos = k, v, positions
     else:
+        if q.is_cuda and softcap == 0.0:
+            return torch.einsum("bshk,hkd->bsd", _flash_no_cache(
+                q, k, v, causal=causal, window=window), p["wo"])
         att_k, att_v, att_pos = k, v, positions
     if S == 1 or att_k.shape[1] <= 2048:
         out = dense_attention(qg, att_k, att_v, positions, att_pos,
@@ -255,6 +265,18 @@ def attention_forward(
                                 causal=causal, window=window,
                                 softcap=softcap, chunk=attn_chunk)
     return torch.einsum("bshk,hkd->bsd", out.reshape(B, S, nh, h), p["wo"])
+
+
+def _flash_no_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, window: int) -> torch.Tensor:
+    """q [B,S,H,hd], k/v [B,S,Hkv,hd] (positions arange(S)) through the
+    flash kernels' [B,H,S,hd] layout; returns [B,S,H,hd]. Head h reads kv
+    head h // (H/Hkv), the model's [B,S,Hkv,G,hd] grouping."""
+    out = flash_attention(q.transpose(1, 2).contiguous(),
+                          k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(),
+                          causal=causal, window=window)
+    return out.transpose(1, 2)
 
 
 def _scatter_rows_(buf: torch.Tensor, slots: torch.Tensor,

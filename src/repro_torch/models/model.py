@@ -1,31 +1,38 @@
 """Model assembly for the dense decoder — the port of
-``repro.models.model``: ``param_template``, ``cache_spec``,
-``init_cache``, ``prefill``, ``decode_step`` and ``init_params``.
+``repro.models.model``: ``param_template``, ``forward_train``,
+``cache_spec``, ``init_cache``, ``prefill``, ``decode_step``,
+``init_params``, ``init_abstract`` and ``logical_specs``.
 
 Parameters are nested dicts of tensors stacked over a leading layer
 axis, exactly the JAX package's layout and paths; where the JAX package
 runs the layer stack under ``jax.lax.scan``, this is a Python loop that
-indexes the stacked dim (a view, no copy). Decode state (the KV cache)
-is updated in place. Other families (moe, ssm, hybrid, the whisper
-encoder-decoder) raise ``NotImplementedError`` naming ROADMAP A8.
+indexes the stacked dim (a view, no copy). Remat "full" wraps each
+layer in ``torch.utils.checkpoint`` (non-reentrant), where the JAX
+package wraps the scan body in ``jax.checkpoint``. Decode state (the KV
+cache) is updated in place. Other families (moe, ssm, hybrid, the
+whisper encoder-decoder) raise ``NotImplementedError`` naming ROADMAP
+A8.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.host import resolve_device, torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import params as PM
 from repro_torch.models.params import P, stacked
-from repro_torch.tree import tree_map
+from repro_torch.tree import fill_like, flatten_with_paths, tree_map
 
 
-class TensorSpec(NamedTuple):
+@dataclass(frozen=True)
+class TensorSpec:
     """Shape + dtype of a tensor not yet allocated (the counterpart of
-    ``jax.ShapeDtypeStruct``)."""
+    ``jax.ShapeDtypeStruct``); a leaf of the trees it stands in for."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
 
@@ -68,18 +75,44 @@ def _layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def _unstack(tree, n: int):
+    """The per-layer views of a stacked tree, from one ``unbind`` per
+    leaf: its backward stacks the layers' gradients once, where a
+    per-layer index would make each layer's backward write a zero-filled
+    gradient of the whole stacked leaf."""
+    leaves = flatten_with_paths(tree)
+    parts = {p: t.unbind(0) for p, t in leaves}
+    return [fill_like(tree, {p: u[i] for p, u in parts.items()})
+            for i in range(n)]
+
+
+@dataclass(frozen=True)
+class CallOptions:
+    remat: str = "none"             # none | full
+
+
+def _block(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
+           cache) -> torch.Tensor:
+    h = L.apply_norm(cfg, p["ln1"], x)
+    x = x + L.attention_forward(
+        cfg, p["attn"], h, positions, window=cfg.attn_window, cache=cache)
+    h = L.apply_norm(cfg, p["ln2"], x)
+    return x + L.mlp_forward(cfg, p["ffn"], h)
+
+
 def _decoder(cfg: ModelConfig, stacked_params, x: torch.Tensor,
-             positions: torch.Tensor, cache) -> torch.Tensor:
+             positions: torch.Tensor, cache,
+             opts: CallOptions = CallOptions()) -> torch.Tensor:
     """The layer stack; ``cache`` (stacked over layers) is written in
-    place."""
-    for i in range(cfg.n_layers):
-        p = _layer(stacked_params, i)
-        h = L.apply_norm(cfg, p["ln1"], x)
-        x = x + L.attention_forward(
-            cfg, p["attn"], h, positions, window=cfg.attn_window,
-            cache=_layer(cache, i) if cache is not None else None)
-        h = L.apply_norm(cfg, p["ln2"], x)
-        x = x + L.mlp_forward(cfg, p["ffn"], h)
+    place. Remat "full" recomputes each layer in the backward pass."""
+    layers = _unstack(stacked_params, cfg.n_layers)
+    for i, p in enumerate(layers):
+        c = _layer(cache, i) if cache is not None else None
+        if opts.remat == "full" and cache is None:
+            x = checkpoint(_block, cfg, p, x, positions, None,
+                           use_reentrant=False)
+        else:
+            x = _block(cfg, p, x, positions, c)
     return x
 
 
@@ -92,6 +125,24 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["tok_emb"])
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+
+
+def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+                  opts: CallOptions = CallOptions()):
+    """Full-sequence forward. batch: tokens [B,S] int32.
+
+    Returns (logits [B,S,V], aux: dict). Positions are ``arange(S)``, so
+    attention takes its no-cache branch (the flash kernels on the card)."""
+    _check_family(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    x = _decoder(cfg, params["layers"], _embed(params, tokens), positions,
+                 None, opts)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                  device=tokens.device)}
+    return _logits(cfg, params, x), aux
 
 
 # --- caches -----------------------------------------------------------------
@@ -158,6 +209,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     ``seed`` (see ``params.init_concrete``), on ``device`` (default: the
     card)."""
     return PM.init_concrete(param_template(cfg), cfg.dtype, seed, device)
+
+
+def init_abstract(cfg: ModelConfig):
+    return PM.init_abstract(param_template(cfg), cfg.dtype)
+
+
+def logical_specs(cfg: ModelConfig):
+    return PM.logical_specs(param_template(cfg))
 
 
 def param_count(cfg: ModelConfig) -> int:

@@ -85,6 +85,20 @@ def init_concrete(template: Dict[str, Any], default_dtype: str, seed: int,
     return fill_like(template, by_path)
 
 
+def init_abstract(template: Dict[str, Any], default_dtype: str):
+    """``TensorSpec`` tree — shapes and dtypes, nothing allocated (what
+    a restore binds a checkpoint's leaves against)."""
+    from repro_torch.models.model import TensorSpec
+    return tree_map(lambda leaf: TensorSpec(
+        tuple(leaf.shape), torch_dtype(leaf.dtype or default_dtype)),
+        template)
+
+
+def logical_specs(template: Dict[str, Any]) -> Dict[str, Any]:
+    """Tree of logical axis-name tuples, one per leaf."""
+    return tree_map(lambda leaf: tuple(leaf.axes), template)
+
+
 def _stable_hash(s: str) -> int:
     """Deterministic across processes (unlike builtin hash)."""
     h = 2166136261

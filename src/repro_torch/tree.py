@@ -4,8 +4,9 @@ The checkpoint format addresses every leaf by its ``jax.tree_util.
 keystr`` path (``['layers']['attn']['wq']``), and a checkpoint written
 by one package restores in the other only if both spell paths the same
 way. These helpers reproduce that flattening for the trees the port
-uses — dicts (keys visited in sorted order, as JAX does), lists and
-tuples (``[0]``), ``None`` as an empty subtree, anything else a leaf.
+uses — dicts (keys visited in sorted order, as JAX does), named tuples
+(``.field``, as for the optimizer's ``QMoment``), lists and tuples
+(``[0]``), ``None`` as an empty subtree, anything else a leaf.
 """
 from __future__ import annotations
 
@@ -15,10 +16,23 @@ from typing import Any, Callable, Dict, List, Tuple
 from repro_torch.api.errors import RestoreError
 
 
+def _named(node) -> bool:
+    return isinstance(node, tuple) and hasattr(node, "_fields")
+
+
 def _children(node) -> List[Tuple[str, Any]]:
     if isinstance(node, dict):
         return [(f"[{k!r}]", node[k]) for k in sorted(node)]
+    if _named(node):
+        return [(f".{f}", getattr(node, f)) for f in node._fields]
     return [(f"[{i}]", v) for i, v in enumerate(node)]
+
+
+def _rebuild(node, children):
+    """A container of ``node``'s type holding ``children`` (in order)."""
+    if _named(node):
+        return type(node)(*children)
+    return type(node)(children)
 
 
 def _is_node(x) -> bool:
@@ -51,8 +65,8 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
+        return _rebuild(tree, [tree_map(fn, v, *(r[i] for r in rest))
+                               for i, v in enumerate(tree)])
     return fn(tree, *rest)
 
 
@@ -65,8 +79,8 @@ def fill_like(template, by_path: Dict[str, Any]):
         if isinstance(node, dict):
             return {k: rec(node[k], prefix + f"[{k!r}]") for k in node}
         if isinstance(node, (list, tuple)):
-            return type(node)(rec(v, prefix + f"[{i}]")
-                              for i, v in enumerate(node))
+            return _rebuild(node, [rec(v, prefix + key)
+                                   for key, v in _children(node)])
         if prefix not in by_path:
             raise KeyError(f"checkpoint missing leaf {prefix}")
         return by_path[prefix]

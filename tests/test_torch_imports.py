@@ -44,7 +44,8 @@ def test_the_scan_sees_the_whole_port():
     assert "chip_smoke.py" in files
     for mod in ("api/session.py", "core/async_snapshot.py",
                 "kernels/ckpt_codec/ops.py", "serving/engine.py",
-                "models/model.py", "convert.py"):
+                "models/model.py", "convert.py", "train/loop.py",
+                "kernels/flash_attention/ops.py", "kernels/nvcc.py"):
         assert os.path.join("src", "repro_torch", mod) in files
 
 
@@ -64,7 +65,11 @@ def test_port_imports_with_jax_and_ml_dtypes_blocked():
         import repro_torch.core.restore
         import repro_torch.kernels.ckpt_codec.ops
         import repro_torch.serving.engine
+        import repro_torch.train.loop
+        import repro_torch.kernels.flash_attention.ops
         from repro_torch.api import CheckpointSession, Policy
+        from repro_torch.api.registry import resolve_app_kind
+        resolve_app_kind("train")
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
