@@ -17,7 +17,12 @@ Phases, each reported on its own line:
    plain PyTorch version at the training shape in bf16 and at a ragged
    f32 shape with a window, with its time, its bound, the plain
    version's time and ``scaled_dot_product_attention``'s (forward; its
-   autograd backward for dq and dk/dv together);
+   autograd backward for dq and dk/dv together); then each SSD kernel
+   (the chunked scan's forward and its gradient) against its plain
+   version at mamba2-780m's training shape in bf16 and at a ragged f32
+   shape with an initial state, with limits set from the plain version's
+   own spread between two chunk lengths, its time, its bound and the
+   plain version's time (no single PyTorch call computes an SSD scan);
 5. the serving path: phi4-mini-3.8b at full width and depth (bf16
    params from seeded ``torch.Generator``s) serves 6 requests on 4
    slots under a ``CheckpointSession`` with chained snapshots, is
@@ -26,15 +31,17 @@ Phases, each reported on its own line:
    did — once with sparse capture on, once with ``sparse=False``. Every
    codec kernel must have launched, and no flash kernel (serving never
    takes the training route);
-6. the training path: one f32 step of starcoder2-3b-smoke on the card
-   matches the same step on the CPU; then starcoder2-3b at full width
-   and depth trains 8 steps of 2 x 4096 tokens under a
-   ``CheckpointSession`` (one full 30.3 GB snapshot, after step 6), is
-   dropped, comes back through ``restore("latest")`` at step 6 and
-   trains 2 steps: the losses of steps 7-8 and the digest of params,
-   optimizer state, step and data cursor must equal the uninterrupted
-   run's bit for bit. Every flash kernel must have launched during this
-   phase.
+6. the training paths, one per cell of ``TRAIN_CELLS``: one f32 step of
+   the smoke model on the card matches the same step on the CPU; then
+   the model at full width and depth trains 8 steps under a
+   ``CheckpointSession`` (one full snapshot, after step 6), is dropped,
+   comes back through ``restore("latest")`` at step 6 and trains 2
+   steps: the losses of steps 7-8 and the digest of params, optimizer
+   state, step and data cursor must equal the uninterrupted run's bit
+   for bit, and the cell's kernels must have launched once per layer
+   and step (the forward twice, under remat). starcoder2-3b trains on
+   2 x 4096 tokens a step through the flash kernels (a 30.3 GB
+   snapshot), mamba2-780m on 8 x 4096 through the SSD kernels (7.8 GB).
 
 Before the last line it prints ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -63,12 +70,25 @@ CUDA_CORE_OPS_PER_S = 67e12     # H100 SXM peak outside the tensor cores
 BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 ARCH = "phi4-mini-3.8b"
 N_SLOTS, MAX_SEQ, N_REQ, MAX_NEW = 4, 1024, 6, 48
-TRAIN_ARCH, TRAIN_SHAPE, TRAIN_STEPS = "starcoder2-3b", "train_s4096_b2", 8
+TRAIN_STEPS = 8
+# the training cells, each at full width and depth: the model, its shape
+# (the published 4,096-token length at a batch cut from 256 to what one
+# card steps without accumulation), the kernel module whose kernels the
+# step runs, and the shape and mode of the f32 smoke step held against
+# the CPU (check_train_reference)
+TRAIN_CELLS = (
+    dict(arch="starcoder2-3b", shape="train_s4096_b2", kernels="flash",
+         reference_shape="train_s192_b2",         # 3 q tiles, ragged-free
+         reference="state"),
+    dict(arch="mamba2-780m", shape="train_s4096_b8", kernels="ssd",
+         reference_shape="train_s512_b2",         # 2 chunks of 256
+         reference="grads"),
+)
 # one full snapshot, after step 6, with no chain (so no dirty-chunk
-# capture either): a snapshot of the training state is 30.3 GB and the
-# card's machine accepts 45 GiB of disk writes per run, so a chain's
-# link (another ~30 GB) cannot be written there; training links run at
-# smoke size in the tests instead
+# capture either): snapshots of the two training states are 30.3 and
+# 7.8 GB and the card's machine accepts 45 GiB of disk writes per run
+# (deleted files count), so a chain's link cannot be written there;
+# training links run at smoke size in the tests instead
 TRAIN_POLICY = dict(interval=6, chain=1, keep_last=1)
 
 
@@ -334,6 +354,124 @@ def check_flash(torch, fa):
     return out
 
 
+SSD_TRAIN_SHAPE = (8, 4096, 48, 64, 128, 256)   # B, S, H, P, N, chunk
+
+
+def ssd_work(B, S, H, P, N, q, esz):
+    """(bytes, operations) of ssd_fwd and ssd_bwd on these shapes: each
+    input read once and each output written once, and the products of
+    the model's chunk-q algorithm as the reference does them (C.B^T for
+    every head) over the causal pairs j <= i only, as ``attended_pairs``
+    counts flash attention's. The forward's outputs include the
+    chunk-start states it writes for the backward, which reads them: the
+    path's forward cannot skip them. The backward takes the gradient of
+    each product with respect to both its operands, twice the forward."""
+    blocks = B * H * (S // q)
+    pairs = q * (q + 1) // 2
+    fwd_ops = blocks * (2 * pairs * (N + P) + 4 * q * P * N)
+    x, bc = B * S * H * P * esz, 2 * B * S * N * esz
+    small = B * S * H * 4 + H * 4                  # dt, A
+    y, state = B * S * H * P * 4, B * H * P * N * 4
+    states = state * (S // q)
+    fwd_bytes = x + bc + small + y + state + states
+    bwd_bytes = (x + bc + small + states + y) + (x + bc + small)
+    return {"ssd_fwd": (fwd_bytes, fwd_ops),
+            "ssd_bwd": (bwd_bytes, 2 * fwd_ops)}
+
+
+def check_ssd(torch, ssd, R):
+    """Each SSD kernel against its plain version on the card: the
+    training shape (bf16 x, B, C; chunk 256) and a ragged f32 shape with
+    an initial state (S = 300, chunk = S, the model's rule). Each
+    output's limit is elementwise rtol * (|plain| + rms(plain)), with
+    rtol = max(4 x the spread between the plain version at the chunk and
+    at a quarter of it, 1e-4) — the same math blocked differently. dt
+    and A are drawn as a freshly initialised block makes them
+    (``model_dt_A``): the slow heads decay by O(1) over a chunk and
+    across chunks, so a wrong far tile or state carry shows."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    flush = l2.zero_
+    out = {}
+    parts = {"ssd_fwd": ("y", "final"),
+             "ssd_bwd": ("dx", "ddt", "dA", "dB", "dC")}
+    cases = [("training", torch.bfloat16, SSD_TRAIN_SHAPE, False),
+             ("ragged", torch.float32, (2, 300, 8, 64, 128, 300), True)]
+    for label, dt_, (B, S, H, P, N, q), init in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        x, Bm, Cm = rnd(B, S, H, P).to(dt_), rnd(B, S, N).to(dt_), \
+            rnd(B, S, N).to(dt_)
+        dt, A = R.model_dt_A(B, S, H, gen, dev)
+        s0 = rnd(B, H, P, N) if init else None
+        dy = rnd(B, S, H, P)
+        y, fin, states = ssd.ssd_fwd(x, dt, A, Bm, Cm, q, s0)
+        grads = ssd.ssd_bwd(x, dt, A, Bm, Cm, states, dy, None, q)
+        got = {"ssd_fwd": (y, fin), "ssd_bwd": grads}
+        want = {"ssd_fwd": R.ssd_chunked_plain(x, dt, A, Bm, Cm, q, s0),
+                "ssd_bwd": R.ssd_grads_plain(x, dt, A, Bm, Cm, dy, q,
+                                             init_state=s0)}
+        qa = q // 4
+        alt = {"ssd_fwd": R.ssd_chunked_plain(x, dt, A, Bm, Cm, qa, s0),
+               "ssd_bwd": R.ssd_grads_plain(x, dt, A, Bm, Cm, dy, qa,
+                                            init_state=s0)}
+        torch.cuda.synchronize()
+        errs, readings, bad = {}, [], []
+        for name in ssd.KERNELS:
+            errs[name] = 0.0
+            spreads = R.blocking_spread(want[name], alt[name])
+            for part, a, b, spread in zip(parts[name], got[name], want[name],
+                                          spreads):
+                rtol = R.tolerance(spread)
+                share = R.within(a, b, rtol)
+                err = float((a.float() - b.float()).abs().max())
+                errs[name] = max(errs[name], err)
+                readings.append(
+                    f"{part} {err:.2e} (rms of the plain "
+                    f"{float(b.float().square().mean().sqrt()):.2e}, spread "
+                    f"chunk {q} vs {qa} {spread:.2e}, rtol {rtol:.2e}, worst "
+                    f"element {share:.2f} of its limit)")
+                if not share <= 1.0:
+                    bad.append(f"{name} ({part})")
+        log(f"kernel ssd ({label}): x {(B, S, H, P)} B/C {(B, S, N)} "
+            f"{str(dt_)[6:]} chunk {q}{' with init_state' if init else ''}: "
+            "fwd, bwd against the plain versions, max abs err "
+            + "; ".join(readings))
+        if bad:
+            raise AssertionError(f"{label}: SSD kernels disagree with their "
+                                 f"plain versions past the limit: {bad}")
+        if label != "training":
+            continue
+        work = ssd_work(B, S, H, P, N, q, x.element_size())
+        calls = {
+            "ssd_fwd": (lambda: ssd.ssd_fwd(x, dt, A, Bm, Cm, q),
+                        lambda: R.ssd_fwd_plain(x, dt, A, Bm, Cm, q)),
+            "ssd_bwd": (lambda: ssd.ssd_bwd(x, dt, A, Bm, Cm, states, dy,
+                                            None, q),
+                        lambda: R.ssd_grads_plain(x, dt, A, Bm, Cm, dy, q))}
+        for name in ssd.KERNELS:
+            nbytes, ops_n = work[name]
+            b, o_by = bound_ms(nbytes, ops_n, BF16_OPS_PER_S)
+            out[name] = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/ssd_scan.cu",
+                replaces={"ssd_fwd": "src/repro/kernels/ssd_scan/kernel.py:66",
+                          "ssd_bwd": "src/repro/models/ssm.py:87"}[name],
+                max_abs_err=errs[name],
+                ms=time_ms(calls[name][0], 5, flush),
+                plain_ms=time_ms(calls[name][1], 2, flush),
+                bound_ms=b, bound_by=o_by, library_ms=None)
+            log(f"timing {name}: {out[name]['ms']:.4f} ms (bound {b:.4f} ms "
+                f"by {o_by}: {nbytes / 1e9:.3f} GB, {ops_n / 1e9:.1f} GFLOP),"
+                f" plain {out[name]['plain_ms']:.4f} ms, library none (no "
+                "single PyTorch call computes an SSD scan)")
+        del x, Bm, Cm, dt, dy, states, grads, want, alt, got
+    del l2
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_small_reference(torch, M, get_smoke_config):
     """The model on the card agrees with the same model on the CPU at a
     small size (float32, TF32 off)."""
@@ -529,59 +667,108 @@ def main_path(torch, np, ops, fa):
     return total
 
 
-def check_train_reference(torch, np, fa):
-    """One f32 train step of the smoke model on the card (flash kernels)
-    against the same step on the CPU (the model's plain attention): TF32
-    off, so the two differ only in the order of their sums. Tolerances: loss and
-    grad norm 1e-5 relative; params 1e-6 absolute at lr 3e-4 (a step
-    moves a param by ~lr); moments 1e-4 relative."""
+def check_train_reference(torch, np, kern, arch, shape_key, mode):
+    """One f32 train step of ``arch``'s smoke model on the card (its
+    kernels: ``kern``'s counts must move) against the same step on the
+    CPU (the plain versions): TF32 off, so the two differ only in the
+    order of their sums. Loss and grad norm within 1e-5 relative; then,
+    ``mode`` "state": params 1e-6 absolute at lr 3e-4 (a step moves a
+    param by ~lr), moments 1e-4 relative; ``mode`` "grads" (the ssm
+    family): each leaf's gradient in the 2-norm within ``R.tolerance``
+    of the CPU step's own spread between the model's scan chunk and a
+    quarter of it. The post-step state is not held elementwise there:
+    AdamW's first step moves a param by lr * g / (|g| + eps), so a
+    gradient element of ~1e-9 that reblocking the plain scan alone moves
+    by a few percent moves its param by more than 1e-6; the log counts
+    such params for the CPU against itself and for the card."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.registry import get_shape
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels.ssd_scan import ref as R
     from repro_torch.models import model as M
+    from repro_torch.models import ssm as SSM
     from repro_torch.optim import AdamWConfig, ScheduleConfig, init_opt_state
     from repro_torch.parallel.planner import make_plan
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import (make_loss_fn, make_train_step,
+                                        value_and_grad)
     from repro_torch.tree import flatten_with_paths, tree_map
-    cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32")
-    shape = get_shape("train_s192_b2")       # 3 q tiles, ragged-free
-    step_fn = make_train_step(cfg, make_plan(cfg, shape), AdamWConfig(),
-                              ScheduleConfig())
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    shape = get_shape(shape_key)
+    plan = make_plan(cfg, shape)
+    step_fn = make_train_step(cfg, plan, AdamWConfig(), ScheduleConfig())
+    loss_fn = make_loss_fn(cfg, M.CallOptions(remat=plan.remat))
     batch = TokenPipeline(DataConfig(seed=7, vocab_size=cfg.vocab_size,
                                      seq_len=shape.seq_len, global_batch=2,
                                      n_shards=2)).batch_at(0)
     p_cpu = M.init_params(cfg, seed=3, device="cpu")
+
+    def run(dev):
+        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        grads = {}
+        if mode == "grads":
+            _, g = value_and_grad(loss_fn, params, b)
+            grads = {p: t.cpu() for p, t in flatten_with_paths(g)}
+        opt = init_opt_state(params, AdamWConfig())
+        params, opt, met = step_fn(params, opt, b, 150, torch.tensor(1.0))
+        return (met, {p: t.cpu() for p, t in flatten_with_paths(params)},
+                {p: t.cpu() for p, t in flatten_with_paths(opt)}, grads)
+
     res = {}
     for dev in ("cpu", "cuda"):
-        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
-        opt = init_opt_state(params, AdamWConfig())
-        before = fa.counts(dev)
-        params, opt, met = step_fn(
-            params, opt, {k: torch.from_numpy(v).to(dev)
-                          for k, v in batch.items()}, 150,
-            torch.tensor(1.0))
-        ran = {k: fa.counts(dev)[k] - before[k] for k in fa.KERNELS}
+        before = kern.counts(dev)
+        res[dev] = run(dev)
+        ran = {k: kern.counts(dev)[k] - before[k] for k in kern.KERNELS}
         if dev == "cuda" and not all(ran.values()):
-            raise AssertionError(f"the card's step missed a flash kernel: "
-                                 f"{ran}")
-        res[dev] = (met, dict(flatten_with_paths(params)),
-                    dict(flatten_with_paths(opt)))
-    worst = 0.0
+            raise AssertionError(f"the card's step missed a kernel: {ran}")
     for key in ("loss", "grad_norm"):
         a, b = float(res["cpu"][0][key]), float(res["cuda"][0][key])
         if abs(a - b) > 1e-5 * abs(a):
             raise AssertionError(f"train step {key}: CPU {a} vs card {b}")
-    for i, (rtol, atol) in ((1, (0, 1e-6)), (2, (1e-4, 1e-8))):
-        for path, a in res["cpu"][i].items():
-            b = res["cuda"][i][path].cpu()
-            worst = max(worst, float((a.float() - b.float()).abs().max()))
-            if not torch.allclose(a.float(), b.float(), rtol=rtol, atol=atol):
-                raise AssertionError(f"train step state {path}: card and "
-                                     "CPU disagree")
-    log(f"small reference: {TRAIN_ARCH}-smoke f32 train step "
-        f"(seq {shape.seq_len}, lr {float(res['cpu'][0]['lr']):.3e}) on the "
-        f"card matches the CPU: loss {float(res['cuda'][0]['loss']):.6f}, "
-        f"max abs state diff {worst:.2e}")
+    head = (f"small reference: {arch}-smoke f32 train step (seq "
+            f"{shape.seq_len}, lr {float(res['cpu'][0]['lr']):.3e}) on the "
+            f"card matches the CPU: loss {float(res['cuda'][0]['loss']):.6f}"
+            f" vs {float(res['cpu'][0]['loss']):.6f}")
+    if mode == "state":
+        worst = 0.0
+        for i, (rtol, atol) in ((1, (0, 1e-6)), (2, (1e-4, 1e-8))):
+            for path, a in res["cpu"][i].items():
+                b = res["cuda"][i][path]
+                worst = max(worst, float((a.float() - b.float()).abs().max()))
+                if not torch.allclose(a.float(), b.float(), rtol=rtol,
+                                      atol=atol):
+                    raise AssertionError(f"train step state {path}: card "
+                                         "and CPU disagree")
+        log(f"{head}, max abs state diff {worst:.2e}")
+        return
+    chunk = SSM.CHUNK
+    SSM.CHUNK = chunk // 4
+    try:
+        alt = run("cpu")
+    finally:
+        SSM.CHUNK = chunk
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
+    readings, bad = [], []
+    for path, g in res["cpu"][3].items():
+        spread = rel(alt[3][path], g)
+        err = rel(res["cuda"][3][path], g)
+        readings.append((err / R.tolerance(spread), path, err, spread))
+        if err > R.tolerance(spread):
+            bad.append(path)
+    def moved(r):   # params more than 1e-6 away from the CPU step's
+        return sum(int(((t - res["cpu"][1][p]).abs() > 1e-6).sum())
+                   for p, t in r[1].items())
+
+    off = {"cpu": moved(alt), "card": moved(res["cuda"])}
+    share, path, err, spread = max(readings)
+    log(f"{head}; gradients per leaf within 4 x the CPU's chunk {chunk} vs "
+        f"{chunk // 4} spread (at least 1e-4) in the 2-norm, worst {path} "
+        f"{err:.2e} (spread {spread:.2e}, {share:.2f} of its limit); params "
+        f"off by more than 1e-6 after the step: CPU at chunk {chunk // 4} "
+        f"{off['cpu']}, card {off['card']} of "
+        f"{sum(t.numel() for t in res['cpu'][1].values())}")
+    if bad:
+        raise AssertionError(f"train step gradients past the limit: {bad}")
 
 
 def _mem_available() -> int:
@@ -631,21 +818,32 @@ def profile_train_step(torch, tr):
     return met, wall
 
 
-def train_path(torch, np, ops, fa):
-    """Phase 6, the training path (see the module docstring)."""
+def train_path(torch, np, kernel_mods, cell):
+    """A training path (see the module docstring): ``cell`` is one of
+    ``TRAIN_CELLS``; its kernel module ``cell["kernels"]`` must launch
+    its first kernel twice per layer and step (the forward, again under
+    remat) and every other kernel once. Every kernel count is set to 0
+    just before the run and read just after it."""
     from repro_torch.api import CheckpointSession, Policy
     from repro_torch.configs import resolve_config
+    from repro_torch.configs.registry import get_shape
     from repro_torch.train.loop import Trainer, TrainJob
 
-    check_train_reference(torch, np, fa)
-    cfg = resolve_config(TRAIN_ARCH)
+    arch, shape_key, steps = cell["arch"], cell["shape"], TRAIN_STEPS
+    kern = kernel_mods[cell["kernels"]]
+    check_train_reference(torch, np, kern, arch, cell["reference_shape"],
+                          cell["reference"])
+    cfg = resolve_config(arch)
+    shape = get_shape(shape_key)
+    tokens = shape.global_batch * shape.seq_len
     n = cfg.n_params()
     snap = n * (2 + 4 + 4)                      # bf16 params, f32 mu and nu
     store = tempfile.mkdtemp(prefix="chip_smoke_train_")
     disk, mem = shutil.disk_usage(store).free, _mem_available()
-    log(f"train path: {TRAIN_ARCH} full width and depth ({n} params), "
-        f"{TRAIN_SHAPE}; a snapshot is {snap / 1e9:.1f} GB; free disk "
-        f"{disk / 1e9:.1f} GB, MemAvailable {mem / 1e9:.1f} GB")
+    log(f"train path: {arch} full width and depth ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, {n} params), {shape_key}; a snapshot is "
+        f"{snap / 1e9:.1f} GB; free disk {disk / 1e9:.1f} GB, MemAvailable "
+        f"{mem / 1e9:.1f} GB")
     if disk < 1.05 * snap or mem < 1.5 * snap:
         raise AssertionError(
             f"the snapshot needs ~{1.05 * snap / 1e9:.0f} GB of disk and "
@@ -654,12 +852,12 @@ def train_path(torch, np, ops, fa):
             f"GB disk, {mem / 1e9:.1f} GB MemAvailable")
     policy = Policy(**TRAIN_POLICY)
     torch.use_deterministic_algorithms(True)
-    ops.reset_counts()
-    fa.reset_counts()
+    for mod in kernel_mods.values():
+        mod.reset_counts()
     try:
         t0 = time.monotonic()
         sess = CheckpointSession(f"localfs:{store}", policy)
-        tr = Trainer(TrainJob(TRAIN_ARCH, TRAIN_SHAPE), manager=sess.manager)
+        tr = Trainer(TrainJob(arch, shape_key), manager=sess.manager)
         tr.init_state()
         sess.attach(tr)
         torch.cuda.synchronize()
@@ -667,7 +865,7 @@ def train_path(torch, np, ops, fa):
             f"{time.monotonic() - t0:.2f} s; plan {tr.plan}")
         torch.cuda.reset_peak_memory_stats()
         losses, step_ms = [], []
-        for i in range(TRAIN_STEPS):
+        for i in range(steps):
             if i == 4:
                 met, ms = profile_train_step(torch, tr)
             else:
@@ -687,15 +885,15 @@ def train_path(torch, np, ops, fa):
         want = tr.state_digest()
         steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
         log(f"train path: losses {losses}; step {steady:.1f} ms (median of "
-            f"steps 2-{TRAIN_STEPS}; step 1 {step_ms[0]:.1f} ms) = "
-            f"{2 * 4096 / steady * 1e3:.0f} tokens/s; peak device memory "
+            f"steps 2-{steps}; step 1 {step_ms[0]:.1f} ms) = "
+            f"{tokens / steady * 1e3:.0f} tokens/s; peak device memory "
             f"{peak / 1e9:.2f} GB")
         saves = max(st["saves"], 1)
         log(f"train path: {st['saves']} snapshot(s) ({st['chain_links']} chain "
             f"links), capture stall {st['capture_seconds'] / saves:.2f} s per "
             f"snapshot, encode+commit {st['encode_commit_seconds'] / saves:.1f}"
             f" s per snapshot (background; {drain:.1f} s left to drain after "
-            f"step {TRAIN_STEPS}), bytes written {st['bytes_written'] / saves:.0f}"
+            f"step {steps}), bytes written {st['bytes_written'] / saves:.0f}"
             f" per snapshot, dirty/clean chunks {st['dirty_chunks']}/"
             f"{st['clean_chunks']}")
         sess.close()
@@ -712,8 +910,7 @@ def train_path(torch, np, ops, fa):
         restore_s = time.monotonic() - t0
         back = tr2.checkpoint_step()
         timings = tr2.incarnation.timings
-        again = [tr2.train_steps(1)["loss"]
-                 for _ in range(TRAIN_STEPS - back)]
+        again = [tr2.train_steps(1)["loss"] for _ in range(steps - back)]
         got = tr2.state_digest()
         sess2.close()
         del tr2, sess2
@@ -722,6 +919,7 @@ def train_path(torch, np, ops, fa):
         shutil.rmtree(store, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    counts = {name: mod.counts("cuda") for name, mod in kernel_mods.items()}
     log(f"train path: restored step {back} in {restore_s:.1f} s (materialize "
         f"{timings.get('materialize_s', 0):.1f} s, replay "
         f"{timings.get('replay_s', 0):.2f} s, rebind "
@@ -732,15 +930,19 @@ def train_path(torch, np, ops, fa):
     if got != want:
         raise AssertionError(f"state digest after restore {got} != "
                              f"uninterrupted {want}")
-    flash, codec = fa.counts("cuda"), ops.counts("cuda")
-    missing = [k for k, v in flash.items() if v == 0]
-    if missing:
-        raise AssertionError(f"flash kernels never launched on the "
-                             f"training path: {missing}")
+    launched = counts[cell["kernels"]]
+    layer_steps = cfg.n_layers * (steps + steps - back)
+    expect = {k: (2 if i == 0 else 1) * layer_steps
+              for i, k in enumerate(kern.KERNELS)}
+    if launched != expect:
+        raise AssertionError(f"{arch}: kernel launches {launched}, expected "
+                             f"{expect} (forward twice per layer and step "
+                             f"under remat, the rest once)")
     log(f"train path: losses and state digest {got} bit-identical to the "
-        f"uninterrupted run; kernel launches {flash} (fwd twice per layer "
-        f"under remat), codec {codec}")
-    return flash
+        f"uninterrupted run; kernel launches {launched} ({cfg.n_layers} "
+        f"layers x {steps + steps - back} steps; the forward twice per layer "
+        f"under remat); all counts {counts}")
+    return launched
 
 
 def ptxas_summary(report: str):
@@ -774,6 +976,8 @@ def main() -> int:
     from repro_torch.kernels.ckpt_codec import ops, ref
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.nvcc import ARCH_FLAGS
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -785,7 +989,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.monotonic()
-    libs = (ops.LIB, fa.LIB)
+    libs = (ops.LIB, fa.LIB, ssd.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.library(), libs))
     log(f"build: {len(libs)} nvcc {' '.join(ARCH_FLAGS)} in parallel, "
@@ -798,8 +1002,11 @@ def main() -> int:
 
     kernels = check_kernels(torch, ops, ref)
     kernels.update(check_flash(torch, fa))
+    kernels.update(check_ssd(torch, ssd, ssd_ref))
     launches = main_path(torch, np, ops, fa)
-    launches.update(train_path(torch, np, ops, fa))
+    mods = {"codec": ops, "flash": fa, "ssd": ssd}
+    for cell in TRAIN_CELLS:
+        launches.update(train_path(torch, np, mods, cell))
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

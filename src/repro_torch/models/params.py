@@ -28,7 +28,8 @@ class P:
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"        # normal | zeros | ones | scaled
+    init: str = "normal"        # normal | zeros | ones | scaled | ssm_a
+                                #   | ssm_dt | rglru_a
     scale: float = 1.0          # stddev multiplier for normal/scaled
     fan_in: int = 0             # for scaled init: std = scale/sqrt(fan_in)
     dtype: Optional[str] = None  # override model dtype (e.g. f32 norms)
@@ -70,17 +71,25 @@ def init_concrete(template: Dict[str, Any], default_dtype: str, seed: int,
         elif leaf.init == "ones":
             arr = torch.ones(leaf.shape, dtype=dt, device=dev)
         elif leaf.init in ("normal", "scaled"):
-            gen = torch.Generator(device=dev)
-            gen.manual_seed((int(seed) << 31) ^ _stable_hash(path))
             fan_in = leaf.fan_in or (leaf.shape[-2] if len(leaf.shape) >= 2
                                      else leaf.shape[-1])
             std = leaf.scale / np.sqrt(max(fan_in, 1))
-            arr = (torch.randn(leaf.shape, generator=gen, device=dev,
-                               dtype=torch.float32) * std).to(dt)
+            arr = (torch.randn(leaf.shape, generator=_gen(seed, path, dev),
+                               device=dev, dtype=torch.float32) * std).to(dt)
+        elif leaf.init == "ssm_a":
+            # mamba2 A_log: log of uniform [1, 16]
+            u = _uniform(leaf.shape, seed, path, dev, 1.0, 16.0)
+            arr = torch.log(u).to(dt)
+        elif leaf.init == "ssm_dt":
+            # dt bias: softplus^-1 of uniform log-spaced [1e-3, 1e-1]
+            lo, hi = float(np.log(1e-3)), float(np.log(1e-1))
+            u = torch.exp(_uniform(leaf.shape, seed, path, dev, lo, hi))
+            arr = (u + torch.log(-torch.expm1(-u))).to(dt)
         else:
             raise NotImplementedError(
                 f"init {leaf.init!r} belongs to a model family the port "
-                "does not run yet (ROADMAP A8)")
+                "does not run yet (rglru_a: ROADMAP B8, with the hybrid "
+                "family of A8)")
         by_path[path] = arr
     return fill_like(template, by_path)
 
@@ -97,6 +106,22 @@ def init_abstract(template: Dict[str, Any], default_dtype: str):
 def logical_specs(template: Dict[str, Any]) -> Dict[str, Any]:
     """Tree of logical axis-name tuples, one per leaf."""
     return tree_map(lambda leaf: tuple(leaf.axes), template)
+
+
+def _gen(seed: int, path: str, dev: torch.device) -> torch.Generator:
+    """The leaf's own generator, seeded from ``seed`` and its path."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed((int(seed) << 31) ^ _stable_hash(path))
+    return gen
+
+
+def _uniform(shape, seed: int, path: str, dev: torch.device, lo: float,
+             hi: float) -> torch.Tensor:
+    """float32 uniform on [lo, hi): ``lo + (hi - lo) * U[0, 1)``, the
+    form ``jax.random.uniform`` takes."""
+    u = torch.rand(shape, generator=_gen(seed, path, dev), device=dev,
+                   dtype=torch.float32)
+    return lo + (hi - lo) * u
 
 
 def _stable_hash(s: str) -> int:

@@ -11,7 +11,9 @@ activations under full remat (one residual per layer boundary plus 3x
 the logits). The budget is 0.9 x the device's memory:
 ``total_memory`` of the CUDA card, or the JAX package's TPU v5e
 constant (16 GiB) on the CPU, so plans made in the CPU tests equal the
-reference's. Serving plans wait for ROADMAP A9.
+reference's. Serving plans wait for ROADMAP A9; of the serving
+estimate only the ssm family's branch (params, the recurrent decode
+state, activations) is here.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ class MemoryEstimate:
     opt_state: float            # moments, plus the accumulator if any
     activations: float
     total: float
+    kv_cache: float = 0.0       # serving: the decode state
 
     def fits(self, budget: float = 0.9 * HBM_BYTES) -> bool:
         return self.total < budget
@@ -63,6 +66,30 @@ def estimate_train_memory(cfg: ModelConfig, shape: ShapeConfig,
     acts = resid * (depth + 2) + toks * cfg.vocab_size * bp * 3
     total = params + opt + grads + acts
     return MemoryEstimate(params, opt + grads, acts, total)
+
+
+def estimate_serve_memory(cfg: ModelConfig,
+                          shape: ShapeConfig) -> MemoryEstimate:
+    """Bytes of an ssm serving cell on the one device — the ssm branch of
+    the reference's ``estimate_serve_memory`` with no sharding: params,
+    the decode state (the f32 scan state plus the conv windows) and
+    activations. The other families wait for ROADMAP A9."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the port estimates serving memory for the ssm "
+            "family only; the rest waits for ROADMAP A9")
+    n = cfg.n_params()
+    bp = _bytes_per_param(cfg.dtype)
+    params = n * bp
+    b_eff = max(shape.global_batch, 1)
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = d_in // cfg.ssm_head_dim
+    per_layer = b_eff * (nh * cfg.ssm_head_dim * cfg.ssm_state * 4
+                         + 3 * d_in * bp)
+    cache = per_layer * cfg.n_layers
+    acts = b_eff * max(shape.seq_len if shape.kind == "prefill" else 1, 1) \
+        * cfg.d_model * bp * 4
+    return MemoryEstimate(params, 0.0, acts, params + cache + acts, cache)
 
 
 def make_plan(cfg: ModelConfig, shape: ShapeConfig,

@@ -11,7 +11,8 @@ Restore:           the "train" binder below = fresh LowerHalf + op-log
 replay (rebuilds the step function, reapplies schedule/data ops) + the
 upper half rebound onto the replayed device. Continuation is
 bit-identical to the uninterrupted run — the step is deterministic (the
-flash kernels use no atomics), so the same state gives the same bits.
+flash and SSD kernels use no atomics), so the same state gives the same
+bits.
 
 The trainer runs on one device: the CUDA card unless the caller passes
 ``device="cpu"``. Its params and moments are updated in place by every

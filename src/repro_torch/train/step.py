@@ -49,7 +49,7 @@ def make_loss_fn(cfg: ModelConfig, opts: M.CallOptions):
     return loss_fn
 
 
-def _value_and_grad(loss_fn, params, batch):
+def value_and_grad(loss_fn, params, batch):
     """((loss, parts), grads) with grads in each param's dtype."""
     leaves = flatten_with_paths(params)
     tracked = {p: t.detach().requires_grad_(True) for p, t in leaves}
@@ -71,7 +71,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
 
     def train_step(params, opt_state, batch, step, lr_scale):
         if accum == 1:
-            (loss, parts), grads = _value_and_grad(loss_fn, params, batch)
+            (loss, parts), grads = value_and_grad(loss_fn, params, batch)
         else:
             grads = tree_map(lambda p: torch.zeros(
                 p.shape, dtype=torch.float32, device=p.device), params)
@@ -80,7 +80,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
                 mb = {k: v.reshape((accum, v.shape[0] // accum)
                                    + tuple(v.shape[1:]))[i]
                       for k, v in batch.items()}
-                (l, _), g = _value_and_grad(loss_fn, params, mb)
+                (l, _), g = value_and_grad(loss_fn, params, mb)
                 tree_map(lambda a, b: a.add_(b.to(a.dtype)), grads, g)
                 loss = loss + l
                 del g

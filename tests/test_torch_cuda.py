@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version,
-the serving path's kill/restore and a training step on the GPU.
+the serving path's kill/restore, the Mamba-2 prefill and decode, and
+trainer kill/restore on the GPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 This file imports neither JAX nor ``ml_dtypes`` (the machine with the
@@ -10,7 +11,7 @@ autouse fixture, so on the card run it without the conftest:
         --noconftest -m cuda -q tests/test_torch_cuda.py
 
 (the fixed cuBLAS workspace makes the training step deterministic; the
-trainer test skips without it).
+trainer tests skip without it).
 """
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from repro_torch.api import CheckpointSession, Policy
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.ckpt_codec import ops
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Request, ServingEngine
 
@@ -246,3 +248,150 @@ def test_trainer_kill_restore_on_the_card(cuda_device, tmp_path):
     launched = fa.counts("cuda")
     assert launched["flash_fwd"] == 2 * 2 * 6     # 2 layers, remat, 6 steps
     assert launched["flash_dq"] == launched["flash_dkv"] == 2 * 6
+
+
+# --- the SSD scan ----------------------------------------------------------------
+
+SSD_CASES = [   # B, S, H, P, N, chunk, dtype, init_state
+    (2, 256, 3, 32, 16, 64, torch.float32, False),
+    (1, 512, 4, 64, 128, 256, torch.bfloat16, False),  # the model's dims
+    (1, 300, 2, 64, 128, 300, torch.float32, True),    # ragged, chunk = S
+    (2, 100, 3, 16, 16, 100, torch.float32, True),     # smoke dims
+    (1, 192, 2, 8, 8, 64, torch.bfloat16, False),      # matrix dims
+]
+
+
+def _ssd_inputs(device, B, S, H, P, N, dtype, init, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    mk = lambda *s: torch.randn(s, generator=g, device=device)
+    x, Bm, Cm = mk(B, S, H, P).to(dtype), mk(B, S, N).to(dtype), \
+        mk(B, S, N).to(dtype)
+    dt, A = ssd_ref.model_dt_A(B, S, H, g, device)
+    s0 = mk(B, H, P, N) if init else None
+    return x, dt, A, Bm, Cm, s0, mk(B, S, H, P), mk(B, H, P, N)
+
+
+def _alt_chunk(q):
+    return q // 4 if q % 4 == 0 else q
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_kernels_match_plain(cuda_device, case):
+    """ssd_fwd (y, final state) and ssd_bwd (all five gradients) against
+    their plain versions on the same card inputs. Each output's limit is
+    elementwise rtol * (|plain| + rms(plain)), with rtol = max(4 x the
+    spread between the plain version at the chunk and at a quarter of
+    it — the same math blocked differently — , 1e-4)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.kernels.ssd_scan import ref as R
+    B, S, H, P, N, q, dtype, init = case
+    x, dt, A, Bm, Cm, s0, dy, dfin = _ssd_inputs(cuda_device, B, S, H, P, N,
+                                                 dtype, init)
+    ssd.reset_counts()
+    y, fin, states = ssd.ssd_fwd(x, dt, A, Bm, Cm, q, s0)
+    grads = ssd.ssd_bwd(x, dt, A, Bm, Cm, states, dy, dfin, q)
+    torch.cuda.synchronize()
+    assert ssd.counts("cuda") == {"ssd_fwd": 1, "ssd_bwd": 1}
+    assert ssd.counts("cpu") == {"ssd_fwd": 0, "ssd_bwd": 0}
+    want = (*R.ssd_chunked_plain(x, dt, A, Bm, Cm, q, s0),
+            *R.ssd_grads_plain(x, dt, A, Bm, Cm, dy, q, dfin, s0))
+    alt = (*R.ssd_chunked_plain(x, dt, A, Bm, Cm, _alt_chunk(q), s0),
+           *R.ssd_grads_plain(x, dt, A, Bm, Cm, dy, _alt_chunk(q), dfin, s0))
+    got = (y, fin, *grads)
+    names = ("y", "final", "dx", "ddt", "dA", "dB", "dC")
+    for name, a, w, spread in zip(names, got, want,
+                                  R.blocking_spread(want, alt)):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.isfinite(a).all(), name
+        assert R.within(a, w, R.tolerance(spread)) <= 1.0, (name, spread)
+
+
+def test_ssd_kernels_are_deterministic(cuda_device):
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    x, dt, A, Bm, Cm, _, dy, _ = _ssd_inputs(cuda_device, 2, 512, 6, 64, 128,
+                                             torch.bfloat16, False)
+    runs = []
+    for _ in range(2):
+        y, fin, st = ssd.ssd_fwd(x, dt, A, Bm, Cm, 256)
+        runs.append((y, fin, st, *ssd.ssd_bwd(x, dt, A, Bm, Cm, st, dy, None,
+                                              256)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    x, dt, A, Bm, Cm, *_ = _ssd_inputs(cuda_device, 1, 64, 2, 128, 16,
+                                       torch.float32, False)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd.ssd_fwd(x, dt, A, Bm, Cm, 64)
+    x, dt, A, Bm, Cm, *_ = _ssd_inputs(cuda_device, 1, 64, 2, 32, 16,
+                                       torch.float32, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_fwd(x.transpose(2, 3).contiguous().transpose(2, 3), dt, A,
+                    Bm, Cm, 64)
+
+
+def test_mamba2_prefill_and_decode_on_the_card(cuda_device):
+    """The smoke model's prefill (the forward kernel, no gradient, so no
+    chunk states saved) and a decode step on the card against the CPU
+    (plain scan), float32: the same math summed in another order."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.tree import tree_map
+    cfg = get_smoke_config("mamba2-780m").replace(dtype="float32")
+    p_cpu = M.init_params(cfg, seed=3, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    toks = torch.arange(2 * 300, dtype=torch.int32).reshape(2, 300) % 200
+    ssd.reset_counts()
+    res = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        cache = M.init_cache(cfg, 2, 512, device=dev)
+        last, cache = M.prefill(cfg, params, toks.to(dev), cache)
+        step, cache = M.decode_step(
+            cfg, params, cache, torch.tensor([[5], [7]], dtype=torch.int32,
+                                             device=dev),
+            torch.tensor([300, 300], dtype=torch.int32, device=dev))
+        res[dev] = (last.cpu(), step.cpu(), cache["state"].cpu())
+    assert ssd.counts("cuda") == {"ssd_fwd": cfg.n_layers, "ssd_bwd": 0}
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_mamba2_trainer_kill_restore_on_the_card(cuda_device, tmp_path):
+    """The mamba2 smoke trainer through the SSD kernels: snapshots, a
+    drop and restore("latest") on the card, bit-identical under
+    deterministic algorithms (needs CUBLAS_WORKSPACE_CONFIG)."""
+    import os
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    from repro_torch.train.loop import Trainer, TrainJob
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        pytest.skip("set CUBLAS_WORKSPACE_CONFIG=:4096:8 for deterministic "
+                    "cuBLAS")
+    policy = Policy(interval=2, chain=2, sparse_chunk_bytes=CB,
+                    sparse_min_bytes=2 * CB)
+    torch.use_deterministic_algorithms(True)
+    try:
+        ssd.reset_counts()
+        sess = CheckpointSession(f"localfs:{tmp_path}", policy)
+        t = Trainer(TrainJob("mamba2-780m-smoke", "train_s512_b2"),
+                    manager=sess.manager)
+        t.init_state()
+        sess.attach(t)
+        losses = []
+        for _ in range(5):
+            losses.append(t.train_steps(1)["loss"])
+            sess.maybe_snapshot()
+        sess.wait()
+        want = t.state_digest()
+        sess.close()
+        del t
+        t2 = CheckpointSession(f"localfs:{tmp_path}", policy).restore(
+            "latest", expect_kind="train")
+        assert t2.device.type == "cuda" and t2.checkpoint_step() == 4
+        assert t2.train_steps(1)["loss"] == losses[4]
+        assert t2.state_digest() == want
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launched = ssd.counts("cuda")
+    assert launched["ssd_fwd"] == 2 * 2 * 6     # 2 layers, remat, 6 steps
+    assert launched["ssd_bwd"] == 2 * 6

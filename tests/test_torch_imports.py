@@ -45,7 +45,9 @@ def test_the_scan_sees_the_whole_port():
     for mod in ("api/session.py", "core/async_snapshot.py",
                 "kernels/ckpt_codec/ops.py", "serving/engine.py",
                 "models/model.py", "convert.py", "train/loop.py",
-                "kernels/flash_attention/ops.py", "kernels/nvcc.py"):
+                "kernels/flash_attention/ops.py", "kernels/nvcc.py",
+                "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
+                "models/ssm.py"):
         assert os.path.join("src", "repro_torch", mod) in files
 
 

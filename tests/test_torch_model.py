@@ -109,7 +109,7 @@ def test_cache_spec_and_empty_cache_match():
     assert (tc["pos"] == -1).all()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "llama4-scout-17b-a16e",
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e",
                                   "whisper-base", "recurrentgemma-9b"])
 def test_other_families_wait_for_roadmap_a8(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):

@@ -221,7 +221,7 @@ def test_forward_train_logits_match_jax(arch, dtype):
 
 
 def test_other_families_name_their_roadmap_item():
-    cfg = treg.get_smoke_config("mamba2-780m")
+    cfg = treg.get_smoke_config("recurrentgemma-9b")
     with pytest.raises(NotImplementedError, match="A8"):
         M.init_abstract(cfg)
 
