@@ -23,6 +23,11 @@ Phases, each reported on its own line:
    shape with an initial state, with limits set from the plain version's
    own spread between two chunk lengths, its time, its bound and the
    plain version's time (no single PyTorch call computes an SSD scan);
+   then the RG-LRU kernel against its plain version at the prefill shape
+   (x, r, i ``[2, 32768, 4096]`` f32 drawn as a fresh block makes them,
+   ``rg_lru/ref.model_inputs``) from a zero and from a random state, and
+   at a ragged shape with a state, every element within 1e-4 * (|plain|
+   + rms(plain)), with its time, its bound and the plain version's time;
 5. the serving path: phi4-mini-3.8b at full width and depth (bf16
    params from seeded ``torch.Generator``s) serves 6 requests on 4
    slots under a ``CheckpointSession`` with chained snapshots, is
@@ -31,7 +36,24 @@ Phases, each reported on its own line:
    did — once with sparse capture on, once with ``sparse=False``. Every
    codec kernel must have launched, and no flash kernel (serving never
    takes the training route);
-6. the training paths, one per cell of ``TRAIN_CELLS``: one f32 step of
+6. the hybrid path: recurrentgemma-9b-smoke in f32, card against CPU —
+   a prefill past the attention window and greedy decode steps (logits
+   and every cache leaf, the unstacked remainder blocks' too, within
+   1e-5; the same tokens), then the engine's tokens on both devices;
+   recurrentgemma-9b at full width and depth (8,524,206,080 bf16 params
+   from seeded generators) prefills ``prefill_s32768_b2`` (PREFILL_32K's
+   length, batch cut from 32 to 2) through the registered
+   ``prefill_step``, profiled, launching the RG-LRU kernel exactly once
+   per recurrent layer (26) and no other kernel; for each serving prompt
+   a batch-1 prefill (the kernel) against the engine's replay admission
+   (batch-1 decode steps) in f32, logits and every RG-LRU state within
+   1e-4 in the 2-norm; then 6 requests of 32-96 tokens on 4 slots, 24
+   new tokens each, under ``Policy(interval=4, chain=4)`` with sparse
+   capture, killed while the first wave is in flight, restored through
+   ``restore("latest")``: every request token for token as the
+   uninterrupted run, the capture kernels launched, no flash, SSD or
+   RG-LRU kernel during decode or replay;
+7. the training paths, one per cell of ``TRAIN_CELLS``: one f32 step of
    the smoke model on the card matches the same step on the CPU; then
    the model at full width and depth trains 8 steps under a
    ``CheckpointSession`` (one full snapshot, after step 6), is dropped,
@@ -472,6 +494,79 @@ def check_ssd(torch, ssd, R):
     return out
 
 
+RGLRU_PREFILL_SHAPE = (2, 32768, 4096)      # B, S, W: prefill_s32768_b2
+RGLRU_RTOL = 1e-4                           # ROADMAP B8
+# the rglru_a init's range moved next to 1: decays ~0.99995-0.999998 a
+# token, where 1 - a^2 in f32 keeps under two digits (the gate's expm1)
+NEAR_ONE = (0.99999, 0.999999)
+
+
+def check_rglru(torch, rg, R, within):
+    """The RG-LRU kernel against its plain version on the card, with x,
+    r, i and lam drawn as a fresh block makes them (``model_inputs``:
+    decays 0.66-0.996 a token, so a dropped carry shows): at the prefill
+    shape from a zero state and from a random one, and at a ragged shape
+    with a state, once at the init's decays and once at decays near one.
+    Every element within RGLRU_RTOL * (|plain| + rms(plain)); then its
+    time, its bound and the plain version's."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    flush = l2.zero_
+    B, S, W = RGLRU_PREFILL_SHAPE
+    big = R.model_inputs(B, S, W, gen, dev)
+    ragged = R.model_inputs(3, 1000, 1000, gen, dev)
+    slow = R.model_inputs(3, 1000, 1000, gen, dev, u_range=NEAR_ONE)
+    h0 = torch.randn((3, 1000), generator=gen, device=dev)
+    cases = [("prefill, h0 = 0", big, None),
+             ("prefill, random h0", big,
+              torch.randn((B, W), generator=gen, device=dev)),
+             ("ragged, random h0", ragged, h0),
+             ("ragged, decays near one, random h0", slow, h0)]
+    worst_err = 0.0
+    for label, ins, h0 in cases:
+        got = rg.rg_lru_fwd(*ins, h0)
+        want = R.rg_lru_plain(*ins, h0)
+        torch.cuda.synchronize()
+        share = within(got, want, RGLRU_RTOL)
+        err = float((got - want).abs().max())
+        worst_err = max(worst_err, err)
+        a = torch.exp(R.gates(ins[1], ins[3])[0])
+        lo, hi = float(a.min()), float(a.max())
+        del a
+        log(f"kernel rg_lru ({label}): x/r/i {tuple(ins[0].shape)} f32, "
+            f"decays {lo:.6f}-{hi:.6f} a token: max abs err {err:.2e} (rms "
+            f"of the plain "
+            f"{float(want.square().mean().sqrt()):.2e}), worst element "
+            f"{share:.3f} of its limit {RGLRU_RTOL:g} * (|plain| + rms)")
+        if not share <= 1.0:
+            raise AssertionError(f"rg_lru_fwd ({label}) disagrees with its "
+                                 f"plain version: {share:.2f} of the limit")
+        del got, want
+    x, r, i, lam = big
+    n = x.numel()
+    # x, r, i read and h written once (lam is W floats); ~10 operations
+    # an element: the gate's product, exp, expm1, sqrt, i * x, two
+    # multiplies and the FMA of the carry
+    nbytes, ops_n = 16 * n + 4 * W, 10 * n
+    b, o = bound_ms(nbytes, ops_n)
+    out = dict(name="rg_lru_fwd", route="cuda",
+               source="src/repro_torch/csrc/rg_lru.cu",
+               replaces="src/repro/kernels/rg_lru/kernel.py:55",
+               max_abs_err=worst_err,
+               ms=time_ms(lambda: rg.rg_lru_fwd(x, r, i, lam), 10, flush),
+               plain_ms=time_ms(lambda: R.rg_lru_plain(x, r, i, lam), 2,
+                                flush),
+               bound_ms=b, bound_by=o, library_ms=None)
+    log(f"timing rg_lru_fwd: {out['ms']:.4f} ms (bound {b:.4f} ms by {o}: "
+        f"{nbytes / 1e9:.3f} GB, {ops_n / 1e9:.1f} GFLOP), plain "
+        f"{out['plain_ms']:.4f} ms, library none (no single PyTorch call "
+        "computes this recurrence)")
+    del big, ragged, slow, x, r, i, lam, l2
+    torch.cuda.empty_cache()
+    return {"rg_lru_fwd": out}
+
+
 def check_small_reference(torch, M, get_smoke_config):
     """The model on the card agrees with the same model on the CPU at a
     small size (float32, TF32 off)."""
@@ -500,13 +595,16 @@ def check_small_reference(torch, M, get_smoke_config):
         f"card match the CPU within 1e-4 (max abs diff {worst:.2e})")
 
 
-def serve(torch, np, ServingEngine, Request, params, prompts, sess=None,
-          kill_at=None):
-    eng = ServingEngine.create(ARCH, params, n_slots=N_SLOTS, max_seq=MAX_SEQ,
+def serve(torch, ServingEngine, Request, arch, params, prompts, *,
+          n_slots, max_seq, max_new, sess=None, kill_at=None):
+    """Serve ``prompts`` on a new engine for ``arch`` (under ``sess``
+    when given) until every request is done or ``kill_at`` steps ran.
+    Returns (engine, requests, tokens, seconds)."""
+    eng = ServingEngine.create(arch, params, n_slots=n_slots, max_seq=max_seq,
                                manager=sess.manager if sess else None)
     if sess is not None:
         sess.attach(eng)
-    reqs = [Request(rid=i, prompt=p.copy(), max_new=MAX_NEW)
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=max_new)
             for i, p in enumerate(prompts)]
     for r in reqs:
         eng.submit(r)
@@ -580,8 +678,9 @@ def main_path(torch, np, ops, fa):
 
     ops.reset_counts()
     fa.reset_counts()
-    eng, reqs, toks, dt = serve(torch, np, ServingEngine, Request, params,
-                                prompts)
+    sizes = dict(n_slots=N_SLOTS, max_seq=MAX_SEQ, max_new=MAX_NEW)
+    eng, reqs, toks, dt = serve(torch, ServingEngine, Request, ARCH, params,
+                                prompts, **sizes)
     ref = {r.rid: list(r.out) for r in reqs}
     total_steps = eng.steps
     last_logits_ok = all(len(v) == MAX_NEW for v in ref.values())
@@ -602,8 +701,8 @@ def main_path(torch, np, ops, fa):
         store = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             sess = CheckpointSession(f"localfs:{store}", policy)
-            eng, reqs, toks, dt = serve(torch, np, ServingEngine, Request,
-                                        params, prompts, sess,
+            eng, reqs, toks, dt = serve(torch, ServingEngine, Request, ARCH,
+                                        params, prompts, **sizes, sess=sess,
                                         kill_at=total_steps // 2)
             sess.wait()
             st = dict(sess.stats)
@@ -665,6 +764,336 @@ def main_path(torch, np, ops, fa):
     gc.collect()
     torch.cuda.empty_cache()
     return total
+
+
+HYBRID_ARCH = "recurrentgemma-9b"
+# PREFILL_32K's 32,768 tokens at a global batch cut from 32 to 2
+HYBRID_PREFILL = "prefill_s32768_b2"
+HYBRID_SERVE = dict(n_slots=4, max_seq=1024, max_new=24)
+HYBRID_N_REQ, HYBRID_PROMPT_LENS = 6, (32, 97)
+HYBRID_POLICY = dict(interval=4, chain=4)
+# prefill against replay admission, f32 at full width and depth, in the
+# 2-norm (measured ~1e-5; bf16 rounding at 38 layers leaves both bf16
+# paths ~5.5e-2 from the f32 model, beyond C8's 2e-2 set at smoke depth)
+F32_REL = 1e-4
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def check_hybrid_reference(torch, np, M, rg, get_smoke_config, ServingEngine,
+                           Request, arch=HYBRID_ARCH):
+    """``arch``'s smoke model in float32 (TF32 off), card against CPU:
+    prefill of 40 tokens (past the window of 32) then 32 greedy decode
+    steps — logits and every cache leaf, the remainder blocks' too,
+    within 1e-5 and the same tokens; then the engine's greedy tokens on
+    both devices (admission by replay)."""
+    from repro_torch.tree import flatten_with_paths, tree_map
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    p_cpu = M.init_params(cfg, seed=3, device="cpu")
+    p_gpu = tree_map(lambda t: t.cuda(), p_cpu)
+    toks = torch.arange(2 * 40, dtype=torch.int32).reshape(2, 40) \
+        % cfg.vocab_size
+    res, worst = {}, 0.0
+    before = rg.counts("cuda")["rg_lru_fwd"]
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        cache = M.init_cache(cfg, 2, 96, device=dev)
+        logits, _ = M.prefill(cfg, params, toks.to(dev), cache)
+        # copies: on the CPU .cpu() would alias the cache that the decode
+        # steps below write in place
+        seen = [logits.to("cpu", copy=True)] + [
+            t.to("cpu", copy=True) for _, t in flatten_with_paths(cache)]
+        gen = []
+        for pos in range(40, 72):
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            gen.append(nxt.cpu())
+            logits, _ = M.decode_step(
+                cfg, params, cache, nxt,
+                torch.full((2,), pos, dtype=torch.int32, device=dev))
+            seen.append(logits.cpu())
+        res[dev] = (seen + [t.to("cpu", copy=True)
+                            for _, t in flatten_with_paths(cache)],
+                    torch.cat(gen, dim=1))
+    launched = rg.counts("cuda")["rg_lru_fwd"] - before
+    n_rglru = _n_rglru(cfg)
+    if launched != n_rglru:
+        raise AssertionError(f"{arch}-smoke prefill launched rg_lru_fwd "
+                             f"{launched} times, expected {n_rglru}")
+    for a, b in zip(res["cuda"][0], res["cpu"][0]):
+        worst = max(worst, float((a.float() - b.float()).abs().max()))
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{arch}-smoke: card and CPU disagree "
+                                 f"past 1e-5 (max abs diff {worst:.2e})")
+    if not torch.equal(res["cuda"][1], res["cpu"][1]):
+        raise AssertionError(f"{arch}-smoke: greedy tokens differ")
+    prompts = [np.arange(n, dtype=np.int32) * 7 % cfg.vocab_size
+               for n in (12, 45, 7)]
+    outs = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        eng = ServingEngine(cfg, params, dev, n_slots=2, max_seq=96)
+        reqs = [Request(rid=i, prompt=p, max_new=30)
+                for i, p in enumerate(prompts)]
+        for q in reqs:
+            eng.submit(q)
+        eng.run_until_drained()
+        outs[dev] = [q.out for q in reqs]
+    if outs["cuda"] != outs["cpu"] or any(len(o) != 30 for o in outs["cpu"]):
+        raise AssertionError(f"{arch}-smoke: the engine's tokens differ "
+                             f"between card and CPU")
+    log(f"small reference: {arch}-smoke f32 ({cfg.n_layers} layers, "
+        f"{n_rglru} RG-LRU launches in the prefill) on the card matches "
+        f"the CPU: prefill of 40 tokens and 32 greedy decode steps past "
+        f"the window of {cfg.attn_window}, logits and all "
+        f"{len(res['cpu'][0]) - 33} cache leaves twice within 1e-5 (max "
+        f"abs diff {worst:.2e}), the same tokens; engine tokens equal on "
+        "both devices")
+
+
+def _n_rglru(cfg) -> int:
+    """The recurrent layers of a hybrid config (one RG-LRU kernel launch
+    each in a prefill)."""
+    period = len(cfg.block_pattern)
+    return sum(1 for i in range(cfg.n_layers)
+               if cfg.block_pattern[i % period] == "rglru")
+
+
+def _all_counts(mods):
+    return {name: mod.counts("cuda") for name, mod in mods.items()}
+
+
+def _reset_all(mods):
+    for mod in mods.values():
+        mod.reset_counts()
+
+
+def profile_call(torch, fn, n_top=6):
+    """Run ``fn`` once under torch.profiler (device activity only):
+    returns (its result, wall ms, ms of device kernels, device kernel
+    launches, the ``n_top`` largest kernels by time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        key = _kernel_name(e.name)
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    return out, wall, dev, len(kernels), top
+
+
+def prefill_vs_replay(torch, M, ServingEngine, rg, cfg, params, prompts):
+    """For each prompt: the relative 2-norm distance between the engine's
+    replay admission (``ServingEngine.replay``: batch-1 decode steps, no
+    RG-LRU kernel) and a batch-1 ``prefill`` (the kernel once per
+    recurrent layer), for the next-token logits and every RG-LRU state
+    leaf. Returns ([{path: distance}] per prompt, [prefill logits])."""
+    from repro_torch.tree import flatten_with_paths
+    max_seq = HYBRID_SERVE["max_seq"]
+    eng = ServingEngine(cfg, params, "cuda", n_slots=1, max_seq=max_seq)
+    out, logits = [], []
+    for p in prompts:
+        before = rg.counts("cuda")["rg_lru_fwd"]
+        r_logits, r_cache = eng.replay(p)
+        if rg.counts("cuda")["rg_lru_fwd"] != before:
+            raise AssertionError("replay admission launched rg_lru_fwd")
+        one = M.init_cache(cfg, 1, max_seq, "cuda")
+        p_logits, one = M.prefill(cfg, params,
+                                  torch.from_numpy(p[None]).cuda(), one)
+        rels = {"logits": _rel(r_logits, p_logits)}
+        rels.update({path: _rel(a, b) for (path, a), (_, b) in zip(
+            flatten_with_paths(r_cache), flatten_with_paths(one))
+            if path.endswith("['state']")})
+        out.append(rels)
+        logits.append(p_logits)
+    return out, logits
+
+
+def hybrid_path(torch, np, mods):
+    """The hybrid family's path (see the module docstring): the smoke
+    model card against CPU; recurrentgemma-9b at full width and depth
+    prefills ``HYBRID_PREFILL`` through the registered ``prefill_step``
+    (the RG-LRU kernel once per recurrent layer), its prefill state is
+    held against the engine's replay admission, and it serves under C/R
+    through kill -> restore("latest"). Every kernel count is set to 0
+    just before each run of the path and read just after it."""
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.configs import get_smoke_config, resolve_config
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.core.split_state import LowerHalf
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.tree import flatten_with_paths, tree_map
+    rg = mods["rg_lru"]
+
+    check_hybrid_reference(torch, np, M, rg, get_smoke_config,
+                           ServingEngine, Request)
+    cfg = resolve_config(HYBRID_ARCH)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for _, v in flatten_with_paths(params))
+    n_rglru = _n_rglru(cfg)
+    log(f"hybrid path: {HYBRID_ARCH} full width and depth ({cfg.n_layers} "
+        f"layers, {n_rglru} RG-LRU, d_model {cfg.d_model}, width "
+        f"{cfg.rglru_width}, head dim {cfg.resolved_head_dim}, window "
+        f"{cfg.attn_window}), {n_params} params counted from the tensors "
+        f"(ModelConfig.n_params() says {cfg.n_params()}), made in "
+        f"{time.monotonic() - t0:.1f} s")
+
+    # --- prefill at the published length, through the registered step
+    shape = get_shape(HYBRID_PREFILL)
+    B, S = shape.global_batch, shape.seq_len
+    lower = LowerHalf(mesh_factory=lambda: torch.device("cuda"))
+    lower.mesh_create((1, 1), ("data", "model"))
+    prefill = lower.executable(lower.compile_step("prefill_step",
+                                                  HYBRID_ARCH, shape.name))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    cache = lower.cache(lower.cache_alloc(HYBRID_ARCH, B, S))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all(mods)
+    (logits, cache), wall, dev, n_k, top = profile_call(
+        torch, lambda: prefill(params, toks, cache))
+    counts = _all_counts(mods)
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts["rg_lru"]["rg_lru_fwd"]
+    others = {k: v for name, c in counts.items() if name != "rg_lru"
+              for k, v in c.items() if v}
+    log(f"hybrid prefill: {shape.name} ({B} x {S} tokens) in {wall:.1f} ms "
+        f"= {B * S / wall * 1e3:.0f} tokens/s, {dev:.1f} ms of device "
+        f"kernels ({n_k} launches), device idle {100 * (1 - dev / wall):.1f}%"
+        f" (torch.profiler); rg_lru_fwd launches {launches}, other kernels "
+        f"{others or 'none'}; peak device memory {peak / 1e9:.2f} GB; by "
+        "kernel: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top))
+    if launches != n_rglru or others:
+        raise AssertionError(f"prefill launched rg_lru_fwd {launches} times "
+                             f"(expected {n_rglru}) and {others}")
+    if tuple(logits.shape) != (B, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite [B, V]")
+    # one state leaf per block of the pattern (stacked over the groups)
+    # and per remainder block: n_rglru [B, W] states in all
+    states = [t for p, t in flatten_with_paths(cache)
+              if p.endswith("['state']")]
+    if sum(t.numel() for t in states) != n_rglru * B * cfg.rglru_width \
+            or not all(bool(torch.isfinite(t).all()) for t in states):
+        raise AssertionError("prefill states are not n_rglru finite "
+                             "[B, W] states")
+    del cache, toks, logits, states
+    torch.cuda.empty_cache()
+
+    # --- the kernel's prefill state against the engine's replay admission
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.randint(*HYBRID_PROMPT_LENS, size=HYBRID_N_REQ)]
+    t0 = time.monotonic()
+    p32 = tree_map(lambda t: t.float(), params)
+    rels, f32_logits = prefill_vs_replay(torch, M, ServingEngine, rg,
+                                         cfg.replace(dtype="float32"), p32,
+                                         prompts)
+    del p32
+    torch.cuda.empty_cache()
+    worst = max((rel, f"prompt {k} {path}") for k, r in enumerate(rels)
+                for path, rel in r.items())
+    # the bf16 model, for the record (ROADMAP C8 at full depth): its
+    # prefill against its replay, and its prefill logits against the f32
+    # model's
+    bf16, bf16_logits = prefill_vs_replay(torch, M, ServingEngine, rg, cfg,
+                                          params, prompts)
+    worst_bf16 = max(rel for r in bf16 for rel in r.values())
+    off = [_rel(b, f) for b, f in zip(bf16_logits, f32_logits)]
+    log(f"prefill vs replay: {HYBRID_N_REQ} prompts of "
+        f"{[len(p) for p in prompts]} tokens, a batch-1 prefill (the "
+        f"kernel) against the engine's replay admission (batch-1 decode "
+        f"steps), next-token logits and the states of all {n_rglru} RG-LRU "
+        f"layers in the 2-norm: the f32 model worst {worst[0]:.2e} "
+        f"({worst[1]}; limit {F32_REL:g}); the bf16 model worst "
+        f"{worst_bf16:.2e} (not held), its prefill logits "
+        f"{min(off):.2e}-{max(off):.2e} from the f32 model's; "
+        f"{time.monotonic() - t0:.1f} s")
+    if not worst[0] <= F32_REL:
+        raise AssertionError(f"prefill vs replay in f32: {worst[1]} "
+                             f"{worst[0]:.2e} > {F32_REL}")
+
+    # --- serving under C/R
+    _reset_all(mods)
+    eng, reqs, toks_n, dt = serve(torch, ServingEngine, Request, HYBRID_ARCH,
+                                  params, prompts, **HYBRID_SERVE)
+    ref = {r.rid: list(r.out) for r in reqs}
+    total_steps = eng.steps
+    if not all(len(v) == HYBRID_SERVE["max_new"] for v in ref.values()):
+        raise AssertionError("uninterrupted hybrid run did not finish")
+    log(f"hybrid uninterrupted: {total_steps} engine steps, {toks_n} tokens "
+        f"in {dt:.2f} s = {toks_n / dt:.1f} tokens/s (replay admission "
+        f"included)")
+    del eng
+    # the last snapshot before the kill falls while the first wave of
+    # requests is in flight, so the restore rebinds live slot state
+    kill_at = total_steps // 2 - 2
+    policy = Policy(**HYBRID_POLICY)
+    store = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
+    try:
+        sess = CheckpointSession(f"localfs:{store}", policy)
+        eng, reqs, toks_n, dt = serve(torch, ServingEngine, Request,
+                                      HYBRID_ARCH, params, prompts,
+                                      **HYBRID_SERVE, sess=sess,
+                                      kill_at=kill_at)
+        sess.wait()
+        st = dict(sess.stats)
+        done = {r.rid: list(r.out) for r in reqs if r.done}
+        in_flight = sum(1 for r in eng.slot_req if r is not None)
+        sess.close()
+        del eng, sess                                    # the kill
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        sess2 = CheckpointSession(f"localfs:{store}", policy)
+        eng2 = sess2.restore("latest", params=params)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        back, live = eng2.steps, eng2.live_requests()
+        live_slots = sum(1 for r in eng2.slot_req if r is not None)
+        eng2.run_until_drained()
+        torch.cuda.synchronize()
+        got = dict(done)
+        got.update({r.rid: list(r.out) for r in live})
+        sess2.close()
+        del eng2
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    counts = _all_counts(mods)
+    if got != ref:
+        bad = sorted(k for k in ref if got.get(k) != ref[k])
+        raise AssertionError(f"hybrid restored run diverged on {bad}")
+    saves = max(st["saves"], 1)
+    log(f"hybrid serving: killed at step {kill_at} ({in_flight} requests in "
+        f"flight), restored step {back} ({live_slots} slots live) in "
+        f"{restore_s:.2f} s; all {HYBRID_N_REQ} requests token-identical to "
+        f"the uninterrupted run; {st['saves']} snapshots ({st['chain_links']}"
+        f" chain links), capture stall {st['capture_seconds'] / saves * 1e3:.1f}"
+        f" ms per snapshot, encode+commit {st['encode_commit_seconds'] / saves:.2f}"
+        f" s, dirty/clean chunks {st['dirty_chunks']}/{st['clean_chunks']}, "
+        f"bytes written {st['bytes_written']}; kernel launches {counts}")
+    if not all(counts["codec"][k] for k in ("fingerprint", "fused_capture")):
+        raise AssertionError(f"hybrid serving missed a capture kernel: "
+                             f"{counts['codec']}")
+    ran = {k: v for name in ("flash", "ssd", "rg_lru")
+           for k, v in counts[name].items() if v}
+    if ran:
+        raise AssertionError(f"decode or replay launched {ran}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rg_lru_fwd": launches}
 
 
 def check_train_reference(torch, np, kern, arch, shape_key, mode):
@@ -796,25 +1225,11 @@ def _kernel_name(name: str) -> str:
 def profile_train_step(torch, tr):
     """Wall time of one train step against the device time of its
     kernels (torch.profiler), hence the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        met = tr.train_steps(1)
-        torch.cuda.synchronize()
-        wall = (time.monotonic() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    dev = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name = {}
-    for e in kernels:
-        key = _kernel_name(e.name)
-        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    met, wall, dev, n_k, top = profile_call(torch, lambda: tr.train_steps(1),
+                                            n_top=8)
     log(f"train profile: {wall:.1f} ms wall, {dev:.1f} ms of device kernels "
-        f"({len(kernels)} launches), device idle "
-        f"{100 * (1 - dev / wall):.1f}% of the step; by kernel: "
-        + "; ".join(f"{n} {t:.1f} ms" for n, t in top))
+        f"({n_k} launches), device idle {100 * (1 - dev / wall):.1f}% of "
+        "the step; by kernel: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top))
     return met, wall
 
 
@@ -852,8 +1267,7 @@ def train_path(torch, np, kernel_mods, cell):
             f"GB disk, {mem / 1e9:.1f} GB MemAvailable")
     policy = Policy(**TRAIN_POLICY)
     torch.use_deterministic_algorithms(True)
-    for mod in kernel_mods.values():
-        mod.reset_counts()
+    _reset_all(kernel_mods)
     try:
         t0 = time.monotonic()
         sess = CheckpointSession(f"localfs:{store}", policy)
@@ -919,7 +1333,7 @@ def train_path(torch, np, kernel_mods, cell):
         shutil.rmtree(store, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    counts = {name: mod.counts("cuda") for name, mod in kernel_mods.items()}
+    counts = _all_counts(kernel_mods)
     log(f"train path: restored step {back} in {restore_s:.1f} s (materialize "
         f"{timings.get('materialize_s', 0):.1f} s, replay "
         f"{timings.get('replay_s', 0):.2f} s, rebind "
@@ -976,6 +1390,8 @@ def main() -> int:
     from repro_torch.kernels.ckpt_codec import ops, ref
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.nvcc import ARCH_FLAGS
+    from repro_torch.kernels.rg_lru import ops as rg
+    from repro_torch.kernels.rg_lru import ref as rg_ref
     from repro_torch.kernels.ssd_scan import ops as ssd
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
@@ -989,7 +1405,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.monotonic()
-    libs = (ops.LIB, fa.LIB, ssd.LIB)
+    libs = (ops.LIB, fa.LIB, ssd.LIB, rg.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.library(), libs))
     log(f"build: {len(libs)} nvcc {' '.join(ARCH_FLAGS)} in parallel, "
@@ -1003,8 +1419,10 @@ def main() -> int:
     kernels = check_kernels(torch, ops, ref)
     kernels.update(check_flash(torch, fa))
     kernels.update(check_ssd(torch, ssd, ssd_ref))
+    kernels.update(check_rglru(torch, rg, rg_ref, ssd_ref.within))
     launches = main_path(torch, np, ops, fa)
-    mods = {"codec": ops, "flash": fa, "ssd": ssd}
+    mods = {"codec": ops, "flash": fa, "ssd": ssd, "rg_lru": rg}
+    launches.update(hybrid_path(torch, np, mods))
     for cell in TRAIN_CELLS:
         launches.update(train_path(torch, np, mods, cell))
     for name, k in kernels.items():

@@ -1,23 +1,27 @@
-"""Model assembly for the dense decoder and the ssm family (Mamba-2) —
-the port of ``repro.models.model``: ``param_template``,
-``forward_train``, ``cache_spec``, ``init_cache``, ``prefill``,
-``decode_step``, ``init_params``, ``init_abstract`` and
-``logical_specs``.
+"""Model assembly for the dense decoder, the ssm family (Mamba-2) and the
+hybrid family (Griffin/RecurrentGemma) — the port of
+``repro.models.model``: ``param_template``, ``forward_train``,
+``cache_spec``, ``init_cache``, ``prefill``, ``decode_step``,
+``init_params``, ``init_abstract`` and ``logical_specs``, plus
+``batch_axes``, where each decode-state leaf keeps its batch (slot)
+index.
 
-Parameters are nested dicts of tensors stacked over a leading layer
-axis, exactly the JAX package's layout and paths; where the JAX package
-runs the layer stack under ``jax.lax.scan``, this is a Python loop that
-indexes the stacked dim (a view, no copy). Remat "full" wraps each
+Parameters are nested dicts of tensors stacked over a leading layer (or,
+for the hybrid, block-group) axis, exactly the JAX package's layout and
+paths; the hybrid's remainder blocks (``rem{i}_{kind}``, when the layer
+count is no multiple of the block pattern) are not stacked. Where the
+JAX package runs a stack under ``jax.lax.scan``, this is a Python loop
+that indexes the stacked dim (a view, no copy). Remat "full" wraps each
 layer in ``torch.utils.checkpoint`` (non-reentrant), where the JAX
-package wraps the scan body in ``jax.checkpoint``. Decode state (the KV
-cache, the SSM conv and scan states) is updated in place. Other families
-(moe, hybrid, the whisper encoder-decoder) raise ``NotImplementedError``
-naming ROADMAP A8.
+package wraps the scan body in ``jax.checkpoint``. Decode state (KV
+caches, conv windows, recurrent states) is updated in place. The moe
+family and the whisper encoder-decoder raise ``NotImplementedError``
+naming ROADMAP A8, and so does hybrid training.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -25,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.host import resolve_device, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import hybrid as HY
 from repro_torch.models import params as PM
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import P, stacked
@@ -40,12 +45,34 @@ class TensorSpec:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "ssm") or cfg.n_experts \
-            or cfg.is_encoder_decoder:
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid") \
+            or cfg.n_experts or cfg.is_encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            "port runs the dense decoder and the ssm family (other "
-            "families: ROADMAP A8)")
+            "port runs the dense decoder, the ssm and the hybrid family "
+            "(other families: ROADMAP A8)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise unless the port can train ``cfg``'s family."""
+    _check_family(cfg)
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: hybrid training is not ported yet (ROADMAP A8; "
+            "Next slices 1: an RG-LRU backward kernel, flash attention at "
+            "head dim 256, a plan for 8.5e9 params); the port serves and "
+            "prefills the hybrid family")
+
+
+def _hybrid_layout(cfg: ModelConfig):
+    """(number of stacked block groups, [(key, kind)] of one group,
+    [(key, kind)] of the unstacked remainder blocks)."""
+    n_groups, rem = divmod(cfg.n_layers, len(cfg.block_pattern))
+    group = [(f"b{i}_{kind}", kind) for i, kind in
+             enumerate(cfg.block_pattern)]
+    tail = [(f"rem{i}_{cfg.block_pattern[i]}", cfg.block_pattern[i])
+            for i in range(rem)]
+    return n_groups, group, tail
 
 
 # ---------------------------------------------------------------------------
@@ -63,6 +90,15 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
         t["lm_head"] = P((d, v), ("embed", "vocab"), fan_in=d)
     if cfg.family == "ssm":
         t["layers"] = stacked(cfg.n_layers, SSM.ssm_block_template(cfg))
+    elif cfg.family == "hybrid":
+        def block(kind):
+            return HY.rglru_block_template(cfg) if kind == "rglru" \
+                else HY.attn_block_template(cfg)
+        n_groups, group, tail = _hybrid_layout(cfg)
+        t["groups"] = stacked(n_groups, {k: block(kind)
+                                         for k, kind in group})
+        for k, kind in tail:
+            t[k] = block(kind)
     else:
         t["layers"] = stacked(cfg.n_layers, {
             "ln1": L.norm_template(cfg),
@@ -147,11 +183,41 @@ def _scan_ssm(cfg: ModelConfig, stacked_params, x: torch.Tensor, cache,
     return x
 
 
+def _hybrid_block(cfg: ModelConfig, kind: str, p, x: torch.Tensor,
+                  positions: torch.Tensor, cache) -> torch.Tensor:
+    if kind != "rglru":
+        return HY.attn_block_forward(cfg, p, x, positions, cache)
+    x, new = HY.rglru_block_forward(cfg, p, x, cache)
+    if cache is not None:
+        for k, t in new.items():
+            cache[k].copy_(t)
+    return x
+
+
+def _scan_hybrid(cfg: ModelConfig, params, x: torch.Tensor,
+                 positions: torch.Tensor, cache) -> torch.Tensor:
+    """The block groups in order (the JAX package's ``lax.scan`` over
+    ``groups``), then the remainder blocks; ``cache`` is written in
+    place."""
+    n_groups, group, tail = _hybrid_layout(cfg)
+    for g, p_g in enumerate(_unstack(params["groups"], n_groups)):
+        c_g = _layer(cache["groups"], g) if cache is not None else None
+        for k, kind in group:
+            x = _hybrid_block(cfg, kind, p_g[k], x, positions,
+                              c_g[k] if c_g is not None else None)
+    for k, kind in tail:
+        x = _hybrid_block(cfg, kind, params[k], x, positions,
+                          cache[k] if cache is not None else None)
+    return x
+
+
 def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
               positions: torch.Tensor, cache,
               opts: CallOptions = CallOptions()) -> torch.Tensor:
     if cfg.family == "ssm":
         return _scan_ssm(cfg, params["layers"], x, cache, opts)
+    if cfg.family == "hybrid":
+        return _scan_hybrid(cfg, params, x, positions, cache)
     return _decoder(cfg, params["layers"], x, positions, cache, opts)
 
 
@@ -172,8 +238,9 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
     Returns (logits [B,S,V], aux: dict). Positions are ``arange(S)``, so
     attention takes its no-cache branch (the flash kernels on the card);
-    the ssm family's scan runs the SSD kernels on the card."""
-    _check_family(cfg)
+    the ssm family's scan runs the SSD kernels on the card. The hybrid
+    family is not trainable yet (``check_trainable``)."""
+    check_trainable(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
@@ -186,24 +253,62 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
 
 # --- caches -----------------------------------------------------------------
 
-def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
-    """Shapes/dtypes of the whole model's decode state: per leaf
-    [L, B, Smax, Hkv, hd] for k/v and [L, B, Smax] int32 positions; for
-    the ssm family the conv states [L, B, cw-1, ...] and the scan state
-    [L, B, H, P, N] float32."""
-    _check_family(cfg)
-    n = cfg.n_layers
-    if cfg.family == "ssm":
-        return {k: TensorSpec((n,) + shape, dt) for k, (shape, dt)
-                in SSM.ssm_cache_spec(cfg, batch).items()}
+def _kv_spec(cfg: ModelConfig, batch: int, max_seq: int):
+    """(shape, dtype) of one attention layer's cache: k/v [B, Smax, Hkv,
+    hd] and int32 positions [B, Smax]; with a window, Smax is at most the
+    window (a ring buffer)."""
     h, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
     smax = min(max_seq, cfg.attn_window) if cfg.attn_window else max_seq
     dt = torch_dtype(cfg.dtype)
-    return {
-        "k": TensorSpec((n, batch, smax, nkv, h), dt),
-        "v": TensorSpec((n, batch, smax, nkv, h), dt),
-        "pos": TensorSpec((n, batch, smax), torch.int32),
-    }
+    return {"k": ((batch, smax, nkv, h), dt), "v": ((batch, smax, nkv, h), dt),
+            "pos": ((batch, smax), torch.int32)}
+
+
+def _cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
+                leaf: Callable[[Tuple[int, ...], torch.dtype, Optional[int]],
+                               Any]):
+    """The decode-state tree with each leaf ``leaf(shape, dtype, n)``:
+    one layer's shape and dtype, and the number of layers (or hybrid
+    block groups) stacked on a leading axis in front of it — None for
+    a block that stands alone (the hybrid's ``rem*`` blocks)."""
+    def block(spec, n):
+        return {k: leaf(shape, dt, n) for k, (shape, dt) in spec.items()}
+
+    if cfg.family == "ssm":
+        return block(SSM.ssm_cache_spec(cfg, batch), cfg.n_layers)
+    if cfg.family == "hybrid":
+        def one(kind):
+            return HY.rglru_cache_spec(cfg, batch) if kind == "rglru" \
+                else _kv_spec(cfg, batch, max_seq)
+        n_groups, group, tail = _hybrid_layout(cfg)
+        out: Dict[str, Any] = {"groups": {k: block(one(kind), n_groups)
+                                          for k, kind in group}}
+        out.update({k: block(one(kind), None) for k, kind in tail})
+        return out
+    return block(_kv_spec(cfg, batch, max_seq), cfg.n_layers)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
+    """Shapes/dtypes of the whole model's decode state, the JAX
+    package's tree: k/v [L, B, Smax, Hkv, hd] and [L, B, Smax] int32
+    positions; for the ssm family the conv states [L, B, cw-1, ...] and
+    the scan state [L, B, H, P, N] float32; for the hybrid, per block of
+    the pattern under ``groups`` (stacked over groups) and per remainder
+    block (unstacked) the KV cache, or the conv window [B, 3, W] and the
+    f32 state [B, W]."""
+    _check_family(cfg)
+    return _cache_tree(cfg, batch, max_seq, lambda shape, dt, n: TensorSpec(
+        shape if n is None else (n,) + shape, dt))
+
+
+def batch_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Per decode-state leaf (the tree of ``cache_spec``), the axis that
+    holds the batch (slot) index: 1 behind a stacked layer or group
+    axis, 0 on a block that stands alone. The leaf's rank does not
+    tell: a remainder block's conv window [B, 3, W] has rank 3 and its
+    batch on axis 0."""
+    _check_family(cfg)
+    return _cache_tree(cfg, 1, 1, lambda shape, dt, n: 0 if n is None else 1)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
@@ -216,7 +321,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
             return torch.full(s.shape, -1, dtype=torch.int32, device=dev)
         return torch.zeros(s.shape, dtype=s.dtype, device=dev)
 
-    return {k: make(s) for k, s in cache_spec(cfg, batch, max_seq).items()}
+    return tree_map(make, cache_spec(cfg, batch, max_seq))
 
 
 # --- prefill / decode --------------------------------------------------------

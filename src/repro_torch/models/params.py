@@ -85,11 +85,13 @@ def init_concrete(template: Dict[str, Any], default_dtype: str, seed: int,
             lo, hi = float(np.log(1e-3)), float(np.log(1e-1))
             u = torch.exp(_uniform(leaf.shape, seed, path, dev, lo, hi))
             arr = (u + torch.log(-torch.expm1(-u))).to(dt)
+        elif leaf.init == "rglru_a":
+            # RG-LRU forget-gate param: softplus^-1(-log a), a uniform
+            # [0.9, 0.999]
+            u = _uniform(leaf.shape, seed, path, dev, 0.9, 0.999)
+            arr = torch.log(torch.expm1(-torch.log(u))).to(dt)
         else:
-            raise NotImplementedError(
-                f"init {leaf.init!r} belongs to a model family the port "
-                "does not run yet (rglru_a: ROADMAP B8, with the hybrid "
-                "family of A8)")
+            raise ValueError(f"unknown init {leaf.init!r}")
         by_path[path] = arr
     return fill_like(template, by_path)
 

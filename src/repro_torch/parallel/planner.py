@@ -12,8 +12,11 @@ the logits). The budget is 0.9 x the device's memory:
 ``total_memory`` of the CUDA card, or the JAX package's TPU v5e
 constant (16 GiB) on the CPU, so plans made in the CPU tests equal the
 reference's. Serving plans wait for ROADMAP A9; of the serving
-estimate only the ssm family's branch (params, the recurrent decode
-state, activations) is here.
+estimate only the ssm and hybrid branches (params, the decode state,
+activations) are here. The hybrid's params come from
+``ModelConfig.n_params()``, which counts 6,611,185,664 for
+recurrentgemma-9b against 8,524,206,080 template leaves (ROADMAP); the
+estimate keeps the reference's count.
 """
 from __future__ import annotations
 
@@ -70,23 +73,35 @@ def estimate_train_memory(cfg: ModelConfig, shape: ShapeConfig,
 
 def estimate_serve_memory(cfg: ModelConfig,
                           shape: ShapeConfig) -> MemoryEstimate:
-    """Bytes of an ssm serving cell on the one device — the ssm branch of
-    the reference's ``estimate_serve_memory`` with no sharding: params,
-    the decode state (the f32 scan state plus the conv windows) and
-    activations. The other families wait for ROADMAP A9."""
-    if cfg.family != "ssm":
+    """Bytes of an ssm or hybrid serving cell on the one device — those
+    branches of the reference's ``estimate_serve_memory`` with no
+    sharding: params, the decode state and activations. The ssm state is
+    the f32 scan state plus the conv windows; the hybrid's, the windowed
+    KV caches of its attention layers plus each recurrent layer's f32
+    state and conv window. The other families wait for ROADMAP A9."""
+    if cfg.family not in ("ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the port estimates serving memory for the ssm "
-            "family only; the rest waits for ROADMAP A9")
+            "and hybrid families only; the rest waits for ROADMAP A9")
     n = cfg.n_params()
     bp = _bytes_per_param(cfg.dtype)
     params = n * bp
     b_eff = max(shape.global_batch, 1)
-    d_in = cfg.ssm_expand * cfg.d_model
-    nh = d_in // cfg.ssm_head_dim
-    per_layer = b_eff * (nh * cfg.ssm_head_dim * cfg.ssm_state * 4
-                         + 3 * d_in * bp)
-    cache = per_layer * cfg.n_layers
+    if cfg.family == "ssm":
+        d_in = cfg.ssm_expand * cfg.d_model
+        nh = d_in // cfg.ssm_head_dim
+        per_layer = b_eff * (nh * cfg.ssm_head_dim * cfg.ssm_state * 4
+                             + 3 * d_in * bp)
+        cache = per_layer * cfg.n_layers
+    else:
+        w = cfg.rglru_width or cfg.d_model
+        period = len(cfg.block_pattern)
+        n_attn = sum(1 for i in range(cfg.n_layers)
+                     if cfg.block_pattern[i % period] == "attn")
+        n_rec = cfg.n_layers - n_attn
+        win = min(cfg.attn_window or shape.seq_len, shape.seq_len)
+        kv = b_eff * win * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * bp
+        cache = n_attn * kv + n_rec * b_eff * w * (4 + 3 * bp)
     acts = b_eff * max(shape.seq_len if shape.kind == "prefill" else 1, 1) \
         * cfg.d_model * bp * 4
     return MemoryEstimate(params, 0.0, acts, params + cache + acts, cache)

@@ -12,9 +12,11 @@ inference sessions.
 
 Restore is *elastic* in the serving dimension: a checkpoint taken on an
 N-slot engine lands on an M-slot engine (re-slotting). Each live
-session's KV slice is rebuilt by replaying its full token history
-(prompt + tokens generated so far) through the prefill path into its
-new slot.
+session's decode state is rebuilt by replaying its full token history
+(prompt + tokens generated so far) into its new slot: through a
+batch-1 prefill for the attention families, through batch-1 decode
+steps for the recurrent ones (ssm, hybrid), whose state padding would
+corrupt.
 
 The engine runs on one device: the CUDA card unless the caller passes
 ``device="cpu"``. Its KV cache is updated in place by every decode step
@@ -46,6 +48,14 @@ from repro_torch.tree import fill_like, tree_from_paths, tree_map
 
 def _resolve_cfg(arch: str) -> ModelConfig:
     return cfg_registry.resolve_config(arch)
+
+
+@register_step_fn("prefill_step")
+def _build_prefill(arch, shape_key, plan_key, lower):
+    """The prefill step function a logged ``Compile`` binds: the model's
+    eager ``prefill`` for the arch — (params, tokens, cache) -> (last
+    logits, cache filled in place)."""
+    return functools.partial(M.prefill, _resolve_cfg(arch))
 
 
 @register_step_fn("decode_step")
@@ -109,7 +119,9 @@ class ServingEngine:
     state from the request's full token history — prompt plus any tokens
     already generated, so a request resumed from a checkpoint re-enters
     mid-generation — through a batch-1 prefill of the history,
-    right-padded into a power-of-two bucket.
+    right-padded into a power-of-two bucket (attention families), or a
+    batch-1 decode replay of it (recurrent families, where the pad
+    tokens would advance the state).
     """
 
     def __init__(self, cfg: ModelConfig, params, device, n_slots: int,
@@ -142,6 +154,10 @@ class ServingEngine:
         self.slot_tok = np.zeros((n_slots, 1), np.int32)
         self.queue: List[Request] = []
         self.steps = 0
+        self._prefill_admission = (cfg.family not in ("ssm", "hybrid")
+                                   and not cfg.is_encoder_decoder)
+        # the axis of each cache leaf that holds the slot index
+        self._batch_axes = M.batch_axes(cfg)
         # optional live-session checkpointing (core.async_snapshot):
         # manager drains snapshots in the background, lower's op-log (if
         # the engine was built through the logged runtime) rides along so
@@ -319,7 +335,10 @@ class ServingEngine:
                               np.asarray(req.out).ravel()]).astype(np.int32)
         hist = seq[:-1]
         if len(hist):
-            self._prefill_slot(s, hist)
+            if self._prefill_admission:
+                self._prefill_slot(s, hist)
+            else:
+                self._merge_slot(s, self.replay(hist)[1])
         self.slot_req[s] = req
         self.slot_tok[s, 0] = int(seq[-1])
         self.slot_pos[s] = len(seq) - 1
@@ -343,15 +362,26 @@ class ServingEngine:
                   torch.tensor(toks, device=self.device), one)
         self._merge_slot(s, one)
 
+    def replay(self, hist: np.ndarray):
+        """Recurrent families (ssm, hybrid): the state is order-sensitive,
+        so no padding — replay the history through batch-1 decode steps
+        into a fresh single-slot cache (no other slot's state moves).
+        Returns (the last step's logits [1, V], the single-slot cache)."""
+        one = M.init_cache(self.cfg, 1, self.max_seq, self.device)
+        logits = None
+        for i, t in enumerate(np.asarray(hist).ravel()):
+            logits, one = M.decode_step(
+                self.cfg, self.params, one,
+                torch.tensor([[int(t)]], dtype=torch.int32,
+                             device=self.device),
+                torch.tensor([i], dtype=torch.int32, device=self.device))
+        return logits, one
+
     def _merge_slot(self, s: int, one) -> None:
         """Land a single-slot cache in slot ``s`` of the engine cache, in
-        place. Batch is axis 1 on stacked-layer leaves."""
-        def merge(full, sl):
-            if full.ndim >= 2:
-                full[:, s:s + 1].copy_(sl)
-            else:
-                full[s:s + 1].copy_(sl)
-        tree_map(merge, self.cache, one)
+        place, along each leaf's batch axis (``M.batch_axes``)."""
+        tree_map(lambda full, sl, ax: full.narrow(ax, s, 1).copy_(sl),
+                 self.cache, one, self._batch_axes)
 
     def step(self) -> int:
         """One engine iteration; returns #active slots."""

@@ -1,5 +1,5 @@
-"""Decode-state allocation (KV caches) — the port of
-``repro.serving.kv_cache``.
+"""Decode-state allocation (KV caches, SSM states, RG-LRU states) — the
+port of ``repro.serving.kv_cache``.
 
 Caches are lower-half resources: allocated through the logged runtime
 API (CacheAlloc), referenced by virtual ids, re-allocated fresh at

@@ -66,6 +66,7 @@ def make_train_step(cfg: ModelConfig, plan: ParallelPlan,
     -> (params, opt_state, metrics); params and moments are updated in
     place. Gradient accumulation per ``plan.grad_accum``, summed in
     float32 over microbatches as the reference's scan does."""
+    M.check_trainable(cfg)
     loss_fn = make_loss_fn(cfg, M.CallOptions(remat=plan.remat))
     accum = max(plan.grad_accum, 1)
 

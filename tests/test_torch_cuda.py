@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version,
-the serving path's kill/restore, the Mamba-2 prefill and decode, and
-trainer kill/restore on the GPU.
+the serving path's kill/restore, the Mamba-2 prefill and decode, the
+hybrid's prefill, decode and engine, and trainer kill/restore on the
+GPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA device.
 This file imports neither JAX nor ``ml_dtypes`` (the machine with the
@@ -395,3 +396,94 @@ def test_mamba2_trainer_kill_restore_on_the_card(cuda_device, tmp_path):
     launched = ssd.counts("cuda")
     assert launched["ssd_fwd"] == 2 * 2 * 6     # 2 layers, remat, 6 steps
     assert launched["ssd_bwd"] == 2 * 6
+
+
+# (B, S, W, with h0, the rglru_a init's range): a prefill-like width, a
+# ragged one, a tail shorter than the kernel's 16-step unroll, decays
+# near one (where 1 - a^2 in f32 keeps under two digits)
+INIT, NEAR_ONE = (0.9, 0.999), (0.99999, 0.999999)
+RGLRU_CASES = [(2, 4096, 1024, False, INIT), (2, 4096, 1024, True, INIT),
+               (3, 1000, 1000, True, INIT), (1, 7, 33, False, INIT),
+               (3, 1000, 1000, True, NEAR_ONE)]
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rg_lru_kernel_matches_plain(cuda_device, case):
+    """rg_lru_fwd against its plain version on the same card inputs,
+    drawn as a fresh block makes them (``ref.model_inputs``: decays of
+    0.66-0.996 a token, so a dropped carry shows): every element within
+    1e-4 * (|plain| + rms(plain))."""
+    from repro_torch.kernels.rg_lru import ops as rg
+    from repro_torch.kernels.rg_lru import ref as R
+    B, S, W, init, u_range = case
+    g = torch.Generator(device=cuda_device).manual_seed(S + W)
+    x, r, i, lam = R.model_inputs(B, S, W, g, cuda_device, u_range)
+    h0 = torch.randn((B, W), generator=g, device=cuda_device) if init \
+        else None
+    rg.reset_counts()
+    h = rg.rg_lru_fwd(x, r, i, lam, h0)
+    torch.cuda.synchronize()
+    assert rg.counts("cuda") == {"rg_lru_fwd": 1}
+    assert rg.counts("cpu") == {"rg_lru_fwd": 0}
+    assert torch.isfinite(h).all()
+    assert ssd_ref.within(h, R.rg_lru_plain(x, r, i, lam, h0), 1e-4) <= 1.0
+    assert torch.equal(h, rg.rg_lru_fwd(x, r, i, lam, h0))  # deterministic
+
+
+def test_rg_lru_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
+    from repro_torch.kernels.rg_lru import ops as rg
+    from repro_torch.kernels.rg_lru import ref as R
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x, r, i, lam = R.model_inputs(2, 32, 64, g, cuda_device)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        rg.rg_lru_fwd(x.requires_grad_(True), r, i, lam)
+    with pytest.raises(ValueError, match="contiguous"):
+        rg.rg_lru_fwd(x.detach().transpose(0, 1).contiguous().transpose(
+            0, 1), r, i, lam)
+    with pytest.raises(ValueError, match="tensors on"):
+        rg.rg_lru_fwd(x.detach(), r, i, lam.cpu())
+
+
+def test_hybrid_prefill_decode_and_engine_on_the_card(cuda_device):
+    """recurrentgemma-9b-smoke (one group and two remainder blocks) in
+    float32: prefill (the RG-LRU kernel, once per recurrent layer), then
+    decode steps past the window of 32, card against CPU (plain
+    recurrence) within 1e-5 on logits and every cache leaf; the engine's
+    greedy tokens equal on both devices, and its replay admission
+    launches no kernel."""
+    from repro_torch.kernels.rg_lru import ops as rg
+    from repro_torch.tree import flatten_with_paths, tree_map
+    cfg = get_smoke_config("recurrentgemma-9b").replace(dtype="float32")
+    p_cpu = M.init_params(cfg, seed=3, device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda_device), p_cpu)
+    toks = torch.arange(2 * 20, dtype=torch.int32).reshape(2, 20) % 200
+    rg.reset_counts()
+    res = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        cache = M.init_cache(cfg, 2, 64, device=dev)
+        logits = [M.prefill(cfg, params, toks.to(dev), cache)[0]]
+        for pos in range(20, 40):
+            nxt = torch.tensor([[pos % 7], [pos % 11]], dtype=torch.int32,
+                               device=dev)
+            logits.append(M.decode_step(
+                cfg, params, cache, nxt,
+                torch.tensor([pos, pos], dtype=torch.int32, device=dev))[0])
+        res[dev] = ([t.cpu() for t in logits],
+                    [t.cpu() for _, t in flatten_with_paths(cache)])
+    assert rg.counts("cuda") == {"rg_lru_fwd": 4}   # 4 recurrent layers
+    for a, b in zip(res["cuda"][0] + res["cuda"][1],
+                    res["cpu"][0] + res["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    rg.reset_counts()
+    prompts = [np.arange(n, dtype=np.int32) % 97 for n in (12, 25, 7)]
+    out = {}
+    for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
+        eng = ServingEngine(cfg, params, dev, n_slots=2, max_seq=64)
+        reqs = [Request(rid=i, prompt=p, max_new=20)
+                for i, p in enumerate(prompts)]
+        for q in reqs:
+            eng.submit(q)
+        eng.run_until_drained()
+        out[dev] = [q.out for q in reqs]
+    assert out["cuda"] == out["cpu"]
+    assert rg.counts("cuda") == {"rg_lru_fwd": 0}

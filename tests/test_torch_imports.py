@@ -47,7 +47,8 @@ def test_the_scan_sees_the_whole_port():
                 "models/model.py", "convert.py", "train/loop.py",
                 "kernels/flash_attention/ops.py", "kernels/nvcc.py",
                 "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
-                "models/ssm.py"):
+                "models/ssm.py", "kernels/rg_lru/ops.py",
+                "kernels/rg_lru/ref.py", "models/hybrid.py"):
         assert os.path.join("src", "repro_torch", mod) in files
 
 
@@ -69,6 +70,8 @@ def test_port_imports_with_jax_and_ml_dtypes_blocked():
         import repro_torch.serving.engine
         import repro_torch.train.loop
         import repro_torch.kernels.flash_attention.ops
+        import repro_torch.kernels.rg_lru.ops
+        import repro_torch.models.hybrid
         from repro_torch.api import CheckpointSession, Policy
         from repro_torch.api.registry import resolve_app_kind
         resolve_app_kind("train")

@@ -39,6 +39,8 @@ from repro.optim import ScheduleConfig as JSchedule
 from repro.optim import init_opt_state as jinit_opt
 from repro.parallel.planner import estimate_serve_memory as jserve_memory
 from repro.parallel.planner import make_plan as jmake_plan
+from repro.serving.engine import Request as JRequest
+from repro.serving.engine import ServingEngine as JEngine
 from repro.train import step as jstep
 from repro_torch import convert
 from repro_torch.api import CheckpointSession, Policy
@@ -52,6 +54,7 @@ from repro_torch.models import model as M
 from repro_torch.models import ssm as SSM
 from repro_torch.optim import AdamWConfig, ScheduleConfig, init_opt_state
 from repro_torch.parallel.planner import estimate_serve_memory, make_plan
+from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.train import step as S
 from repro_torch.train.loop import Trainer, TrainJob
 from repro_torch.tree import flatten_with_paths, tree_map
@@ -471,9 +474,19 @@ def test_kernel_check_inputs_follow_the_ssm_inits():
 
 
 def test_rglru_init_still_names_its_roadmap_item():
+    """The ``rglru_a`` init (ROADMAP B8's hybrid family) is ported:
+    softplus^-1(-log u), u ~ U[0.9, 0.999), from the leaf's own seeded
+    generator; an init the reference does not know raises as there."""
     from repro_torch.models.params import P, init_concrete
-    with pytest.raises(NotImplementedError, match="B8"):
-        init_concrete({"a": P((4,), (None,), init="rglru_a")}, "float32", 0,
+    lam = init_concrete({"a": P((4096,), (None,), init="rglru_a")},
+                        "float32", 0, "cpu")["a"]
+    a = torch.exp(-torch.nn.functional.softplus(lam.double()))
+    assert lam.dtype == torch.float32
+    assert float(a.min()) >= 0.9 * (1 - 1e-6)
+    assert float(a.max()) <= 0.999 * (1 + 1e-6)
+    assert float(a.mean()) == pytest.approx(0.9495, abs=0.01)
+    with pytest.raises(ValueError, match="unknown init"):
+        init_concrete({"a": P((4,), (None,), init="nope")}, "float32", 0,
                       "cpu")
 
 
@@ -556,6 +569,35 @@ def test_serve_memory_estimate_of_other_families_waits_for_a9(shape):
 
 
 SMALL = dict(sparse_chunk_bytes=1024, sparse_min_bytes=2048)
+
+
+def test_engine_admits_by_replay_as_the_jax_engine():
+    """The port's engine on mamba2-780m-smoke (f32, 2 slots) gives the
+    JAX engine's greedy tokens: a recurrent request is admitted by
+    replaying its history through batch-1 decode, never by a padded
+    prefill, whose pad tokens would advance the state."""
+    jcfg = jreg.get_smoke_config("mamba2-780m").replace(dtype="float32")
+    tcfg = treg.get_smoke_config("mamba2-780m").replace(dtype="float32")
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = convert.params_from_numpy(_jax_tree_np(jparams), "cpu")
+    rng = np.random.RandomState(4)
+    prompts = [np.array([3, 7, 11, 5, 9], np.int32)] + [
+        rng.randint(0, 256, size=rng.randint(2, 12)).astype(np.int32)
+        for _ in range(3)]
+    jeng = JEngine(jcfg, jparams, MESH, n_slots=2, max_seq=64)
+    teng = ServingEngine(tcfg, tparams, "cpu", n_slots=2, max_seq=64)
+    jreqs = [JRequest(rid=i, prompt=p.copy(), max_new=6)
+             for i, p in enumerate(prompts)]
+    treqs = [Request(rid=i, prompt=p.copy(), max_new=6)
+             for i, p in enumerate(prompts)]
+    for jr, tr in zip(jreqs, treqs):
+        jeng.submit(jr)
+        teng.submit(tr)
+    jeng.run_until_drained(max_steps=200)
+    teng.run_until_drained(max_steps=200)
+    want = {r.rid: list(r.out) for r in jreqs}
+    assert {r.rid: list(r.out) for r in treqs} == want
+    assert all(len(v) == 6 for v in want.values())
 
 
 @pytest.mark.parametrize("label,policy", [
