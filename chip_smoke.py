@@ -12,7 +12,13 @@ Phases, each reported on its own line:
 3. each checkpoint-codec kernel (fingerprint, fused capture, XOR) held
    bit for bit against its plain PyTorch version on the card, at the
    serving path's shapes, with its time, its bound and the plain
-   version's time (and ``torch.bitwise_xor``'s for the XOR);
+   version's time (and ``torch.bitwise_xor``'s for the XOR); then the
+   int8 codec's quantize and dequantize, bit for bit against their plain
+   versions (and the numpy oracle on the smaller cases) at mamba2-780m's
+   largest moment leaf ``[50280, 1536]`` f32, a ragged size, zero
+   blocks, blocks of amax 127 with exact ties, and values drawn as
+   AdamW's nu makes them, with their times at the large leaf (and
+   ``torch.mul(q, scale[:, None])``'s for dequantize);
 4. each flash-attention kernel (forward, dq, dk/dv) held against its
    plain PyTorch version at the training shape in bf16 and at a ragged
    f32 shape with a window, with its time, its bound, the plain
@@ -55,15 +61,28 @@ Phases, each reported on its own line:
    RG-LRU kernel during decode or replay;
 7. the training paths, one per cell of ``TRAIN_CELLS``: one f32 step of
    the smoke model on the card matches the same step on the CPU; then
-   the model at full width and depth trains 8 steps under a
+   the model at full width (and depth, unless the cell cuts it) trains
+   8 steps under a
    ``CheckpointSession`` (one full snapshot, after step 6), is dropped,
    comes back through ``restore("latest")`` at step 6 and trains 2
    steps: the losses of steps 7-8 and the digest of params, optimizer
    state, step and data cursor must equal the uninterrupted run's bit
    for bit, and the cell's kernels must have launched once per layer
-   and step (the forward twice, under remat). starcoder2-3b trains on
-   2 x 4096 tokens a step through the flash kernels (a 30.3 GB
-   snapshot), mamba2-780m on 8 x 4096 through the SSD kernels (7.8 GB).
+   and step (the forward twice, under remat). starcoder2-3b, its depth
+   cut to 15 of 30 layers (``starcoder2-3b-layers15``), trains on 2 x
+   4096 tokens a step through the flash kernels (a 15.9 GB snapshot),
+   mamba2-780m at full depth on 8 x 4096 through the SSD kernels (7.8
+   GB);
+8. the codec phase, from mamba2-780m's restored trainer (``codec_path``):
+   one snapshot under ``codecs={"opt_state": "int8"}`` into a
+   ``sharded:`` store of 4 virtual hosts (quantize on the card, only the
+   codes cross), two more steps while it encodes, drop,
+   ``restore("latest")`` (dequantize on the card) and 2 steps; the
+   manifest's codec leaves must carry the blobs of the plain version's
+   codes, the restored moments must be its dequantize(quantize(m)) bit
+   for bit, params, step and cursor bit-identical, and each kernel must
+   have launched once per codec leaf with no plain or host codec call.
+   Every phase logs the run's running total of snapshot bytes written.
 
 Before the last line it prints ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -73,6 +92,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -93,28 +113,44 @@ BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
 ARCH = "phi4-mini-3.8b"
 N_SLOTS, MAX_SEQ, N_REQ, MAX_NEW = 4, 1024, 6, 48
 TRAIN_STEPS = 8
-# the training cells, each at full width and depth: the model, its shape
-# (the published 4,096-token length at a batch cut from 256 to what one
-# card steps without accumulation), the kernel module whose kernels the
-# step runs, and the shape and mode of the f32 smoke step held against
-# the CPU (check_train_reference)
+# the training cells, each at full width (and full depth unless ``layers``
+# cuts it, as ``configs.registry.resolve_config`` spells it): the model,
+# its shape (the published 4,096-token length at a batch cut from 256 to
+# what one card steps without accumulation), the kernel module whose
+# kernels the step runs, and the shape and mode of the f32 smoke step
+# held against the CPU (check_train_reference)
 TRAIN_CELLS = (
     dict(arch="starcoder2-3b", shape="train_s4096_b2", kernels="flash",
          reference_shape="train_s192_b2",         # 3 q tiles, ragged-free
-         reference="state"),
+         reference="state",
+         # depth cut from 30: its snapshot's one-thread encode took 337-413
+         # s of the run's 1,200 (the time limit; mamba2-780m keeps its
+         # depth, the codec phase runs on it)
+         layers=15),
     dict(arch="mamba2-780m", shape="train_s4096_b8", kernels="ssd",
          reference_shape="train_s512_b2",         # 2 chunks of 256
-         reference="grads"),
+         reference="grads", codec=True),
 )
 # one full snapshot, after step 6, with no chain (so no dirty-chunk
-# capture either): snapshots of the two training states are 30.3 and
-# 7.8 GB and the card's machine accepts 45 GiB of disk writes per run
-# (deleted files count), so a chain's link cannot be written there;
-# training links run at smoke size in the tests instead
+# capture either): snapshots of the two training states are 15.9 and
+# 7.8 GB (30.3 for starcoder2-3b at full depth) and the card's machine
+# accepts 45 GiB of disk writes per run (deleted files count), so a
+# chain's link at full depth cannot be written there; training links run
+# at smoke size in the tests instead
 TRAIN_POLICY = dict(interval=6, chain=1, keep_last=1)
 
 
 _T0 = time.monotonic()
+# bytes the snapshot pipelines of this run wrote (blob payloads, as
+# their stats count them): the card's machine accepts 45 GiB of disk
+# writes per run, deleted files included
+_WRITTEN = {"bytes": 0}
+
+
+def count_written(stats) -> str:
+    """Add a session's blob bytes to the run's total, and say it."""
+    _WRITTEN["bytes"] += int(stats["bytes_written"])
+    return f"disk writes so far {_WRITTEN['bytes'] / 1e9:.2f} GB of blobs"
 
 
 def log(msg: str) -> None:
@@ -248,6 +284,106 @@ def check_kernels(torch, ops, ref):
             f" ms by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']}")
     del leaf, u8, l2
+    torch.cuda.empty_cache()
+    return out
+
+
+# the largest opt_state leaf of mamba2-780m: the embedding's moment
+CODEC_LEAF_SHAPE = (50280, 1536)
+
+
+def _codec_cases(torch, gen, dev):
+    """(label, float tensor on the card) for the int8 codec kernels."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    ragged = rnd(1000 * 1001 + 5)       # nb = 3911: no tile of 8 divides it
+    zeros = torch.zeros(64 * 256 + 100, device=dev)
+    zeros[4096:4352] = rnd(256)          # one live block among zero blocks
+    ties = torch.zeros(8 * 256, device=dev)
+    ties[::256] = 127.0                  # amax 127 exactly: scale 1.0
+    vals = torch.tensor([0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 3.5, -3.5, 126.5],
+                        device=dev)
+    for b in range(8):
+        ties[b * 256 + 1:b * 256 + 10] = (vals + 2 * b).clamp(-126.5,
+                                                              126.5)
+    u = torch.rand((4_000_003,), generator=gen, device=dev)
+    nu = torch.exp(math.log(1e-14) + u * (math.log(1e-6) - math.log(1e-14)))
+    return [("mamba2-780m embedding moment", rnd(*CODEC_LEAF_SHAPE) * 1e-3),
+            ("ragged", ragged), ("zero blocks", zeros),
+            ("amax 127 with exact ties", ties), ("AdamW nu", nu),
+            ("float16", rnd(100_000).half() * 10),
+            ("float64", rnd(100_001).double())]
+
+
+def check_codec(torch, ops, ref):
+    """The int8 codec kernels against their plain versions on the card,
+    bit for bit, in every case of ``_codec_cases`` (and against the
+    numpy oracle on the smaller ones); then their times at the largest
+    opt_state leaf of mamba2-780m. What a block holding a NaN gives is
+    logged, not held (ROADMAP C15)."""
+    import numpy as np
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    flush = l2.zero_
+    cases = _codec_cases(torch, gen, dev)
+    for label, x in cases:
+        q, scale = ops.quantize(x)
+        qp, sp = ops.quantize_plain(x)
+        d = ops.dequantize(q, scale)
+        dp = ops.dequantize_plain(qp, sp)
+        torch.cuda.synchronize()
+        same = (torch.equal(q, qp)
+                and torch.equal(scale.view(torch.int32), sp.view(torch.int32))
+                and torch.equal(d.view(torch.int32), dp.view(torch.int32)))
+        oracle = "not run (the plain version is held to it on the CPU)"
+        if x.numel() < 10_000_000:
+            qr, sr = ref.quantize_ref(x.cpu().numpy())
+            same = same and (q.cpu().numpy() == qr).all() \
+                and scale.cpu().numpy().tobytes() == sr.tobytes() \
+                and d.cpu().numpy().tobytes() == \
+                ref.dequantize_ref(qr, sr).tobytes()
+            oracle = "bit-exact"
+        if not same:
+            raise AssertionError(f"codec kernels disagree with their plain "
+                                 f"versions ({label})")
+        log(f"kernel quantize/dequantize ({label}): {tuple(x.shape)} "
+            f"{str(x.dtype)[6:]}, {q.shape[0]} blocks: q, scale and the "
+            f"dequantized values bit-exact vs plain; numpy oracle {oracle}")
+    nan = torch.ones(512, device=dev)
+    nan[3] = float("nan")
+    (qk, sk), (qp, sp) = ops.quantize(nan), ops.quantize_plain(nan)
+    log(f"codec with a NaN in block 0 (not held): kernel scale "
+        f"{sk[0].item()!r}, codes {sorted(set(qk[0].tolist()))}; plain "
+        f"scale {sp[0].item()!r}, codes {sorted(set(qp[0].tolist()))}")
+    x = cases[0][1]
+    n = x.numel()
+    nb = n // 256
+    q, scale = ops.quantize(x)
+    out = {}
+    b, o = bound_ms(4 * n + n + 4 * nb, 7 * n)
+    out["quantize"] = dict(
+        name="quantize", route="cuda",
+        source="src/repro_torch/csrc/ckpt_codec.cu",
+        replaces="src/repro/kernels/ckpt_codec/kernel.py:38", max_abs_err=0,
+        ms=time_ms(lambda: ops.quantize(x), 20, flush),
+        plain_ms=time_ms(lambda: ops.quantize_plain(x), 3, flush),
+        bound_ms=b, bound_by=o, library_ms=None)
+    b, o = bound_ms(n + 4 * nb + 4 * n, 2 * n)
+    out["dequantize"] = dict(
+        name="dequantize", route="cuda",
+        source="src/repro_torch/csrc/ckpt_codec.cu",
+        replaces="src/repro/kernels/ckpt_codec/kernel.py:214", max_abs_err=0,
+        ms=time_ms(lambda: ops.dequantize(q, scale), 20, flush),
+        plain_ms=time_ms(lambda: ops.dequantize_plain(q, scale), 3, flush),
+        bound_ms=b, bound_by=o,
+        library_ms=time_ms(lambda: torch.mul(q, scale[:, None]), 20, flush))
+    for k in out.values():
+        log(f"timing {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}"
+            f" ms by {k['bound_by']}, {tuple(x.shape)} f32 = "
+            f"{4 * n / 1e6:.1f} MB), plain {k['plain_ms']:.4f} ms, library "
+            f"{k['library_ms']}")
+    del cases, x, q, scale, l2
     torch.cuda.empty_cache()
     return out
 
@@ -654,6 +790,11 @@ def profile_decode(torch, np, eng, Request, prompts) -> None:
     eng.run_until_drained()
 
 
+# the codec kernels a chained snapshot's capture and encode launch (the
+# int8 codec's pair runs on the training path's codec phase instead)
+CAPTURE_KERNELS = ("fingerprint", "fused_capture", "xor")
+
+
 def main_path(torch, np, ops, fa):
     """Phase 5, the serving path."""
     from repro_torch.api import CheckpointSession, Policy
@@ -750,8 +891,9 @@ def main_path(torch, np, ops, fa):
             f"{outcomes['hits']}/{outcomes['overflows']}, bytes written "
             f"{st['bytes_written']}, kernel launches {launches}")
         per_policy[label] = launches
+        log(f"{label}: {count_written(st)}")
     total = ops.counts("cuda")
-    missing = [k for k, v in total.items() if v == 0]
+    missing = [k for k in CAPTURE_KERNELS if total[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -1071,6 +1213,7 @@ def hybrid_path(torch, np, mods):
     finally:
         shutil.rmtree(store, ignore_errors=True)
     counts = _all_counts(mods)
+    log(f"hybrid serving: {count_written(st)}")
     if got != ref:
         bad = sorted(k for k in ref if got.get(k) != ref[k])
         raise AssertionError(f"hybrid restored run diverged on {bad}")
@@ -1248,15 +1391,20 @@ def train_path(torch, np, kernel_mods, cell):
     kern = kernel_mods[cell["kernels"]]
     check_train_reference(torch, np, kern, arch, cell["reference_shape"],
                           cell["reference"])
-    cfg = resolve_config(arch)
+    job_arch = arch + (f"-layers{cell['layers']}" if "layers" in cell
+                       else "")
+    cfg = resolve_config(job_arch)
     shape = get_shape(shape_key)
     tokens = shape.global_batch * shape.seq_len
     n = cfg.n_params()
     snap = n * (2 + 4 + 4)                      # bf16 params, f32 mu and nu
     store = tempfile.mkdtemp(prefix="chip_smoke_train_")
     disk, mem = shutil.disk_usage(store).free, _mem_available()
-    log(f"train path: {arch} full width and depth ({cfg.n_layers} layers, "
-        f"d_model {cfg.d_model}, {n} params), {shape_key}; a snapshot is "
+    depth = (f"depth cut to {cfg.n_layers} of "
+             f"{resolve_config(arch).n_layers} layers" if "layers" in cell
+             else f"full depth, {cfg.n_layers} layers")
+    log(f"train path: {job_arch} at full width, {depth} (d_model "
+        f"{cfg.d_model}, {n} params), {shape_key}; a snapshot is "
         f"{snap / 1e9:.1f} GB; free disk {disk / 1e9:.1f} GB, MemAvailable "
         f"{mem / 1e9:.1f} GB")
     if disk < 1.05 * snap or mem < 1.5 * snap:
@@ -1271,7 +1419,7 @@ def train_path(torch, np, kernel_mods, cell):
     try:
         t0 = time.monotonic()
         sess = CheckpointSession(f"localfs:{store}", policy)
-        tr = Trainer(TrainJob(arch, shape_key), manager=sess.manager)
+        tr = Trainer(TrainJob(job_arch, shape_key), manager=sess.manager)
         tr.init_state()
         sess.attach(tr)
         torch.cuda.synchronize()
@@ -1309,7 +1457,7 @@ def train_path(torch, np, kernel_mods, cell):
             f" s per snapshot (background; {drain:.1f} s left to drain after "
             f"step {steps}), bytes written {st['bytes_written'] / saves:.0f}"
             f" per snapshot, dirty/clean chunks {st['dirty_chunks']}/"
-            f"{st['clean_chunks']}")
+            f"{st['clean_chunks']}; {count_written(st)}")
         sess.close()
         del tr, sess                                 # the kill
         gc.collect()
@@ -1327,6 +1475,8 @@ def train_path(torch, np, kernel_mods, cell):
         again = [tr2.train_steps(1)["loss"] for _ in range(steps - back)]
         got = tr2.state_digest()
         sess2.close()
+        # the codec phase continues from the restored trainer
+        box = [tr2] if cell.get("codec") else []
         del tr2, sess2
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1356,7 +1506,201 @@ def train_path(torch, np, kernel_mods, cell):
         f"uninterrupted run; kernel launches {launched} ({cfg.n_layers} "
         f"layers x {steps + steps - back} steps; the forward twice per layer "
         f"under remat); all counts {counts}")
+    if box:
+        launched = dict(launched, **codec_path(torch, kernel_mods, box, cfg,
+                                               losses[back:]))
     return launched
+
+
+def expected_parts(ops, D, moments):
+    """The manifest parts (codes and scales, chunk blob names included)
+    that the host codec writes for the plain version's quantization of
+    each moment: quantized on the card one leaf at a time, chunked and
+    hashed on host threads (zlib and blake2b release the GIL)."""
+    host = {}
+    for p, m in moments.items():
+        q, sc = ops.quantize_plain(m)
+        host[p] = D.Int8Leaf(q.cpu(), sc.cpu(), m.shape, "float32")
+        del q, sc
+
+    def parts(p):
+        return p, D.encode_leaf(host[p], lambda h, d: None, lambda h: False,
+                                codec="int8")["parts"]
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(parts, host))
+
+
+# the codec phase's store: blobs hashed to 4 virtual hosts, no replicas
+# (a second copy of every blob would not fit the run's disk writes)
+CODEC_STORE_HOSTS = 4
+CODEC_POLICY = dict(interval=TRAIN_STEPS, chain=1, keep_last=1,
+                    codecs={"opt_state": "int8"})
+
+
+def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
+    """The int8 snapshot codec on the training path at full width and
+    depth: from the trainer in ``box`` (restored and stepped by
+    ``train_path``), one snapshot under ``codecs={"opt_state": "int8"}``
+    into a ``sharded:`` store, two more uncoded steps while it encodes,
+    then the trainer is dropped, comes back through
+    ``restore("latest")`` and trains 2 steps. Raises unless (a) every
+    codec leaf of opt_state is written in codec mode with the blobs of
+    the plain quantize of a clone taken at the snapshot, (b) capture
+    launched one quantize and restore one dequantize per codec leaf, with
+    no plain call and no host quantize_ref/dequantize_ref on the path,
+    (c) the restored moments are the plain dequantize(quantize(clone))
+    bit for bit, (d) params, step and data cursor came back bit for bit,
+    (e) the 2 steps after restore give finite losses (logged beside the
+    uncoded steps'; the codec is lossy), (f) the SSD kernels launched
+    once per layer and step (the forward twice, under remat). Every
+    kernel count is set to 0 just before the snapshot and read after
+    the last step."""
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.core import delta as D
+    from repro_torch.kernels.ckpt_codec import ref as R
+    from repro_torch.tree import flatten_with_paths
+    ops = kernel_mods["codec"]
+    tr = box.pop()
+    opt = dict(flatten_with_paths(tr.upper.get("opt_state")))
+    clone = {p: v.clone() for p, v in opt.items()
+             if D.codec_applicable(v, "int8")}
+    del opt
+    n_leaves = len(clone)
+    digest = (tr.params_digest(), tr.checkpoint_step(),
+              int(tr.upper.get("data_cursor")))
+    n_params = sum(v.numel() for _, v in flatten_with_paths(
+        tr.upper.get("params")))
+    n_mom = sum(v.numel() for v in clone.values())
+    predicted = 2 * n_params + n_mom + 4 * (n_mom // 256)
+    log(f"codec path: {cfg.n_layers} layers, {n_leaves} opt_state leaves "
+        f"under int8 ({n_mom} moment elements, {4 * n_mom / 1e9:.2f} GB in "
+        f"f32); a coded snapshot is ~{predicted / 1e9:.2f} GB before zlib "
+        f"(bf16 params, q and scales), the uncoded one "
+        f"{(2 * n_params + 4 * n_mom) / 1e9:.2f} GB")
+    host_calls = {"quantize_ref": 0, "dequantize_ref": 0}
+    originals = {k: getattr(R, k) for k in host_calls}
+
+    def counting(name):
+        def call(*a, **kw):
+            host_calls[name] += 1
+            return originals[name](*a, **kw)
+        return call
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_codec_")
+    spec = f"sharded:{store}?hosts={CODEC_STORE_HOSTS}"
+    policy = Policy(**CODEC_POLICY)
+    torch.use_deterministic_algorithms(True)
+    for k in host_calls:
+        setattr(R, k, counting(k))
+    try:
+        sess = CheckpointSession(spec, policy)
+        sess.attach(tr)
+        _reset_all(kernel_mods)
+        torch.cuda.reset_peak_memory_stats()
+        step = tr.checkpoint_step()
+        sess.snapshot()
+        captured = ops.counts("cuda")["quantize"]
+        # the uncoded run goes on while the snapshot encodes: its moments
+        # are updated in place after snapshot() returned
+        uncoded = [tr.train_steps(1)["loss"] for _ in range(2)]
+        t1 = time.monotonic()
+        sess.wait()
+        drain = time.monotonic() - t1
+        st = dict(sess.stats)
+        leaves = sess.backend.get_manifest(step)["entries"]["opt_state"][
+            "leaves"]
+        per_host = [sum(f.stat().st_size
+                        for f in Path(store, f"host_{h:03d}").iterdir())
+                    for h in range(CODEC_STORE_HOSTS)]
+        sess.close()
+        del tr, sess                                     # the drop
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.monotonic()
+        expect = expected_parts(ops, D, clone)
+        expect_s = time.monotonic() - t1
+        bad = sorted(p for p in clone if leaves[p].get("mode") != "codec"
+                     or leaves[p]["parts"] != expect[p])
+        if bad or captured != n_leaves:
+            raise AssertionError(f"(a) codec leaves not written as the plain "
+                                 f"version's blobs: {bad[:4]} ({len(bad)}); "
+                                 f"{captured} quantize launches at capture "
+                                 f"for {n_leaves} leaves")
+        del expect
+        t0 = time.monotonic()
+        sess2 = CheckpointSession(spec, policy)
+        tr = sess2.restore("latest", expect_kind="train")
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        timings = tr.incarnation.timings
+        codec_counts = ops.counts("cuda")
+        plain_counts = ops.counts("cpu")
+        worst = []
+        for p, v in flatten_with_paths(tr.upper.get("opt_state")):
+            if p in clone:
+                q, sc = ops.quantize_plain(clone.pop(p))
+                want = ops.dequantize_plain(q, sc)[:v.numel()].view(v.shape)
+                if not torch.equal(v.view(torch.int32),
+                                   want.view(torch.int32)):
+                    worst.append(p)
+                del q, sc, want
+        del clone
+        back = (tr.params_digest(), tr.checkpoint_step(),
+                int(tr.upper.get("data_cursor")))
+        coded = [tr.train_steps(1)["loss"] for _ in range(2)]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        sess2.close()
+        del tr, sess2
+    finally:
+        for k, fn in originals.items():
+            setattr(R, k, fn)
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(store, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = _all_counts(kernel_mods)
+    saves = max(st["saves"], 1)
+    log(f"codec path: snapshot of step {step} into {spec}: capture stall "
+        f"{st['capture_seconds'] / saves:.2f} s, capture_bytes "
+        f"{st['capture_bytes']} (logical {st['bytes_logical']}), "
+        f"encode+commit {st['encode_commit_seconds'] / saves:.1f} s "
+        f"(background; {drain:.1f} s left to drain after 2 steps), bytes "
+        f"written {st['bytes_written']}, per virtual host {per_host}; "
+        f"{count_written(st)}; the plain version's blob names computed in "
+        f"{expect_s:.1f} s")
+    log(f"codec path: restored step {back[1]} in {restore_s:.1f} s "
+        f"(materialize {timings.get('materialize_s', 0):.1f} s, replay "
+        f"{timings.get('replay_s', 0):.2f} s, rebind "
+        f"{timings.get('rebind_s', 0):.1f} s); peak device memory "
+        f"{peak / 1e9:.2f} GB; losses after restore {coded} beside the "
+        f"uncoded run's {uncoded} (and the cell's steps 7-8 "
+        f"{uncoded_losses}); codec launches {codec_counts}, plain calls "
+        f"{plain_counts}, host reference calls {host_calls}")
+    if codec_counts["quantize"] != n_leaves \
+            or codec_counts["dequantize"] != n_leaves \
+            or any(plain_counts.values()) or any(host_calls.values()):
+        raise AssertionError(f"(b) codec route: {codec_counts} for "
+                             f"{n_leaves} leaves, plain {plain_counts}, host "
+                             f"{host_calls}")
+    if worst:
+        raise AssertionError(f"(c) restored moments differ from the plain "
+                             f"dequantize(quantize(m)): {worst[:4]}")
+    if back != digest:
+        raise AssertionError(f"(d) params/step/cursor {back} != {digest}")
+    if not all(math.isfinite(x) for x in coded):
+        raise AssertionError(f"(e) losses after the coded restore {coded}")
+    layer_steps = cfg.n_layers * 4
+    expect_ssd = {"ssd_fwd": 2 * layer_steps, "ssd_bwd": layer_steps}
+    if counts["ssd"] != expect_ssd:
+        raise AssertionError(f"(f) SSD launches {counts['ssd']}, expected "
+                             f"{expect_ssd}")
+    log(f"codec path: (a)-(f) hold: {n_leaves} codec leaves written as the "
+        f"plain version's blobs, restored bit for bit as its dequantize("
+        f"quantize(m)) on the card, params/step/cursor bit-identical; all "
+        f"counts {counts}")
+    return {k: codec_counts[k] for k in ("quantize", "dequantize")}
 
 
 def ptxas_summary(report: str):
@@ -1417,6 +1761,7 @@ def main() -> int:
             + "; ".join(ptxas_summary(info.get("ptxas", ""))))
 
     kernels = check_kernels(torch, ops, ref)
+    kernels.update(check_codec(torch, ops, ref))
     kernels.update(check_flash(torch, fa))
     kernels.update(check_ssd(torch, ssd, ssd_ref))
     kernels.update(check_rglru(torch, rg, rg_ref, ssd_ref.within))

@@ -155,19 +155,43 @@ def _localfs_backend(path: str, *, fsync="1"):
     return LocalFSBackend(path, fsync=_as_bool("fsync", fsync))
 
 
-def _not_ported(scheme: str):
-    def factory(path: str, **params):
+@register_backend("sharded")
+def _sharded_backend(path: str, *, hosts="4", replicate="0", writers="4",
+                     fsync="1"):
+    """DMTCP-analogue: blobs hashed to N virtual hosts, coordinator
+    manifest, optional peer replication."""
+    from repro_torch.core.backends.sharded import ShardedBackend
+    n_hosts = _as_int("hosts", hosts)
+    n_writers = _as_int("writers", writers)
+    # range checks here, not deep in the write pipeline: hosts=0 would
+    # surface as a modulo-by-zero at the first blob hash, writers=0 as
+    # a raw ThreadPoolExecutor ValueError
+    if n_hosts < 1:
+        raise PolicyError(f"store parameter hosts={n_hosts} must be >= 1")
+    if n_writers < 1:
         raise PolicyError(
-            f"store scheme {scheme!r} is not ported yet: the port's "
-            f"{scheme}: store waits for ROADMAP A3 (core/backends/"
-            f"{scheme}.py); use 'localfs:<dir>'")
-    return factory
+            f"store parameter writers={n_writers} must be >= 1")
+    return ShardedBackend(path, n_hosts=n_hosts,
+                          replicate=_as_bool("replicate", replicate),
+                          writers=n_writers,
+                          fsync=_as_bool("fsync", fsync))
 
 
-# the JAX package's other schemes, registered so their specs fail with
-# the ROADMAP item they wait for instead of "unknown scheme"
-register_backend("sharded")(_not_ported("sharded"))
-register_backend("cached")(_not_ported("cached"))
+@register_backend("cached")
+def _cached_backend(path: str, *, over="", fsync="0"):
+    """Local read-through blob cache over any other registered store:
+    ``cached:/ssd-cache?over=sharded:/remote?hosts=4``. Reads hit the
+    local tier first and warm it on a miss; writes go through to the
+    inner store and warm the cache."""
+    from repro_torch.core.backends.cached import CachedBackend
+    if not over:
+        raise PolicyError(
+            "store scheme 'cached:' needs the store it caches: "
+            "'cached:/local-cache?over=<inner spec>', e.g. "
+            "'cached:/ssd/cache?over=sharded:/remote?hosts=4' (over= "
+            "swallows the rest of the spec, so it must come last)")
+    return CachedBackend(path, resolve_backend(over),
+                         fsync=_as_bool("fsync", fsync))
 
 
 # ---------------------------------------------------------------------------

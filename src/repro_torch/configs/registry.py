@@ -50,7 +50,9 @@ def get_matrix_config(arch_id: str) -> ModelConfig:
 def resolve_config(arch: str) -> ModelConfig:
     """One resolver for every ``arch`` string a job can carry: a bare
     registry id gives the published config; an id with a ``-smoke`` or
-    ``-matrix`` suffix gives that reduced variant. Checkpoint metadata
+    ``-matrix`` suffix gives that reduced variant; ``<id>-layers<N>``
+    gives the published config at its full width cut to N layers (a run
+    whose time or disk cannot take the whole depth). Checkpoint metadata
     stores these strings, so both the trainer and the serving engine
     must resolve them identically — this is the single place."""
     if arch in _MODULES:
@@ -59,9 +61,15 @@ def resolve_config(arch: str) -> ModelConfig:
         return get_smoke_config(arch.removesuffix("-smoke"))
     if arch.endswith("-matrix"):
         return get_matrix_config(arch.removesuffix("-matrix"))
+    base, cut, depth = arch.rpartition("-layers")
+    if cut and base in _MODULES and depth.isdigit() and int(depth) > 0:
+        cfg = get_config(base)
+        if int(depth) <= cfg.n_layers:
+            return cfg.replace(n_layers=int(depth))
     raise KeyError(
         f"unknown arch {arch!r}; known: {sorted(_MODULES)} "
-        "(optionally with a -smoke or -matrix suffix)")
+        "(optionally with a -smoke, -matrix or -layers<N> suffix, N at "
+        "most the published depth)")
 
 
 def all_configs() -> Dict[str, ModelConfig]:

@@ -11,7 +11,8 @@ A snapshot moves through three phases:
             mutate its state immediately after ``snapshot()`` returns.
   encode    (single encode thread, ordered) each leaf runs through the
             delta codec (core.delta / kernels.ckpt_codec): int8
-            quantization for error-tolerant kinds, XOR against the
+            quantization for error-tolerant kinds (done at capture, on
+            the card, for tensor leaves), XOR against the
             previous snapshot's staging slot when delta chaining is on,
             content-addressed chunking always.
   commit    chunk blobs stream to the backend on a writer pool
@@ -158,7 +159,6 @@ class _SparseCtx:
     base_step: Optional[int]
     chunk_bytes: int
     min_bytes: int
-    codec_by_kind: Dict[str, str]
     pool: Optional[ThreadPoolExecutor]
     workers: int
     seen: set = field(default_factory=set)
@@ -288,23 +288,54 @@ class _StagingSlot:
         np.copyto(buf, a)
         return buf
 
+    @staticmethod
+    def _stage_coded(pool: Dict[str, Any], path: str,
+                     v: torch.Tensor) -> deltamod.Int8Leaf:
+        """Quantize a tensor leaf where it lives (the CUDA kernel on the
+        card, on the current stream) and stage only its codes and
+        scales, about a quarter of a float32 leaf's bytes. The codes are
+        fresh buffers and the blocking copy lands them before
+        ``snapshot()`` returns, so a later in-place write of the leaf
+        cannot reach what was captured."""
+        q, scale = ops.quantize(v.detach())
+        if v.is_cuda:
+            bufs = pool.get(path)
+            if not (isinstance(bufs, tuple)
+                    and tuple(bufs[0].shape) == tuple(q.shape)):
+                bufs = (_pinned_empty(tuple(q.shape), q.dtype),
+                        _pinned_empty(tuple(scale.shape), scale.dtype))
+                pool[path] = bufs
+            bufs[0].copy_(q)
+            bufs[1].copy_(scale)
+            q, scale = bufs
+        return deltamod.Int8Leaf(q, scale, v.shape, dtype_name(v))
+
     def capture(self, upper: UpperHalf, ctx: Optional[_SparseCtx] = None,
+                codec_by_kind: Optional[Dict[str, str]] = None,
                 ) -> Tuple[Dict[str, Dict[str, Any]], Dict[str, int]]:
         """Copy-on-snapshot: every leaf is copied into this slot's
         preallocated host buffers (``_stage``).
 
-        With a sparse context, eligible leaves take the dirty-chunk
-        path instead of a full copy (``_try_sparse``); everything else
-        falls through to the dense copy and refreshes its fingerprint
-        baseline for the next capture."""
+        A tensor leaf under the ``int8`` codec is quantized where it
+        lives and only its codes cross (``_stage_coded``). With a sparse
+        context, eligible leaves take the dirty-chunk path instead of a
+        full copy (``_try_sparse``); everything else falls through to
+        the dense copy and refreshes its fingerprint baseline for the
+        next capture."""
         out: Dict[str, Dict[str, Any]] = {}
         st = {"capture_bytes": 0, "dirty_chunks": 0, "clean_chunks": 0,
               "identity_skips": 0, "sparse_leaves": 0}
+        codec_by_kind = codec_by_kind or {}
         for name, e in upper.items():
             pool = self.buffers.setdefault(name, {})
             taken: Dict[str, Any] = {}
-            codec = ctx.codec_by_kind.get(e.kind) if ctx else None
+            codec = codec_by_kind.get(e.kind)
             for path, v in flatten_with_paths(e.tree):
+                if deltamod.device_codec(v, codec):
+                    a = self._stage_coded(pool, path, v)
+                    taken[path] = a
+                    st["capture_bytes"] += nbytes(a.q) + nbytes(a.scale)
+                    continue
                 elig = ctx is not None and ctx.eligible(v, codec)
                 if elig:
                     ctx.seen.add((name, path))
@@ -559,13 +590,13 @@ class AsyncSnapshotter:
                 base_step=self._fp_step,
                 chunk_bytes=self.sparse_chunk_bytes,
                 min_bytes=self.sparse_min_bytes,
-                codec_by_kind=self.codec_by_kind,
                 pool=self._fp_pool,
                 workers=self._fp_workers,
             )
         t0 = time.monotonic()
         try:
-            host_state, cap_st = slot.capture(upper, ctx)
+            host_state, cap_st = slot.capture(upper, ctx,
+                                              self.codec_by_kind)
             cap = _Captured(
                 step=step,
                 slot=slot,
@@ -680,7 +711,10 @@ class AsyncSnapshotter:
                         arr, writer.put, writer.has,
                         codec=codec, prev=prev_arr, compress=self.compress)
                     logical += nbytes(arr)
-                    if has_sparse:
+                    if has_sparse and isinstance(arr, deltamod.Int8Leaf):
+                        # codec leaves never serve as an XOR base
+                        base_state.setdefault(name, {}).pop(path, None)
+                    elif has_sparse:
                         # the old prev slot stays pinned as the mirror;
                         # fold this dense leaf's bytes into it so the
                         # mirror is the complete current snapshot (the
@@ -955,7 +989,9 @@ def materialize_manifest_chain(
     forces the serial path (both orders produce identical arrays).
     ``skip_entries``: entry names to leave undecoded (absent from the
     result) — a caller that rebuilds an entry from scratch, like the
-    serving engine re-slotting its KV cache, shouldn't pay its chain."""
+    serving engine re-slotting its KV cache, shouldn't pay its chain.
+    Codec leaves stay coded (``delta.Int8Leaf``) until they are bound
+    onto their device."""
     manifests = [backend.get_manifest(s)
                  for s in manifest_chain_steps(backend, step)]
     final = manifests[-1]

@@ -1,8 +1,10 @@
 from repro_torch.core.backends.base import CheckpointBackend
+from repro_torch.core.backends.cached import CachedBackend
 from repro_torch.core.backends.localfs import LocalFSBackend
+from repro_torch.core.backends.sharded import ShardedBackend
 
-# the JAX package's sharded: and cached: stores wait for ROADMAP A3
-BACKENDS = {"localfs": LocalFSBackend}
+BACKENDS = {"localfs": LocalFSBackend, "sharded": ShardedBackend,
+            "cached": CachedBackend}
 
 
 def make_backend(kind: str, root: str, **kw) -> CheckpointBackend:

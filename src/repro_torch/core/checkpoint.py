@@ -45,7 +45,8 @@ from repro_torch.core.split_state import UpperHalf
 class RestoredState:
     step: int
     manifest: Dict[str, Any]
-    # entry -> leaf path -> np.ndarray (bfloat16 as its uint16 bit view)
+    # entry -> leaf path -> np.ndarray (bfloat16 as its uint16 bit view;
+    # an int8 codec leaf as a delta.Int8Leaf that reads as one)
     entries: Dict[str, Dict[str, np.ndarray]]
     oplog: OpLog
 

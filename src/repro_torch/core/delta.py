@@ -6,9 +6,14 @@ Three leaf encodings, chosen per tensor by the snapshot pipeline:
 ``full``   raw bytes, split into fixed-size chunks, each stored under its
            blake2b hash. Unchanged data (frozen embeddings, stale
            optimizer slots) re-uses existing blobs for free.
-``codec``  lossy int8 block quantization (kernels/ckpt_codec numpy ref)
-           applied before chunking; used for
-           error-tolerant entries (optimizer moments), ~4x smaller.
+``codec``  lossy int8 block quantization (kernels/ckpt_codec) applied
+           before chunking; used for error-tolerant entries (optimizer
+           moments), ~4x smaller. A tensor leaf is quantized where it
+           lives — by the CUDA kernel at capture for a leaf on the card,
+           so only the int8 codes and scales cross to the host — and
+           arrives here as an ``Int8Leaf``; a numpy leaf is quantized on
+           the host (``quantize_ref``). Restore keeps the codes until the
+           leaf lands on its device, where ``dequantize`` rebuilds it.
 ``xor``    byte-level XOR against the *previous snapshot's* copy of the
            same leaf (through the ckpt_codec CUDA kernel when a card
            is attached, numpy on host), forming a delta
@@ -45,8 +50,9 @@ chunks, so chain application cost also scales with the delta. Formats
 
 Host leaves are numpy arrays or CPU tensors (``repro_torch.host``);
 decoded leaves are numpy arrays, a bfloat16 leaf as its uint16 bit
-view. Manifests are byte-for-byte the JAX package's format: the same
-dtype strings ("bfloat16"), shapes, chunking and blob hashes.
+view, and codec leaves ``Int8Leaf`` holders that read as the host
+decode's array. Manifests are byte-for-byte the JAX package's format:
+the same dtype strings ("bfloat16"), shapes, chunking and blob hashes.
 """
 from __future__ import annotations
 
@@ -58,7 +64,8 @@ import numpy as np
 import torch
 
 from repro_torch.api.errors import RestoreError
-from repro_torch.host import dtype_name, host_np_dtype, nbytes, numel
+from repro_torch.host import (dtype_name, host_np_dtype, nbytes, numel,
+                              torch_dtype)
 
 CHUNK_BYTES = 4 * 1024 * 1024
 
@@ -90,6 +97,63 @@ def _same_geometry(a, b) -> bool:
 # codecs (lossy, pre-chunking)
 # ---------------------------------------------------------------------------
 
+def _as_np(x) -> np.ndarray:
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+class Int8Leaf:
+    """One leaf held as the int8 codec's parts: ``q`` int8 [nb, BLOCK]
+    and ``scale`` float32 [nb] (numpy arrays or tensors) of a leaf of
+    ``shape`` and manifest dtype ``dtype`` (float16, float32 or
+    float64).
+
+    Capture makes one from a tensor leaf (``quantize`` where the leaf
+    lives), ``encode_leaf`` writes its parts as the host codec would,
+    and the decoder returns one, which ``tensor`` dequantizes on the
+    device the leaf is restored to. Read as an array (``np.asarray``) it
+    is the host decode: ``dequantize_ref``'s values in ``dtype``."""
+
+    codec = "int8"
+
+    def __init__(self, q, scale, shape, dtype: str) -> None:
+        self.q = q
+        self.scale = scale
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = host_np_dtype(dtype)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape, dtype=np.int64))
+
+    @property
+    def nbytes(self) -> int:
+        return self.size * self.dtype.itemsize
+
+    def parts(self) -> Dict[str, Any]:
+        return {"q": self.q, "scale": self.scale}
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        from repro_torch.kernels.ckpt_codec.ref import dequantize_ref
+        out = dequantize_ref(_as_np(self.q), _as_np(self.scale))
+        out = out[:self.size].reshape(self.shape).astype(self.dtype)
+        return out if dtype is None else out.astype(dtype)
+
+    def tensor(self, device) -> torch.Tensor:
+        """The leaf rebuilt on ``device``: the codes and scales are
+        copied there and dequantized there (the kernel on the card, the
+        plain version on the CPU), then cast to the leaf's dtype."""
+        from repro_torch.kernels.ckpt_codec import ops
+        q, scale = (torch.as_tensor(_writable(_as_np(p)), device=device)
+                    for p in (self.q, self.scale))
+        flat = ops.dequantize(q, scale)
+        return flat[:self.size].view(self.shape).to(
+            torch_dtype(self.dtype.name))
+
+
+def _writable(a: np.ndarray) -> np.ndarray:
+    return a if a.flags.writeable else a.copy()
+
+
 def _int8_encode(arr: np.ndarray) -> Dict[str, np.ndarray]:
     from repro_torch.kernels.ckpt_codec.ref import quantize_ref
     if isinstance(arr, torch.Tensor):
@@ -99,10 +163,8 @@ def _int8_encode(arr: np.ndarray) -> Dict[str, np.ndarray]:
 
 
 def _int8_decode(parts: Dict[str, np.ndarray], dtype: np.dtype,
-                 shape: Tuple[int, ...]) -> np.ndarray:
-    from repro_torch.kernels.ckpt_codec.ref import dequantize_ref
-    out = dequantize_ref(parts["q"], parts["scale"])
-    return np.asarray(out[:int(np.prod(shape))].reshape(shape), dtype)
+                 shape: Tuple[int, ...]) -> Int8Leaf:
+    return Int8Leaf(parts["q"], parts["scale"], shape, np.dtype(dtype).name)
 
 
 CODECS: Dict[str, Tuple[Callable, Callable]] = {
@@ -118,6 +180,15 @@ _CODEC_DTYPES = ("float16", "float32", "float64")
 def codec_applicable(arr, codec: Optional[str]) -> bool:
     return (codec is not None and dtype_name(arr) in _CODEC_DTYPES
             and numel(arr) >= 256)
+
+
+def device_codec(arr, codec: Optional[str]) -> bool:
+    """Whether capture quantizes ``arr`` where it lives: a tensor leaf
+    under the built-in ``int8`` codec (a codec registered through
+    ``register_codec`` always encodes on the host)."""
+    return (isinstance(arr, torch.Tensor)
+            and CODECS.get(codec, (None,))[0] is _int8_encode
+            and codec_applicable(arr, codec))
 
 
 # ---------------------------------------------------------------------------
@@ -381,9 +452,18 @@ def encode_leaf(
     ``prev`` (same shape/dtype tensor from the previous snapshot) selects
     xor mode; ``codec`` selects the lossy codec (mutually exclusive with
     xor — quantized entries rely on chunk dedup instead, so requantization
-    noise never accumulates along a chain)."""
-    if not isinstance(arr, torch.Tensor):
-        arr = np.asarray(arr)
+    noise never accumulates along a chain). An ``Int8Leaf`` arrives
+    already quantized and is written exactly as the host codec would
+    write its leaf."""
+    if isinstance(arr, Int8Leaf):
+        if codec != arr.codec:
+            raise ValueError(f"an int8-coded leaf under codec {codec!r}")
+        parts = arr.parts()
+    else:
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
+        parts = (CODECS[codec][0](arr) if codec_applicable(arr, codec)
+                 else None)
     meta: Dict[str, Any] = {
         "shape": list(arr.shape),
         "dtype": dtype_name(arr),
@@ -391,10 +471,10 @@ def encode_leaf(
         "parts": {},
     }
     written = 0
-    if codec_applicable(arr, codec):
+    if parts is not None:
         meta["mode"] = "codec"
         meta["codec"] = codec
-        for pname, p in CODECS[codec][0](arr).items():
+        for pname, p in parts.items():
             pmeta, w = _encode_part(p, put_blob, has_blob, compress=compress)
             meta["parts"][pname] = pmeta
             written += w
@@ -418,9 +498,10 @@ def encode_leaf(
 
 def decode_leaf(meta: Dict[str, Any],
                 get_blob: Callable[[str], bytes],
-                prev=None) -> np.ndarray:
-    """Decode one leaf. xor-mode leaves need ``prev`` — the decoded value
-    of the same leaf at the manifest's base step."""
+                prev=None):
+    """Decode one leaf: a numpy array, or for an int8 codec leaf an
+    ``Int8Leaf`` still holding its codes. xor-mode leaves need ``prev``
+    — the decoded value of the same leaf at the manifest's base step."""
     dtype = host_np_dtype(meta["dtype"])
     shape = tuple(meta["shape"])
     mode = meta.get("mode")

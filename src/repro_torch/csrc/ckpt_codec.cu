@@ -1,21 +1,27 @@
 // Checkpoint codec kernels for Hopper (sm_90a): chunk fingerprint,
-// fused dirty-chunk capture and byte XOR.
+// fused dirty-chunk capture, byte XOR, and the int8 snapshot codec's
+// block quantize and dequantize.
 //
 // Replaces the Pallas TPU kernels of the JAX package:
 //   ckpt_fingerprint     <- repro/kernels/ckpt_codec/kernel.py fingerprint_blocks
 //   ckpt_fused_capture   <- repro/kernels/ckpt_codec/kernel.py fused_capture_blocks
 //   ckpt_xor             <- repro/kernels/ckpt_codec/kernel.py xor_blocks
-// The bit-exact contract of all three is the numpy oracle
+//   ckpt_quantize        <- repro/kernels/ckpt_codec/kernel.py quantize_blocks
+//   ckpt_dequantize      <- repro/kernels/ckpt_codec/kernel.py dequantize_blocks
+// The bit-exact contract of all five is the numpy oracle
 // repro_torch/kernels/ckpt_codec/ref.py (fingerprint_ref,
-// fused_capture_ref, delta_encode_ref).
+// fused_capture_ref, delta_encode_ref, quantize_ref, dequantize_ref).
 //
-// What bounds them on an H100: all three read or write every byte once
-// and do a few integer operations per 4-byte lane, far below the ~20
-// operations per byte where the integer units would become the limit,
-// so each is bound by device-memory bandwidth (3.35 TB/s):
+// What bounds them on an H100: all five read or write every byte once
+// and do a few operations per 4-byte lane, far below the ~20
+// operations per byte where the arithmetic units would become the
+// limit, so each is bound by device-memory bandwidth (3.35 TB/s):
 //   fingerprint  n bytes read                         -> n / 3.35 TB/s
 //   fused        n bytes read + k dirty chunks written -> (n + k*chunk) / 3.35 TB/s
 //   xor          2n read + n written                   -> 3n / 3.35 TB/s
+//   quantize     4n read + n + 4n/256 written          -> 5.02n / 3.35 TB/s
+//   dequantize   n + 4n/256 read + 4n written          -> 5.02n / 3.35 TB/s
+//                (n elements for the codec pair)
 // The design answer is the same everywhere: 16-byte (uint4) loads by
 // neighbouring threads on neighbouring addresses, enough blocks to
 // cover the 132 SMs, and no second pass over the leaf.
@@ -36,6 +42,16 @@
 // bits. Sums modulo 2^32 do not depend on their order, so the block
 // reduction gives the oracle's bits whatever order it adds in.
 //
+// The codec pair must give numpy's bits (the manifests and blob names of
+// both packages depend on them), so it is plain IEEE float32: the scale
+// is max(amax, f32(1e-12)) / 127 and q = rint(x / scale) with a
+// correctly rounded division (__fdiv_rn), never x * (1 / scale), which
+// differs at and near the ties; rintf rounds half to even as np.rint
+// does. The library is built without --use_fast_math, so subnormals are
+// kept (no flush to zero). One difference is left as it is: fmaxf drops
+// a NaN where np.maximum keeps it, so a block holding a NaN quantizes
+// differently here (finite input is the contract).
+//
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() right after its
 // launches (0 = cudaSuccess).
@@ -50,6 +66,8 @@ constexpr uint32_t kMulC = 0x9E3779B1u;
 constexpr int kHashThreads = 256;
 constexpr int kScanThreads = 1024;
 constexpr int kCopySplit = 8;  // blocks per copied chunk
+constexpr int kQBlock = 256;   // elements of one codec block (ref.BLOCK)
+constexpr int kQWarps = 8;     // codec blocks per CUDA block, a warp each
 
 __device__ __forceinline__ void mix(uint32_t x, uint32_t p, uint32_t& h1,
                                     uint32_t& h2) {
@@ -241,6 +259,72 @@ __global__ void xor_kernel(const uint8_t* __restrict__ a,
   for (long long i = done + t; i < n; i += stride) out[i] = a[i] ^ b[i];
 }
 
+// Replaces quantize_blocks (kernel.py:38). One warp per 256-element
+// block: each lane loads 8 consecutive floats (two 16-byte loads where
+// the input is aligned; scalar, zero past n, on the ragged tail), the
+// block's amax is a butterfly of __shfl_xor_sync, and each lane stores
+// its 8 int8 codes as one 8-byte word. Bound by reading x once.
+__global__ void quantize_kernel(const float* __restrict__ x, long long n,
+                                long long nb, bool vec_ok,
+                                int8_t* __restrict__ q,
+                                float* __restrict__ scale) {
+  const long long b = static_cast<long long>(blockIdx.x) * kQWarps +
+                      (threadIdx.x >> 5);
+  if (b >= nb) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const long long base = b * kQBlock + lane * 8;
+  float v[8];
+  if (vec_ok && base + 8 <= n) {
+    const float4* p = reinterpret_cast<const float4*>(x + base);
+    const float4 a = p[0];
+    const float4 c = p[1];
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+  } else {
+    for (int i = 0; i < 8; ++i) v[i] = base + i < n ? x[base + i] : 0.0f;
+  }
+  float amax = 0.0f;
+  for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(v[i]));
+  for (int o = 16; o > 0; o >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  }
+  // numpy's f32(1e-12): the double literal rounded once to float
+  const float s = __fdiv_rn(fmaxf(amax, static_cast<float>(1e-12)), 127.0f);
+  uint32_t word[2] = {0u, 0u};
+  for (int i = 0; i < 8; ++i) {
+    const float r = fminf(fmaxf(rintf(__fdiv_rn(v[i], s)), -127.0f), 127.0f);
+    const uint32_t byte = static_cast<uint8_t>(static_cast<int8_t>(r));
+    word[i >> 2] |= byte << (8 * (i & 3));
+  }
+  reinterpret_cast<uint2*>(q)[b * (kQBlock / 8) + lane] =
+      make_uint2(word[0], word[1]);
+  if (lane == 0) scale[b] = s;
+}
+
+// Replaces dequantize_blocks (kernel.py:214): one thread per 8 codes,
+// one 8-byte load of q, two 16-byte stores of the product with the
+// block's scale (an exact int8 -> float conversion and one IEEE
+// multiply, as numpy's). Bound by writing the f32 output once.
+__global__ void dequantize_kernel(const int8_t* __restrict__ q,
+                                  const float* __restrict__ scale,
+                                  long long nb, float* __restrict__ out) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (t >= nb * (kQBlock / 8)) return;
+  const float s = scale[t / (kQBlock / 8)];
+  const uint2 w = reinterpret_cast<const uint2*>(q)[t];
+  float r[8];
+  for (int i = 0; i < 8; ++i) {
+    const uint32_t word = i < 4 ? w.x : w.y;
+    const int8_t code =
+        static_cast<int8_t>(static_cast<uint8_t>(word >> (8 * (i & 3))));
+    r[i] = static_cast<float>(code) * s;
+  }
+  float4* o = reinterpret_cast<float4*>(out) + 2 * t;
+  o[0] = make_float4(r[0], r[1], r[2], r[3]);
+  o[1] = make_float4(r[4], r[5], r[6], r[7]);
+}
+
 bool aligned(const void* p, uintptr_t to) {
   return reinterpret_cast<uintptr_t>(p) % to == 0;
 }
@@ -306,6 +390,34 @@ int ckpt_xor(const void* a, const void* b, void* out, long long n,
                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
       static_cast<uint8_t*>(out), n, vec_ok);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: float32 [n]; q: int8 [nb, 256], 8-byte aligned; scale: float32
+// [nb], where nb = ceil(n / 256) (the tail block zero-padded).
+int ckpt_quantize(const void* x, long long n, void* q, void* scale,
+                  void* stream) {
+  const long long nb = (n + kQBlock - 1) / kQBlock;
+  if (nb == 0) return 0;
+  const long long blocks = (nb + kQWarps - 1) / kQWarps;
+  quantize_kernel<<<static_cast<unsigned>(blocks), 32 * kQWarps, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), n, nb, aligned(x, 16),
+      static_cast<int8_t*>(q), static_cast<float*>(scale));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: int8 [nb, 256], 8-byte aligned; scale: float32 [nb];
+// out: float32 [nb * 256], 16-byte aligned.
+int ckpt_dequantize(const void* q, const void* scale, long long nb,
+                    void* out, void* stream) {
+  const long long threads = nb * (kQBlock / 8);
+  if (threads == 0) return 0;
+  const long long blocks = (threads + 255) / 256;
+  dequantize_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scale), nb,
+      static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

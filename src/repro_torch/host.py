@@ -46,10 +46,13 @@ def resolve_device(device: Union[str, torch.device, None] = None
 
 
 def dtype_name(x: Any) -> str:
-    """The manifest dtype string of a tensor or array leaf."""
+    """The manifest dtype string of a tensor or array leaf (read from
+    the leaf's ``dtype`` where it has one, so a coded leaf is never
+    decoded to answer)."""
     if isinstance(x, torch.Tensor):
         return _NAMES[x.dtype]
-    return str(np.asarray(x).dtype)
+    dt = getattr(x, "dtype", None)
+    return str(dt if isinstance(dt, np.dtype) else np.asarray(x).dtype)
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -67,13 +70,15 @@ def host_np_dtype(name: str) -> np.dtype:
 def nbytes(x: Any) -> int:
     if isinstance(x, torch.Tensor):
         return x.numel() * x.element_size()
-    return np.asarray(x).nbytes
+    n = getattr(x, "nbytes", None)
+    return int(n) if n is not None else np.asarray(x).nbytes
 
 
 def numel(x: Any) -> int:
     if isinstance(x, torch.Tensor):
         return x.numel()
-    return np.asarray(x).size
+    n = getattr(x, "size", None)
+    return int(n) if isinstance(n, (int, np.integer)) else np.asarray(x).size
 
 
 def byte_view(x: Any) -> np.ndarray:
@@ -113,7 +118,17 @@ def host_array(x: Any) -> np.ndarray:
 def to_tensor(v: Any, dtype: torch.dtype,
               device: Optional[torch.device]) -> torch.Tensor:
     """Host leaf -> tensor of ``dtype`` on ``device``. A ``uint16`` host
-    array bound for a bfloat16 tensor is its bit view, not a value."""
+    array bound for a bfloat16 tensor is its bit view, not a value. A
+    coded leaf (``core.delta.Int8Leaf``) is dequantized on ``device``,
+    which it must name: its full-width values never exist anywhere
+    else."""
+    from repro_torch.core.delta import Int8Leaf
+    if isinstance(v, Int8Leaf):
+        if device is None:
+            raise ValueError("a coded leaf is dequantized where it lands: "
+                             "name its device")
+        t = v.tensor(device)
+        return t if t.dtype == dtype else t.to(dtype)
     if isinstance(v, torch.Tensor):
         t = v
     else:

@@ -1,5 +1,6 @@
 """Wrappers for the checkpoint codec kernels: chunk fingerprints, the
-fused dirty-chunk capture, and the byte XOR of chained snapshots.
+fused dirty-chunk capture, the byte XOR of chained snapshots, and the
+int8 snapshot codec's block quantize and dequantize.
 
 Each kernel has two implementations behind one wrapper:
 
@@ -10,7 +11,9 @@ Each kernel has two implementations behind one wrapper:
 * on a CPU tensor, its plain PyTorch version below — the same integer
   arithmetic (int64 products masked to 32 bits) — which the CPU tests
   hold against the numpy oracle ``ref.py`` and the JAX package's Pallas
-  kernels, and which ``chip_smoke.py`` holds against the CUDA kernel.
+  kernels, and which ``chip_smoke.py`` holds against the CUDA kernel
+  (the codec pair in IEEE float32: a true division, never a multiply by
+  the reciprocal, so every version gives ``quantize_ref``'s bits).
 
 A CUDA tensor never takes the plain version: the wrapper launches the
 kernel or raises. Every kernel launch adds one to its launch count
@@ -20,8 +23,8 @@ so a run can show which route it went through.
 The wrapper contracts are those of ``repro.kernels.ckpt_codec.ops``:
 ``chunk_fingerprints``, ``fused_capacity`` (same numbers),
 ``fused_dirty_chunk_capture`` -> ``(fp, dirty_idx, dirty_bytes)`` with
-the overflow fallback, ``dirty_chunk_capture``, ``delta_encode`` and
-``delta_decode``.
+the overflow fallback, ``dirty_chunk_capture``, ``delta_encode``,
+``delta_decode``, ``quantize`` and ``dequantize``.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ _FP_XOR_C = 0x5BD1E995
 _FP_MUL_C = 0x9E3779B1
 _MASK32 = 0xFFFFFFFF
 
-KERNELS = ("fingerprint", "fused_capture", "xor")
+KERNELS = ("fingerprint", "fused_capture", "xor", "quantize", "dequantize")
 
 _VP, _LL, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 LIB = CudaLibrary("ckpt_codec", {
@@ -49,6 +52,8 @@ LIB = CudaLibrary("ckpt_codec", {
     "ckpt_fused_capture": [_VP, _LL, _LL, _VP, _INT, _VP, _VP, _VP, _VP,
                            _VP, _VP],
     "ckpt_xor": [_VP, _VP, _VP, _LL, _VP],
+    "ckpt_quantize": [_VP, _LL, _VP, _VP, _VP],
+    "ckpt_dequantize": [_VP, _VP, _LL, _VP, _VP],
 }, error_fn="ckpt_error_string")
 
 _count_lock = threading.Lock()
@@ -244,6 +249,36 @@ def xor_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_xor(a, b)
 
 
+def _f32_blocks(x: torch.Tensor) -> torch.Tensor:
+    """f32 [nb, BLOCK]: ``x`` flattened, cast to float32 where it lives
+    (rounding as numpy's ``astype`` does) and zero-padded to a BLOCK
+    multiple."""
+    flat = x.detach().reshape(-1).to(torch.float32)
+    pad = (-flat.numel()) % BLOCK
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.view(-1, BLOCK)
+
+
+def quantize_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the quantize kernel: per 256-element block,
+    ``scale = max(amax, 1e-12) / 127`` and ``q = clip(round(x / scale),
+    ±127)`` in float32, half to even. Both divisions divide by a tensor
+    on ``x``'s device: a divisor held as a Python or CPU scalar lets
+    PyTorch's CUDA kernel multiply by its reciprocal instead, which is
+    not numpy's result."""
+    xb = _f32_blocks(x)
+    amax = xb.abs().amax(dim=1)
+    scale = torch.div(amax.clamp_min(1e-12), torch.full_like(amax, 127.0))
+    q = torch.div(xb, scale[:, None]).round_().clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_plain(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the dequantize kernel: flat f32 ``q · scale``."""
+    return (q.to(torch.float32) * scale[:, None]).reshape(-1)
+
+
 # ---------------------------------------------------------------------------
 # kernel launches (CUDA tensors)
 # ---------------------------------------------------------------------------
@@ -300,6 +335,53 @@ def _xor_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _quantize_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not x.is_floating_point():
+        raise ValueError(f"quantize takes a float tensor, not {x.dtype}")
+    flat = x.detach().reshape(-1)
+    if flat.dtype != torch.float32:
+        flat = flat.to(torch.float32)
+    flat = flat.contiguous()
+    nb = -(-flat.numel() // BLOCK)
+    q = torch.empty((nb, BLOCK), dtype=torch.int8, device=x.device)
+    scale = torch.empty(nb, dtype=torch.float32, device=x.device)
+    if nb == 0:                     # nothing to launch, nothing counted
+        return q, scale
+    with torch.cuda.device(x.device):
+        code = LIB.library().ckpt_quantize(flat.data_ptr(), flat.numel(),
+                                           q.data_ptr(), scale.data_ptr(),
+                                           _stream(x.device))
+    LIB.check(code, "ckpt_quantize")
+    _count("cuda", "quantize")
+    return q, scale
+
+
+def _dequantize_cuda(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    nb = q.shape[0]
+    if q.dtype != torch.int8 or tuple(q.shape) != (nb, BLOCK) \
+            or scale.dtype != torch.float32 or tuple(scale.shape) != (nb,) \
+            or scale.device != q.device:
+        raise ValueError(
+            f"dequantize takes int8 [nb, {BLOCK}] codes and float32 [nb] "
+            f"scales on one device, got {q.dtype} {tuple(q.shape)} on "
+            f"{q.device} and {scale.dtype} {tuple(scale.shape)} on "
+            f"{scale.device}")
+    q = q.contiguous()
+    if q.data_ptr() % 8:            # the kernel loads 8 codes a thread
+        q = q.clone()
+    scale = scale.contiguous()
+    out = torch.empty(nb * BLOCK, dtype=torch.float32, device=q.device)
+    if nb == 0:
+        return out
+    with torch.cuda.device(q.device):
+        code = LIB.library().ckpt_dequantize(q.data_ptr(), scale.data_ptr(),
+                                             nb, out.data_ptr(),
+                                             _stream(q.device))
+    LIB.check(code, "ckpt_dequantize")
+    _count("cuda", "dequantize")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel-level wrappers: the CUDA kernel on a CUDA tensor, the plain
 # version on a CPU tensor (counterparts of kernel.py's *_blocks)
@@ -329,6 +411,27 @@ def xor_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _xor_cuda(a, b)
     _count("cpu", "xor")
     return xor_plain(a, b)
+
+
+def quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Int8 block quantization of a float tensor where it lives: any
+    shape (float16/64 cast to float32 first) -> ``(q int8 [nb, BLOCK],
+    scale float32 [nb])``, zero-padded to a BLOCK multiple — the
+    contract of ``repro.kernels.ckpt_codec.ops.quantize`` and the bits
+    of ``ref.quantize_ref``."""
+    if _route(x) == "cuda":
+        return _quantize_cuda(x)
+    _count("cpu", "quantize")
+    return quantize_plain(x)
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``q · scale`` per block -> flat float32 ``[nb * BLOCK]`` (the
+    caller slices to the logical size)."""
+    if _route(q) == "cuda":
+        return _dequantize_cuda(q, scale)
+    _count("cpu", "dequantize")
+    return dequantize_plain(q, scale)
 
 
 # ---------------------------------------------------------------------------

@@ -264,7 +264,7 @@ class ServingEngine:
 
         if not reslot:
             host = fill_like(self.cache, inc.entry_paths("kv_cache"))
-            tree_map(lambda t, v: t.copy_(to_tensor(v, t.dtype, None)),
+            tree_map(lambda t, v: t.copy_(to_tensor(v, t.dtype, t.device)),
                      self.cache, host)
             sess = tree_from_paths(inc.entry_paths("sessions"))
             self.slot_pos = np.asarray(sess["slot_pos"], np.int32).copy()

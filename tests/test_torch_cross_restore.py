@@ -133,12 +133,17 @@ def test_jax_chain_restores_bit_identically_under_the_port(tmp_path):
         m.close()
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int32"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int32",
+                                   "float32-int8", "float16-int8"])
 def test_single_leaf_formats_agree(tmp_path, dtype):
     """One leaf per dtype through both packages' delta codecs: the same
-    blobs, the same manifest meta."""
+    blobs, the same manifest meta; ``-int8`` leaves under the int8
+    codec, which the port decodes to a coded leaf reading as the JAX
+    package's decode."""
     rng = np.random.RandomState(1)
     base = rng.randn(3, 1000).astype(np.float32)
+    dtype, _, codec = dtype.partition("-")
+    codec = codec or None
     if dtype == "bfloat16":
         a = base.astype(ml_dtypes.bfloat16)
         t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -147,8 +152,12 @@ def test_single_leaf_formats_agree(tmp_path, dtype):
             (base * 1000).astype(np.int32)
         t = torch.from_numpy(a.copy())
     blobs_j, blobs_t = {}, {}
-    mj = jdelta.encode_leaf(a, blobs_j.__setitem__, blobs_j.__contains__)
-    mt = tdelta.encode_leaf(t, blobs_t.__setitem__, blobs_t.__contains__)
+    mj = jdelta.encode_leaf(a, blobs_j.__setitem__, blobs_j.__contains__,
+                            codec=codec)
+    mt = tdelta.encode_leaf(t, blobs_t.__setitem__, blobs_t.__contains__,
+                            codec=codec)
     assert mj == mt and blobs_j == blobs_t
+    assert mt["mode"] == ("codec" if codec else "full")
     back = tdelta.decode_leaf(mj, blobs_j.__getitem__)
-    assert _bytes(back) == _bytes(a)
+    want = jdelta.decode_leaf(mj, blobs_j.__getitem__) if codec else a
+    assert _bytes(back) == _bytes(want)

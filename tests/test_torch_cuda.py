@@ -60,10 +60,150 @@ def test_kernels_match_plain(cuda_device, n_bytes):
     assert torch.equal(ops.xor_blocks(x, y), ops.xor_plain(x, y))
     assert torch.equal(ops.xor_blocks(x[1:], y[:-1]),      # unaligned
                        ops.xor_plain(x[1:], y[:-1]))
-    assert ops.counts("cuda") == {"fingerprint": 1, "fused_capture": 3,
-                                  "xor": 2}
+    assert ops.counts("cuda") == dict(dict.fromkeys(ops.KERNELS, 0),
+                                      fingerprint=1, fused_capture=3, xor=2)
     assert ops.counts("cpu") == dict.fromkeys(ops.KERNELS, 0)
     ops.reset_counts()
+
+
+def _codec_input(case, device):
+    """Inputs of the int8 codec kernels: a ragged size (numel and nb not
+    multiples of any tile), zero blocks, exact ties at scale 1.0, values
+    drawn as AdamW's nu makes them, float16 and float64, and a view 4
+    bytes off the 16-byte alignment (the scalar load path)."""
+    rng = np.random.RandomState(7)
+    if case == "ragged":
+        x = rng.randn(300_001) * 3
+    elif case == "zeros":
+        x = np.zeros(5 * 256 + 3)
+    elif case == "ties":
+        x = np.zeros(512)
+        x[0] = 127.0
+        x[1:9] = [0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 3.5, -3.5]
+    elif case == "adamw_nu":
+        x = np.exp(rng.uniform(np.log(1e-14), np.log(1e-6), size=70_000))
+    else:
+        x = rng.randn(10_000) * 5
+    dtype = {"float16": torch.float16, "float64": torch.float64}.get(
+        case, torch.float32)
+    t = torch.from_numpy(x).to(dtype).to(device)
+    return t[1:] if case == "unaligned" else t
+
+
+@pytest.mark.parametrize("case", ["ragged", "zeros", "ties", "adamw_nu",
+                                  "float16", "float64", "unaligned"])
+def test_codec_kernels_match_plain_and_the_oracle(cuda_device, case):
+    """quantize and dequantize on the card: bit for bit the plain
+    version on the card, and the numpy oracle on the host."""
+    from repro_torch.kernels.ckpt_codec import ref
+    x = _codec_input(case, cuda_device)
+    ops.reset_counts()
+    q, scale = ops.quantize(x)
+    qp, sp = ops.quantize_plain(x)
+    assert torch.equal(q, qp)
+    assert torch.equal(scale.view(torch.int32), sp.view(torch.int32))
+    qr, sr = ref.quantize_ref(x.cpu().numpy())
+    np.testing.assert_array_equal(q.cpu().numpy(), qr)
+    assert scale.cpu().numpy().tobytes() == sr.tobytes()
+    d = ops.dequantize(q, scale)
+    assert torch.equal(d.view(torch.int32),
+                       ops.dequantize_plain(q, scale).view(torch.int32))
+    assert d.cpu().numpy().tobytes() == ref.dequantize_ref(qr, sr).tobytes()
+    assert ops.counts("cuda") == dict(dict.fromkeys(ops.KERNELS, 0),
+                                      quantize=1, dequantize=1)
+    assert ops.counts("cpu") == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_codec_kernels_refuse_what_they_cannot_take(cuda_device):
+    with pytest.raises(ValueError, match="float"):
+        ops.quantize(torch.ones(512, dtype=torch.int32, device=cuda_device))
+    q = torch.zeros((2, 256), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError, match="int8"):
+        ops.dequantize(q, torch.ones(3, device=cuda_device))
+    with pytest.raises(ValueError, match="int8"):
+        ops.dequantize(q, torch.ones(2))                 # scale on the host
+
+
+def test_codec_route_on_the_card(cuda_device, tmp_path):
+    """A mamba2 smoke trainer on the card under the int8 codec: capture
+    launches one quantize per codec leaf and restore one dequantize,
+    no plain call on either side, and the restored moments are the
+    plain dequantize(quantize(m)) of the moments at the snapshot."""
+    from repro_torch.core.delta import codec_applicable
+    from repro_torch.train.loop import Trainer, TrainJob
+    from repro_torch.tree import flatten_with_paths
+    policy = Policy(interval=2, chain=1, codecs={"opt_state": "int8"})
+    sess = CheckpointSession(f"sharded:{tmp_path}?hosts=4", policy)
+    t = Trainer(TrainJob("mamba2-780m-smoke", "train_s512_b2"),
+                manager=sess.manager)
+    t.init_state()
+    sess.attach(t)
+    t.train_steps(2)
+    clone = {p: v.clone() for p, v in flatten_with_paths(
+        t.upper.get("opt_state")) if codec_applicable(v, "int8")}
+    ops.reset_counts()
+    sess.maybe_snapshot()
+    t.train_steps(1)                  # in place, after snapshot() returned
+    sess.wait()
+    n = len(clone)
+    assert n and ops.counts("cuda")["quantize"] == n
+    st = sess.stats
+    assert st["capture_bytes"] < st["bytes_logical"] / 2
+    sess.close()
+    del t
+    t2 = CheckpointSession(f"sharded:{tmp_path}?hosts=4", policy).restore(
+        "latest", expect_kind="train")
+    assert ops.counts("cuda")["dequantize"] == n
+    assert ops.counts("cpu") == dict.fromkeys(ops.KERNELS, 0)
+    for p, v in flatten_with_paths(t2.upper.get("opt_state")):
+        if p in clone:
+            qp, sp = ops.quantize_plain(clone[p])
+            want = ops.dequantize_plain(qp, sp)[:v.numel()].view(v.shape)
+            assert v.is_cuda and torch.equal(v.view(torch.int32),
+                                              want.view(torch.int32)), p
+
+
+def test_a_coded_serving_cache_is_dequantized_on_the_card(cuda_device,
+                                                         tmp_path):
+    """A mamba2 smoke engine on the card under ``codecs={"cache":
+    "int8"}``: capture quantizes its float32 scan states with the kernel,
+    restore dequantizes them with the kernel on the card, no plain call
+    on either side, into the plain dequantize(quantize(state))."""
+    from repro_torch.core.delta import device_codec
+    from repro_torch.tree import flatten_with_paths
+    policy = Policy(interval=3, chain=1, codecs={"cache": "int8"})
+    params = M.init_params(get_smoke_config("mamba2-780m"), seed=0,
+                           device=cuda_device)
+    sess = CheckpointSession(f"localfs:{tmp_path}", policy)
+    eng = ServingEngine.create("mamba2-780m-smoke", params, n_slots=2,
+                               max_seq=48, manager=sess.manager)
+    sess.attach(eng)
+    rng = np.random.RandomState(0)
+    for i in range(3):
+        eng.submit(Request(rid=i, prompt=rng.randint(0, 256, size=9)
+                           .astype(np.int32), max_new=6))
+    for _ in range(3):
+        eng.step()
+    coded = {p: v.clone() for p, v in flatten_with_paths(eng.cache)
+             if device_codec(v, "int8")}
+    assert coded
+    ops.reset_counts()
+    sess.maybe_snapshot()
+    sess.wait()
+    sess.close()
+    del eng
+    eng2 = CheckpointSession(f"localfs:{tmp_path}", policy).restore(
+        "latest", params=params)
+    launched = ops.counts("cuda")
+    assert launched["quantize"] == launched["dequantize"] == len(coded)
+    assert ops.counts("cpu") == dict.fromkeys(ops.KERNELS, 0)
+    for p, v in flatten_with_paths(eng2.cache):
+        if p in coded:
+            want = ops.dequantize_plain(*ops.quantize_plain(coded[p]))
+            assert v.is_cuda and torch.equal(
+                v.view(torch.int32),
+                want[:v.numel()].view(v.shape).view(torch.int32)), p
+    eng2.run_until_drained(max_steps=400)
 
 
 def test_fused_wrapper_matches_the_cpu_route(cuda_device):

@@ -48,7 +48,9 @@ def test_the_scan_sees_the_whole_port():
                 "kernels/flash_attention/ops.py", "kernels/nvcc.py",
                 "kernels/ssd_scan/ops.py", "kernels/ssd_scan/ref.py",
                 "models/ssm.py", "kernels/rg_lru/ops.py",
-                "kernels/rg_lru/ref.py", "models/hybrid.py"):
+                "kernels/rg_lru/ref.py", "models/hybrid.py",
+                "core/backends/sharded.py", "core/backends/cached.py",
+                "core/replication.py", "core/delta.py"):
         assert os.path.join("src", "repro_torch", mod) in files
 
 
@@ -72,6 +74,14 @@ def test_port_imports_with_jax_and_ml_dtypes_blocked():
         import repro_torch.kernels.flash_attention.ops
         import repro_torch.kernels.rg_lru.ops
         import repro_torch.models.hybrid
+        import repro_torch.core.backends
+        import repro_torch.core.replication
+        from repro_torch.api.registry import resolve_backend
+        import tempfile
+        d = tempfile.mkdtemp()
+        resolve_backend(f"cached:{d}/c?over=sharded:{d}/s?hosts=2")
+        import shutil
+        shutil.rmtree(d)
         from repro_torch.api import CheckpointSession, Policy
         from repro_torch.api.registry import resolve_app_kind
         resolve_app_kind("train")

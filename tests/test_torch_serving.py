@@ -155,9 +155,6 @@ def test_unported_features_name_their_roadmap_item(tmp_path):
         sess.restore("latest", streaming=True)
     with pytest.raises(PolicyError, match="ROADMAP A4"):
         Policy(streaming_restore=True)
-    for spec in ("sharded:/x?hosts=2", "cached:/x?over=localfs:/y"):
-        with pytest.raises(PolicyError, match="ROADMAP A3"):
-            CheckpointSession(spec)
     sess.close()
 
 

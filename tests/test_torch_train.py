@@ -231,6 +231,53 @@ def test_other_families_name_their_roadmap_item():
         M.init_abstract(treg.get_smoke_config("whisper-base"))
 
 
+def test_a_depth_cut_arch_keeps_the_published_width():
+    """``<id>-layers<N>``: the published config cut to N layers, the
+    string a depth-cut job's checkpoint carries and its restore
+    resolves; anything past the published depth is refused."""
+    full = treg.resolve_config("starcoder2-3b")
+    cut = treg.resolve_config("starcoder2-3b-layers15")
+    assert cut == full.replace(n_layers=15) and cut.n_layers == 15
+    assert cut.d_model == full.d_model and cut.vocab_size == full.vocab_size
+    planned = treg.get_shape("train_s4096_b2")
+    assert make_plan(cut, planned).remat == make_plan(full, planned).remat
+    for bad in ("starcoder2-3b-layers0", "starcoder2-3b-layers31",
+                "nope-layers2", "starcoder2-3b-layersx"):
+        with pytest.raises(KeyError, match="layers"):
+            treg.resolve_config(bad)
+
+
+def test_a_depth_cut_checkpoint_restores_in_the_port_only(tmp_path):
+    """ROADMAP C17: the JAX package resolves no ``<id>-layers<N>`` arch,
+    so a training checkpoint written under one restores in the port
+    (its op-log replays the cut model's train step) and the JAX package
+    refuses it, naming the arch, before it builds any model."""
+    from repro.api import CheckpointSession as JSession
+    from repro_torch.core.incarnation import Incarnation
+    from repro_torch.core.split_state import LowerHalf, UpperHalf
+    arch, shape = "starcoder2-3b-layers15", "train_s4096_b2"
+    lower = LowerHalf(mesh_factory=lambda: torch.device("cpu"))
+    lower.mesh_create((1, 1), ("data", "model"))
+    lower.compile_step("train_step", arch, shape, "")
+    up = UpperHalf()
+    up.register("step", "step", np.int64(1))
+    tm = CheckpointManager(LocalFSBackend(str(tmp_path)), async_save=False)
+    tm.save(1, up, lower.oplog, job_meta={
+        "kind": "train", "arch": arch, "shape_key": shape, "plan_key": "",
+        "init_seed": 0, "data_seed": 1234})
+    tm.close()
+    inc = Incarnation(CheckpointManager(LocalFSBackend(str(tmp_path))),
+                      step=1, mesh_factory=lambda: torch.device("cpu"))
+    inc.materialize()
+    inc.build_lower()
+    assert inc.last_compile("train_step") is not None
+    with pytest.raises(KeyError, match="layers15"):
+        jreg.resolve_config(arch)
+    with pytest.raises(KeyError, match="layers15"):
+        JSession(f"localfs:{tmp_path}").restore("latest",
+                                                expect_kind="train")
+
+
 # --- train steps against the pure JAX step function -------------------------
 
 def _jax_step(cfg, shape, accum):
