@@ -21,8 +21,8 @@ Phases, each reported on its own line:
    ``torch.mul(q, scale[:, None])``'s for dequantize);
 4. each flash-attention kernel (forward, dq, dk/dv) held against its
    plain PyTorch version at the training shape in bf16 and at a ragged
-   f32 shape with a window, with its time, its bound, the plain
-   version's time and ``scaled_dot_product_attention``'s (forward; its
+   shape with a window in f32 and in bf16, with its time, its bound, the
+   plain version's time and ``scaled_dot_product_attention``'s (forward; its
    autograd backward for dq and dk/dv together); then each SSD kernel
    (the chunked scan's forward and its gradient) against its plain
    version at mamba2-780m's training shape in bf16 and at a ragged f32
@@ -401,7 +401,8 @@ def attended_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
 
 def check_flash(torch, fa):
     """Phase 4: each flash kernel against its plain version on the card,
-    at the training shape (bf16) and a ragged f32 shape with a window."""
+    at the training shape (bf16) and at a ragged shape with a window in
+    f32 (the CUDA-core kernels) and in bf16 (the tensor-core ones)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -419,7 +420,8 @@ def check_flash(torch, fa):
     parts = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
              "flash_dkv": ("dk", "dv")}
     cases = [("training", torch.bfloat16, 2, 24, 2, 4096, 128, 0),
-             ("ragged", torch.float32, 1, 4, 2, 1000, 128, 64)]
+             ("ragged", torch.float32, 1, 4, 2, 1000, 128, 64),
+             ("ragged bf16", torch.bfloat16, 1, 4, 2, 1000, 128, 64)]
     for label, dt, B, H, Hkv, S, hd, window in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -1369,7 +1371,7 @@ def profile_train_step(torch, tr):
     """Wall time of one train step against the device time of its
     kernels (torch.profiler), hence the device's idle share."""
     met, wall, dev, n_k, top = profile_call(torch, lambda: tr.train_steps(1),
-                                            n_top=8)
+                                            n_top=12)
     log(f"train profile: {wall:.1f} ms wall, {dev:.1f} ms of device kernels "
         f"({n_k} launches), device idle {100 * (1 - dev / wall):.1f}% of "
         "the step; by kernel: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top))
@@ -1704,18 +1706,17 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
 
 
 def ptxas_summary(report: str):
-    """``kernel<type,hd>: registers[, spill bytes]`` per entry function
-    of an ``nvcc -Xptxas -v`` report."""
+    """``kernel<hd>: registers[, spill bytes]`` per entry function of an
+    ``nvcc -Xptxas -v`` report."""
     import re
     out, name = [], "?"
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"\d([a-z][a-z_]*_kernel)"
-                          r"(?:I(13__nv_bfloat16|f)Li(\d+)E)?", m.group(1))
-            name = t.group(1) if t and not t.group(2) else (
-                f"{t.group(1)}<{'bf16' if 'bfloat' in t.group(2) else 'f32'}"
-                f",{t.group(3)}>" if t else m.group(1)[-32:])
+            t = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
+                          m.group(1))
+            name = (m.group(1)[-32:] if not t else t.group(1) if not
+                    t.group(2) else f"{t.group(1)}<{t.group(2)}>")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and m.group(1) != "0":
             name += f" (spills {m.group(1)} B)"

@@ -8,7 +8,11 @@ Each kernel has two implementations behind one wrapper:
 * on a CUDA tensor, the hand-written CUDA kernel of
   ``csrc/flash_attention.cu`` (built and bound through
   ``repro_torch.kernels.nvcc``), launched on the current stream; a
-  refused launch raises;
+  refused launch raises. bfloat16 runs on the tensor cores (``mma.sync``
+  with P and dS fed as two bf16 terms, ``cp.async`` double buffering;
+  ``dk/dv`` splits each GQA group over :func:`dkv_splits` blocks whose
+  f32 partials a second kernel sums in a fixed order, in scratch this
+  wrapper allocates); float32 runs f32 FMAs on the CUDA cores;
 * on a CPU tensor, its plain PyTorch version below: the math of the JAX
   package's ``ref.attention_ref`` plus the LSE for the forward, and the
   explicit backward formulas of ``backward.py`` for ``dq`` and ``dk/dv``
@@ -16,8 +20,12 @@ Each kernel has two implementations behind one wrapper:
   mode) and what ``chip_smoke.py`` holds the CUDA kernels against.
 
 A CUDA tensor never takes the plain version: the wrapper launches the
-kernel or raises. Every kernel launch adds one to its count
-(``counts("cuda")``), every plain call one to ``counts("cpu")``.
+kernel or raises, and it refuses what the kernels cannot take (a head
+dim outside ``HEAD_DIMS``, a tensor that is not contiguous or not
+16-byte aligned, which the 16-byte ``cp.async`` copies need). Every
+wrapper call on the card adds one to its count (``counts("cuda")``; the
+bf16 ``dk/dv`` call is two launches, the kernel and its sum), every
+plain call one to ``counts("cpu")``.
 
 Layouts are the JAX kernels': q, out, dout ``[B, H, Sq, hd]``; k, v
 ``[B, Hkv, Skv, hd]``; lse and delta float32 ``[B, H, Sq]``. Masks are on
@@ -40,6 +48,8 @@ from repro_torch.kernels.nvcc import CudaLibrary
 NEG_INF = -1e30
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 HEAD_DIMS = (16, 32, 64, 128)      # the head dims the CUDA kernels take
+ALIGN = 16                         # bytes: the kernels' cp.async copies
+DKV_MAX_SPLIT = 4                  # blocks sharing one kv tile's group
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -47,7 +57,7 @@ _DIMS = [_INT] * 5 + [_F32, _INT, _INT, _VP]   # B H Hkv Sq Skv scale
 LIB = CudaLibrary("flash_attention", {            # causal window stream
     "flash_fwd": [_INT, _INT] + [_VP] * 5 + _DIMS,
     "flash_dq": [_INT, _INT] + [_VP] * 7 + _DIMS,
-    "flash_dkv": [_INT, _INT] + [_VP] * 8 + _DIMS,
+    "flash_dkv": [_INT, _INT] + [_VP] * 9 + [_INT] + _DIMS,
 }, error_fn="flash_error_string")
 
 _count_lock = threading.Lock()
@@ -106,7 +116,21 @@ def _route(name: str, q: torch.Tensor, *rest: torch.Tensor) -> str:
     for t in (q, *rest):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: inputs must start {ALIGN}-byte "
+                             f"aligned (data_ptr {t.data_ptr():#x})")
     return "cuda"
+
+
+def dkv_splits(H: int, Hkv: int) -> int:
+    """How many blocks share one kv tile's GQA group in the bf16 dk/dv
+    kernel: the largest divisor of the group up to ``DKV_MAX_SPLIT``.
+    Under a causal mask the first kv tile sees every q tile of every
+    head of its group (12 heads at starcoder2-3b); split 4 ways, its
+    block does a quarter of that, near the mean per SM."""
+    group = H // Hkv
+    return max(d for d in range(1, min(group, DKV_MAX_SPLIT) + 1)
+               if group % d == 0)
 
 
 def _same_dtype(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
@@ -263,10 +287,16 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
         return flash_dkv_plain(q, k, v, dout, lse, delta, causal=causal,
                                window=window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    nsplit, part = 1, None
+    if q.dtype == torch.bfloat16:   # f32 partials: [nsplit, dK|dV, *k.shape]
+        nsplit = dkv_splits(q.shape[1], k.shape[1])
+        part = torch.empty((nsplit, 2, *k.shape), dtype=torch.float32,
+                           device=k.device)
     code = LIB.library().flash_dkv(
         _DTYPE_CODE[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *_dims(q, k, causal, window))
+        dk.data_ptr(), dv.data_ptr(), None if part is None
+        else part.data_ptr(), nsplit, *_dims(q, k, causal, window))
     LIB.check(code, "flash_dkv")
     return dk, dv
 

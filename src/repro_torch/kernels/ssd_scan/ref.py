@@ -24,6 +24,14 @@ once a chunk's decay passes e^88; the forward selects 0 there, but
 gradient becomes NaN. Here the mask is applied before the exponential
 (``exp(-inf) = 0``), which gives the same forward values and a finite
 gradient (ROADMAP C10).
+
+Every exponential of the chunked scan is :func:`exp_f32`, not
+``torch.exp``, so that the same inputs give the same bits in every
+process (ROADMAP C16). On the CPU ``torch.exp`` of a large float32
+tensor is split over threads and handed to MKL's vector math, and in
+some processes one thread's share came back with errors up to ~1e-4
+relative, which the intra-chunk sum carried into ``y`` (2.7e-3 apart
+at |y| ~ 50). The contractions gave the same bits in every process.
 """
 from __future__ import annotations
 
@@ -33,6 +41,57 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 F32 = torch.float32
+
+# exp(x) = 2^k * e^r with k = round(x / ln 2) and r = x - k ln 2 split in
+# two parts (ln 2's high part has few enough bits that k * _LN2_HI is
+# exact), e^r from a degree-7 polynomial (SLEEF's expf coefficients);
+# all of them float32 values
+_LOG2E = 1.44269502162933349609375
+_LN2_HI = 0.693145751953125
+_LN2_LO = 1.428606765330187045e-06
+_EXP_POLY = (1.98527617612853646278381e-4, 1.39304355252534151077271e-3,
+             8.33336077630519866943359e-3, 4.16664853692054748535156e-2,
+             1.66666671633720397949219e-1, 0.5)
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """2^k for integer-valued float32 k in [-126, 127], from its bits."""
+    return ((k.to(torch.int32) + 127) << 23).view(F32)
+
+
+def _exp_values(x: torch.Tensor) -> torch.Tensor:
+    xc = x.clamp(-104.0, 89.0)
+    k = torch.round(xc * _LOG2E)
+    r = (xc - k * _LN2_HI) - k * _LN2_LO
+    u = torch.full_like(r, _EXP_POLY[0])
+    for c in _EXP_POLY[1:]:
+        u = u * r + c
+    e = (r * r) * u + r + 1.0
+    k1 = torch.floor(k * 0.5)
+    e = e * _pow2(k1) * _pow2(k - k1)
+    e = e.masked_fill(x < -104.0, 0.0)     # past 88.7 the product is inf
+    return torch.where(torch.isnan(x), x, e)
+
+
+class _Exp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        out = _exp_values(x)
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out, = ctx.saved_tensors
+        return g * out
+
+
+def exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """exp of a float32 tensor from IEEE multiplies, adds, rounding and
+    bit shifts alone: each element's bits depend on its value only, not
+    on the thread split, the alignment or the device (within ~1 ulp of
+    ``torch.exp``; -inf gives 0). Its gradient is ``g * exp_f32(x)``."""
+    return _Exp.apply(x)
 
 
 def _chunked(t: torch.Tensor, nc: int, q: int) -> torch.Tensor:
@@ -52,7 +111,7 @@ def _decay(cum: torch.Tensor, causal: torch.Tensor) -> torch.Tensor:
     cum: [B, q, H] -> [B, H, q, q]; masked before the exponential."""
     seg = cum.transpose(1, 2)
     diff = seg[..., :, None] - seg[..., None, :]
-    return torch.exp(diff.masked_fill(~causal, float("-inf")))
+    return exp_f32(diff.masked_fill(~causal, float("-inf")))
 
 
 def ssd_fwd_plain(x, dt, A, Bm, Cm, chunk: int,
@@ -78,10 +137,10 @@ def ssd_fwd_plain(x, dt, A, Bm, Cm, chunk: int,
         L = _decay(cum, causal)                              # [B,H,q,q]
         scores = torch.einsum("bin,bjn->bij", cc, bc)        # [B,q,q]
         y_intra = torch.einsum("bhij,bjhp->bihp", scores[:, None] * L, xdt)
-        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cc, s, torch.exp(cum))
-        decay_to_end = torch.exp(cum[:, -1:, :] - cum)
+        y_inter = torch.einsum("bqn,bhpn,bqh->bqhp", cc, s, exp_f32(cum))
+        decay_to_end = exp_f32(cum[:, -1:, :] - cum)
         st = torch.einsum("bqn,bqhp,bqh->bhpn", bc, xdt, decay_to_end)
-        s = s * torch.exp(cum[:, -1, :])[:, :, None, None] + st
+        s = s * exp_f32(cum[:, -1, :])[:, :, None, None] + st
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
     return y, s, torch.stack(starts, dim=2)

@@ -287,6 +287,15 @@ FLASH_CASES = [   # B, H, Hkv, Sq, Skv, hd, causal, window
     (1, 6, 2, 64, 320, 128, True, 0),      # cross-length
     (1, 4, 2, 1000, 1000, 128, True, 64),  # ragged + window
     (1, 2, 2, 64, 64, 16, False, 0),       # bidirectional, smoke head dim
+    # the bf16 tensor-core kernels' edges: 64 x 64 tiles, 16 query or key
+    # rows per warp, the GQA group split over dk/dv blocks
+    (1, 24, 2, 256, 256, 128, True, 0),    # starcoder2-3b's group (split 4)
+    (2, 6, 2, 333, 333, 128, True, 0),     # ragged past every tile, causal
+    (1, 4, 1, 333, 333, 64, True, 100),    # ragged with a window (split 4)
+    (1, 4, 2, 192, 192, 16, True, 0),      # head dim 16
+    (1, 6, 3, 130, 130, 32, True, 40),     # head dim 32, ragged, window
+    (1, 4, 2, 300, 100, 64, True, 0),      # cross-length, Sq > Skv
+    (1, 3, 1, 100, 300, 32, False, 0),     # cross-length, bidirectional
 ]
 
 
@@ -331,15 +340,22 @@ def test_flash_kernels_match_plain(cuda_device, case, dtype):
 
 
 def test_flash_kernels_are_deterministic(cuda_device):
-    q, k, v, do = _qkv(cuda_device, torch.bfloat16, 1, 12, 1, 512, 512, 128)
-    runs = []
-    for _ in range(2):
-        out, lse = fa.flash_fwd(q, k, v)
-        delta = fa.attention_delta(out, do)
-        runs.append((out, lse, fa.flash_dq(q, k, v, do, lse, delta),
-                     *fa.flash_dkv(q, k, v, do, lse, delta)))
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    """The same bits from run to run, in bf16 through the split dk/dv
+    path (partials summed in a fixed order: groups of 12 and 6 over 4
+    and 3 blocks) and in f32."""
+    for dtype, (B, H, Hkv, S) in ((torch.bfloat16, (1, 12, 1, 512)),
+                                  (torch.bfloat16, (2, 24, 4, 320)),
+                                  (torch.float32, (1, 4, 2, 256))):
+        assert dtype != torch.bfloat16 or fa.dkv_splits(H, Hkv) > 1
+        q, k, v, do = _qkv(cuda_device, dtype, B, H, Hkv, S, S, 128)
+        runs = []
+        for _ in range(2):
+            out, lse = fa.flash_fwd(q, k, v)
+            delta = fa.attention_delta(out, do)
+            runs.append((out, lse, fa.flash_dq(q, k, v, do, lse, delta),
+                         *fa.flash_dkv(q, k, v, do, lse, delta)))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
@@ -349,6 +365,13 @@ def test_flash_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
     q, k, v, _ = _qkv(cuda_device, torch.float32, 1, 2, 1, 8, 8, 32)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    for dtype in (torch.bfloat16, torch.float32):   # cp.async: 16 bytes
+        q, k, v, _ = _qkv(cuda_device, dtype, 1, 2, 1, 8, 8, 32)
+        buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda_device)
+        shifted = buf[1:].view(q.shape).copy_(q)
+        assert shifted.is_contiguous() and shifted.data_ptr() % 16
+        with pytest.raises(ValueError, match="aligned"):
+            fa.flash_fwd(shifted, k, v)
 
 
 def test_trainer_kill_restore_on_the_card(cuda_device, tmp_path):

@@ -216,3 +216,15 @@ def test_wrapper_validates_shapes_and_dtypes():
         fa.flash_fwd(q.double(), k.double(), k.double())
     with pytest.raises(TypeError, match="mixed"):
         fa.flash_fwd(torch.zeros(1, 2, 8, 16), k.bfloat16(), k.bfloat16())
+
+
+@pytest.mark.parametrize("H,Hkv,want", [(24, 2, 4), (12, 1, 4), (24, 4, 3),
+                                        (4, 2, 2), (8, 8, 1), (7, 1, 1),
+                                        (10, 1, 2)])
+def test_dkv_splits_divide_the_group(H, Hkv, want):
+    """The bf16 dk/dv kernel splits each kv head's GQA group over blocks
+    that each take whole heads: the largest divisor of the group up to
+    ``DKV_MAX_SPLIT`` (starcoder2-3b's 12 heads: 4 blocks of 3)."""
+    n = fa.dkv_splits(H, Hkv)
+    assert n == want
+    assert (H // Hkv) % n == 0 and 1 <= n <= fa.DKV_MAX_SPLIT
