@@ -12,7 +12,8 @@ Phases, each reported on its own line:
 3. each checkpoint-codec kernel (fingerprint, fused capture, XOR) held
    bit for bit against its plain PyTorch version on the card, at the
    serving path's shapes, with its time, its bound and the plain
-   version's time (and ``torch.bitwise_xor``'s for the XOR); then the
+   version's time (and ``torch.bitwise_xor``'s for the XOR, also timed
+   with it at a 256 MiB view); then the
    int8 codec's quantize and dequantize, bit for bit against their plain
    versions (and the numpy oracle on the smaller cases) at mamba2-780m's
    largest moment leaf ``[50280, 1536]`` f32, a ragged size, zero
@@ -28,7 +29,8 @@ Phases, each reported on its own line:
    version at mamba2-780m's training shape in bf16 and at a ragged f32
    shape with an initial state, with limits set from the plain version's
    own spread between two chunk lengths, its time, its bound and the
-   plain version's time (no single PyTorch call computes an SSD scan);
+   plain version's time (no single PyTorch call computes an SSD scan),
+   and the backward the same bits over three calls at the training shape;
    then the RG-LRU kernel against its plain version at the prefill shape
    (x, r, i ``[2, 32768, 4096]`` f32 drawn as a fresh block makes them,
    ``rg_lru/ref.model_inputs``) from a zero and from a random state, and
@@ -279,6 +281,22 @@ def check_kernels(torch, ops, ref):
         bound_ms=b, bound_by=o,
         library_ms=time_ms(lambda: torch.bitwise_xor(xa, xb), 50, flush))
     log(f"kernel xor: bit-exact vs plain on two {CHUNK_BYTES} B views")
+    # a 256 MiB view shows the rate the kernel streams at, apart from the
+    # launch latency that dominates 4 MiB
+    big = 256 << 20
+    ya = torch.randint(0, 256, (big,), dtype=torch.uint8, device=dev,
+                       generator=gen)
+    yb = torch.randint(0, 256, (big,), dtype=torch.uint8, device=dev,
+                       generator=gen)
+    if not torch.equal(ops.xor_blocks(ya, yb), torch.bitwise_xor(ya, yb)):
+        raise AssertionError("XOR kernel disagrees with bitwise_xor at "
+                             "256 MiB")
+    kb, kl = (time_ms(lambda: ops.xor_blocks(ya, yb), 20, flush),
+              time_ms(lambda: torch.bitwise_xor(ya, yb), 20, flush))
+    b256, _ = bound_ms(3 * big, big // 16)
+    log(f"timing xor at 256 MiB: {kb:.4f} ms (bound {b256:.4f} ms by bytes,"
+        f" {3 * big / kb / 1e9:.2f} TB/s), torch.bitwise_xor {kl:.4f} ms")
+    del ya, yb
     for k in out.values():
         log(f"timing {k['name']}: {k['ms']:.4f} ms (bound {k['bound_ms']:.4f}"
             f" ms by {k['bound_by']}), plain {k['plain_ms']:.4f} ms, "
@@ -603,6 +621,13 @@ def check_ssd(torch, ssd, R):
                                  f"plain versions past the limit: {bad}")
         if label != "training":
             continue
+        for _ in range(2):
+            again = ssd.ssd_bwd(x, dt, A, Bm, Cm, states, dy, None, q)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError("ssd_bwd gave other bits on a repeated "
+                                     "call at the training shape")
+        del again
+        log("kernel ssd (training): ssd_bwd the same bits over 3 calls")
         work = ssd_work(B, S, H, P, N, q, x.element_size())
         calls = {
             "ssd_fwd": (lambda: ssd.ssd_fwd(x, dt, A, Bm, Cm, q),
@@ -1247,7 +1272,14 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
     CPU (the plain versions): TF32 off, so the two differ only in the
     order of their sums. Loss and grad norm within 1e-5 relative; then,
     ``mode`` "state": params 1e-6 absolute at lr 3e-4 (a step moves a
-    param by ~lr), moments 1e-4 relative; ``mode`` "grads" (the ssm
+    param by ~lr), moments 1e-4 relative (atol 1e-8), against the CPU
+    step with the softmax's exponential that the card's step takes,
+    ``torch.exp`` (the model's ``exp_stable`` is ``exp_f32`` on a CPU
+    tensor): AdamW's first step turns a gradient element of ~1e-9 — the
+    softmax-invariant direction of the key projection, zero but for
+    rounding — into a param move of up to ~lr, so the two exponentials'
+    rounding alone moves ``attn.wk`` by ~1e-6 on the CPU. The distance
+    to the CPU step under ``exp_f32`` is logged; ``mode`` "grads" (the ssm
     family): each leaf's gradient in the 2-norm within ``R.tolerance``
     of the CPU step's own spread between the model's scan chunk and a
     quarter of it. The post-step state is not held elementwise there:
@@ -1304,16 +1336,24 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
             f"card matches the CPU: loss {float(res['cuda'][0]['loss']):.6f}"
             f" vs {float(res['cpu'][0]['loss']):.6f}")
     if mode == "state":
-        worst = 0.0
+        from unittest import mock
+        from repro_torch.models import layers as L
+        with mock.patch.object(L, "exp_stable", torch.exp):
+            want = run("cpu")
+        diff = lambda a, b: float((a.float() - b.float()).abs().max())
+        worst, own = 0.0, 0.0
         for i, (rtol, atol) in ((1, (0, 1e-6)), (2, (1e-4, 1e-8))):
-            for path, a in res["cpu"][i].items():
+            for path, a in want[i].items():
                 b = res["cuda"][i][path]
-                worst = max(worst, float((a.float() - b.float()).abs().max()))
+                worst = max(worst, diff(a, b))
+                own = max(own, diff(res["cpu"][i][path], b))
                 if not torch.allclose(a.float(), b.float(), rtol=rtol,
                                       atol=atol):
-                    raise AssertionError(f"train step state {path}: card "
-                                         "and CPU disagree")
-        log(f"{head}, max abs state diff {worst:.2e}")
+                    raise AssertionError(
+                        f"train step state {path}: card and CPU disagree "
+                        f"(max abs diff {diff(a, b):.2e}, atol {atol:.0e})")
+        log(f"{head}, max abs state diff {worst:.2e} against the CPU step "
+            f"under torch.exp ({own:.2e} against it under exp_f32)")
         return
     chunk = SSM.CHUNK
     SSM.CHUNK = chunk // 4
@@ -1713,10 +1753,12 @@ def ptxas_summary(report: str):
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E)?",
-                          m.group(1))
-            name = (m.group(1)[-32:] if not t else t.group(1) if not
-                    t.group(2) else f"{t.group(1)}<{t.group(2)}>")
+            t = re.search(r"\d([a-z][a-z_]*_kernel)(?:ILi(\d+)E|I(f|13__nv_"
+                          r"bfloat16)E)?", m.group(1))
+            arg = t and (t.group(2) or {"f": "float", None: None}.get(
+                t.group(3), "bf16"))
+            name = (m.group(1)[-32:] if not t else t.group(1) if not arg
+                    else f"{t.group(1)}<{arg}>")
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and m.group(1) != "0":
             name += f" (spills {m.group(1)} B)"

@@ -68,6 +68,8 @@ constexpr int kScanThreads = 1024;
 constexpr int kCopySplit = 8;  // blocks per copied chunk
 constexpr int kQBlock = 256;   // elements of one codec block (ref.BLOCK)
 constexpr int kQWarps = 8;     // codec blocks per CUDA block, a warp each
+constexpr int kXorThreads = 256;
+constexpr int kXorUnroll = 8;  // 16-byte words of each operand in flight
 
 __device__ __forceinline__ void mix(uint32_t x, uint32_t p, uint32_t& h1,
                                     uint32_t& h2) {
@@ -234,12 +236,20 @@ __global__ void copy_kernel(const uint8_t* __restrict__ x, long long nbytes,
   }
 }
 
-// Replaces xor_blocks (kernel.py:65): grid-stride over 16-byte words,
-// byte tail; bound by 2n bytes read + n written.
-__global__ void xor_kernel(const uint8_t* __restrict__ a,
-                           const uint8_t* __restrict__ b,
-                           uint8_t* __restrict__ out, long long n,
-                           bool vec_ok) {
+// Replaces xor_blocks (kernel.py:65); bound by 2n bytes read + n written.
+// Each thread first issues kXorUnroll independent 16-byte loads of each
+// operand (streaming loads that skip L1), then XORs and stores them with
+// streaming stores: with one word a thread, a 4 MiB view was a launch
+// ramp and a tail of dependent load pairs, no stream. A block covers
+// kXorUnroll * kXorThreads words; the grid is one block per such step of
+// the byte count (128 blocks for a 4 MiB view, under one a SM), and the
+// hardware starts each block as an SM frees up. At 100 registers two
+// blocks fit an SM; capping the grid at those resident blocks, each
+// looping over its share, measured 3.6% slower at 256 MiB on an H100
+// (PERF.md). The unaligned path goes byte by byte.
+__global__ void __launch_bounds__(kXorThreads)
+xor_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+           uint8_t* __restrict__ out, long long n, bool vec_ok) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
@@ -249,10 +259,26 @@ __global__ void xor_kernel(const uint8_t* __restrict__ a,
     const uint4* va = reinterpret_cast<const uint4*>(a);
     const uint4* vb = reinterpret_cast<const uint4*>(b);
     uint4* vo = reinterpret_cast<uint4*>(out);
-    for (long long i = t; i < nv; i += stride) {
-      const uint4 x = va[i];
-      const uint4 y = vb[i];
-      vo[i] = make_uint4(x.x ^ y.x, x.y ^ y.y, x.z ^ y.z, x.w ^ y.w);
+    constexpr long long kStep = static_cast<long long>(kXorThreads) * kXorUnroll;
+    for (long long base = static_cast<long long>(blockIdx.x) * kStep +
+                          threadIdx.x;
+         base < nv; base += static_cast<long long>(gridDim.x) * kStep) {
+      uint4 x[kXorUnroll], y[kXorUnroll];
+#pragma unroll
+      for (int u = 0; u < kXorUnroll; ++u) {
+        const long long i = base + static_cast<long long>(u) * kXorThreads;
+        if (i < nv) {
+          x[u] = __ldcs(va + i);
+          y[u] = __ldcs(vb + i);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kXorUnroll; ++u) {
+        const long long i = base + static_cast<long long>(u) * kXorThreads;
+        if (i < nv)
+          __stcs(vo + i, make_uint4(x[u].x ^ y[u].x, x[u].y ^ y[u].y,
+                                    x[u].z ^ y[u].z, x[u].w ^ y[u].w));
+      }
     }
     done = nv * 16;
   }
@@ -383,10 +409,10 @@ int ckpt_xor(const void* a, const void* b, void* out, long long n,
              void* stream) {
   if (n == 0) return 0;
   const bool vec_ok = aligned(a, 16) && aligned(b, 16) && aligned(out, 16);
-  const long long work = vec_ok ? (n + 15) / 16 : n;
-  long long blocks = (work + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  xor_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+  const long long per_block = vec_ok ? 16LL * kXorThreads * kXorUnroll
+                                     : static_cast<long long>(kXorThreads);
+  const long long blocks = (n + per_block - 1) / per_block;
+  xor_kernel<<<static_cast<unsigned>(blocks), kXorThreads, 0,
                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(b),
       static_cast<uint8_t*>(out), n, vec_ok);

@@ -1,5 +1,5 @@
 // The Mamba-2 SSD chunked scan for Hopper (sm_90a): the forward, and its
-// gradient as one backward kernel.
+// gradient as six backward kernels.
 //
 // Replaces:
 //   ssd_fwd <- repro/kernels/ssd_scan/kernel.py ssd_scan_fwd (body
@@ -8,7 +8,8 @@
 //   ssd_bwd <- no Pallas kernel: the JAX package differentiates the jnp
 //              ssd_chunked with jax.grad; this is that gradient
 // The plain PyTorch versions are in repro_torch/kernels/ssd_scan/ref.py
-// (ssd_fwd_plain; ssd_grads_plain, autograd through it, for the backward).
+// (ssd_fwd_plain; ssd_grads_plain, autograd through it, for the backward;
+// ssd_bwd_phased_plain, the backward's three phases in plain tensors).
 //
 // Layouts, all contiguous: x [B, S, H, P] and Bm, Cm [B, S, N] in T
 // (float or bfloat16); dt [B, S, H], A [H], states [B, H, nc, P, N] and
@@ -26,41 +27,48 @@
 // as the reference computes it (C.B^T for every head) over the causal
 // pairs only, against ~0.84 GB of tensors (the saved chunk-start states
 // included) — ~150 operations per byte, below the H100's balance point
-// for bf16, so the bytes bound it; the backward likewise. This first
-// version does its products in f32 on the CUDA cores (67 TFLOP/s): one
-// block of 256 threads per (batch, head) walks the chunks in order and
-// carries the [P, N] state in shared memory (the Pallas grid's
-// sequential chunk axis becomes the loop; batch x heads = 384 blocks).
-// A 256-token chunk's Q x Q decay tile (256 KB in f32) does not fit in
-// the 227 KB of shared memory, so a chunk is cut into 64-row tiles: each
-// 64 x 64 tile pair of the causal lower triangle is computed in turn
-// (scores over N, the decay, then the product with xdt), which is the
-// chunk-Q math summed in another order. Each thread owns a 4 x 4 piece of
-// a 64 x 64 tile with rows ty + 16a and columns tx + 16b, so that in
-// every product neighbouring threads read neighbouring banks; [., N]
-// tiles are padded to N + 1 floats a row. Tensor cores (wgmma on bf16
-// tiles) and fusing C.B^T across the heads are later work.
+// for bf16, so the bytes bound it; the backward likewise.
+//
+// The forward does its products in f32 on the CUDA cores (67 TFLOP/s):
+// one block of 256 threads per (batch, head) walks the chunks in order
+// and carries the [P, N] state in shared memory (the Pallas grid's
+// sequential chunk axis becomes the loop; batch x heads = 384 blocks). A
+// chunk is cut into 64-row tiles; each thread owns a 4 x 4 piece of a
+// 64 x 64 tile. Tensor cores and C.B^T shared across heads are B15's.
+//
+// The backward is chunk-parallel. The gradient of chunk c's end state
+// follows dS_{c-1} = exp(cum_Q,c) dS_c + W_c with W_c = sum_i exp(cum_i)
+// dy_i C_i^T, and given dS_c and the saved start state every gradient of
+// chunk c is local to it. So: W_c per (batch, chunk, head), then the
+// short reverse pass per (batch, head) over [P, N] tiles, then the chunk
+// gradients — 6,144 blocks at the training shape where one block per
+// (batch, head) walking the chunks gave 384. C.B^T has no head axis and
+// is computed once per (batch, chunk) tile pair. The chunk gradients are
+// three kernels because their sums nest the other way round: dx and ddt
+// sum over the tokens that read a token (a loop over column tiles inside
+// one head), dB and dC also sum over the heads (a loop over heads inside
+// one tile pair, whose head sum then meets B or C once per group of 8
+// heads); the inter-chunk terms, which read the start state but no other
+// chunk gradient, are a third kernel per head group that runs first.
+// All products run on the tensor cores (see below). No atomics: every sum
+// has one owner and a fixed order, and the head-group partials of dB and
+// dC ([B, ceil(H/8), S, N]) and the (batch, chunk) partials of dA are
+// summed in a fixed order by the wrapper, so a training step is the same
+// bits on every run.
 //
 // Numerics: the in-chunk cumsum is accumulated in double and rounded to
 // f32 once per token; exp is taken only on and below the diagonal (above
 // it exp(cum_i - cum_j) overflows to inf and inf * 0 would be NaN).
 //
-// The backward walks the chunks in reverse per (batch, head), carries
-// the state's gradient [P, N] in shared memory and recomputes each
-// chunk's intra terms from the chunk-start states the forward saved. It
-// uses no atomics: every sum has one owner and a fixed order. dB and dC
-// sum over the heads and dA over batch and sequence, so the kernel writes
-// per-head partials (dB_part, dC_part [B, H, S, N], dA_part [B, H]) that
-// the wrapper sums in a fixed order — a training step is the same bits
-// on every run.
-//
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() right after its
-// launch (0 = cudaSuccess).
+// launches (0 = cudaSuccess).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -314,380 +322,1113 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     final_state[bh * PN + i] = sS[(i / N) * LDN + i % N];
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ Av, const T* __restrict__ Bm,
-               const T* __restrict__ Cm, const float* __restrict__ states,
-               const float* __restrict__ dy, const float* __restrict__ dfinal,
-               T* __restrict__ dx, float* __restrict__ ddt,
-               float* __restrict__ dA_part, float* __restrict__ dB_part,
-               float* __restrict__ dC_part, Dims d) {
-  extern __shared__ __align__(16) float smem[];
-  float* sS0 = smem;                     // [MAXP][LDN] chunk-start state
-  float* sdS = sS0 + MAXP * LDN;         // [MAXP][LDN] d(chunk-end state)
-  float* sC = sdS + MAXP * LDN;          // [TQ][LDN]
-  float* sB = sC + TQ * LDN;             // [TQ][LDN]
-  float* sX = sB + TQ * LDN;             // [TQ][LDP] x
-  float* sDy = sX + TQ * LDP;            // [TQ][LDP] dy
-  float* sMw = sDy + TQ * LDP;           // [TQ][LDT] (dy . xdt) * decay
-  float* sMs = sMw + TQ * LDT;           // [TQ][LDT] (C . B) * decay
-  float* scol = sMs + TQ * LDT;          // [16][TQ] column partials
-  float* sred = scol + 16 * TQ;          // [NT] block reduction
-  float* sdt = sred + NT;                // [Q]
-  float* scum = sdt + d.Q;               // [Q]
-  float* sdr = scum + d.Q;               // [Q] d cum: row terms
-  float* sdc = sdr + d.Q;                // [Q] d cum: column terms
-  float* sgx = sdc + d.Q;                // [Q] sum_p dxdt * x
-  float* sU = sgx + d.Q;                 // [Q] the state term of d cum
+// =========================================================================
+// the backward on the tensor cores
+// =========================================================================
+//
+// Six kernels, launched in order on one stream (see the header):
+//   scores (G^T = B C^T per (batch, chunk) tile pair, into gt),
+//   w      (the chunk's cum into `cum`, W_c = sum_i e_i dy_i C_i^T into w),
+//   pass   (w -> dS in place: the reverse recurrence over chunks),
+//   inter  (per (batch, chunk, head group): the inter-chunk terms, of dC
+//           into that group's dC rows and of d cum per head into ddt),
+//   chunk  (per (batch, chunk, head): dx, ddt, the head's share of dA),
+//   dbc    (per (batch, chunk, head group): that group's dB, and the
+//           in-chunk term of its dC).
+// The inter-chunk term of d cum, exp(cum_i) dy_i . (S0 C_i), is taken in
+// the per-group kernel, not the per-head one: there it is a dot of C_i
+// with the chain of MMAs that dC's term computes anyway (dy_i . S0),
+// while as a loop of its own tile products (S0 C_i^T) in the per-head
+// kernel it cost that kernel 1.27 of its 3.64 ms on an H100 (PERF.md §6).
+// Every product is mma.sync m16n8k16 on bf16 with f32 accumulators. An f32
+// operand goes in as three bf16 terms (hi = bf16(v), mid = bf16(v - hi),
+// lo = bf16(v - hi - mid), 24 bits of significand between them); a
+// product of two such takes the six MMAs whose terms reach 2^-16 of it
+// (hh, hm, mh, hl, mm, lh), a product with a bf16 operand three. Two
+// terms (2^-17 a product) were measured on this card to move dx and dC
+// of a small bf16 case past their limits, where one bf16 rounding of
+// the output decides: the limits hold the kernel to the plain version's
+// f32 within 4x its own reblocking spread. Each chain of MMAs covers 64
+// of K from zero accumulators and is folded in with f32 adds (the tensor
+// cores' own accumulation drifts over long chains).
 
-  const int b = blockIdx.x / d.H, h = blockIdx.x % d.H;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int P = d.P, N = d.N, Q = d.Q;
-  const float A = Av[h];
-  const long PN = (long)P * N;
-  const long bh = (long)b * d.H + h;
-  const int nc = d.S / Q, nt = (Q + TQ - 1) / TQ;
-  const long xs = (long)d.H * P;
-  float dA_acc = 0.f;                    // thread 0's, in chunk order
+using bf16 = __nv_bfloat16;
 
-  for (int i = threadIdx.x; i < MAXP * LDN; i += NT) {
-    const int p = i / LDN, n = i % LDN;
-    sdS[i] = (dfinal != nullptr && p < P && n < N)
-                 ? dfinal[bh * PN + p * N + n] : 0.f;
+constexpr int MT = 128;          // threads of a tensor-core block: 4 warps
+constexpr int BT = 64;           // rows of a tile; each warp owns 16
+constexpr int LDK = MAXP + 8;    // bf16 row of a [., 64] tile (P or tokens)
+constexpr int LDW = MAXN + 8;    // bf16 row of a [., 128] tile (N)
+constexpr int HG = 8;            // heads per owner of the dB / dC sums
+constexpr int PASS_NT = 256;     // threads of the reverse state pass
+constexpr int PASS_BATCH = 8;    // chunks whose W a pass thread loads at once
+constexpr unsigned FULL = 0xffffffffu;
+
+// bf16 planes an input of this type takes, and its values per 16 bytes
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  static constexpr int planes = 3, vec = 4;
+};
+template <> struct Elem<bf16> {
+  static constexpr int planes = 1, vec = 8;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices from shared memory: lanes 8m..8m+7 give the row
+// addresses of matrix m; register m of lane l holds row l/4, columns
+// 2(l%4), 2(l%4)+1 of matrix m (of its transpose with .trans)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d += a.b for a 16x16 bf16 A (row-major fragment), a 16x8 bf16 B
+// (column fragment b0, b1) and a 16x8 f32 accumulator
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d[j] += A.B_j for J n8 blocks, over the bf16 terms of A (NA of them)
+// and of each B_j (NB), the pairs whose weight reaches 2^-16: (0,0),
+// (0,1), (1,0), (0,2), (1,1), (2,0). The J blocks are the inner loop, so
+// consecutive MMAs go to different accumulators and are in flight
+// together; each accumulator takes its terms in the same order whatever J.
+template <int NA, int NB, int J>
+__device__ __forceinline__ void mma_terms(float (&d)[J][4],
+                                          const uint32_t (&a)[3][4],
+                                          const uint32_t (&b)[J][3][2]) {
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+#pragma unroll
+    for (int ia = 0; ia <= s; ++ia)
+      if (ia < NA && s - ia < NB)
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          mma_bf16(d[j], a[ia], b[j][s - ia][0], b[j][s - ia][1]);
+}
+
+// J consecutive accumulators of t from n8 block n0 on
+template <int J, int NB>
+__device__ __forceinline__ float (&blocks(float (&t)[NB][4], int n0))[J][4] {
+  return *reinterpret_cast<float(*)[J][4]>(&t[n0]);
+}
+
+// An m16n8 f32 accumulator c[4] of lane l = 4g + t holds rows g (c[0],
+// c[1]) and g + 8 (c[2], c[3]), columns 2t and 2t + 1. Two accumulators
+// side by side (columns 0-7 and 8-15) hold an m16k16 A fragment's
+// elements in its register order.
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) = hi + mid + lo, each a pair of bf16 (the differences are
+// exact in f32)
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t (&o)[3]) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = x0 - hf.x, r1 = x1 - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  o[0] = bf16x2_bits(h);
+  o[1] = bf16x2_bits(m);
+  o[2] = bf16x2_bits(__floats2bfloat162_rn(r0 - mf.x, r1 - mf.y));
+}
+
+// accumulators c0 (columns 0-7), c1 (8-15) -> the three A fragments of
+// the m16k16 block they form
+__device__ __forceinline__ void a_split3(const float (&c0)[4],
+                                         const float (&c1)[4],
+                                         uint32_t (&a)[3][4]) {
+  uint32_t o[3];
+  split3(c0[0], c0[1], o);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) a[k][0] = o[k];
+  split3(c0[2], c0[3], o);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) a[k][1] = o[k];
+  split3(c1[0], c1[1], o);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) a[k][2] = o[k];
+  split3(c1[2], c1[3], o);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) a[k][3] = o[k];
+}
+
+// acc += t, rows g scaled by s0 and rows g + 8 by s1
+__device__ __forceinline__ void add_to(float (&acc)[4], const float (&t)[4],
+                                       float s0 = 1.f, float s1 = 1.f) {
+  acc[0] += t[0] * s0;
+  acc[1] += t[1] * s0;
+  acc[2] += t[2] * s1;
+  acc[3] += t[3] * s1;
+}
+
+// A fragment: rows r0..r0+15, columns c0..c0+15 of a row-major tile
+__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile,
+                                     int ld, int r0, int c0, int lane) {
+  ldsm_x4(a, tile + (r0 + (lane % 16)) * ld + c0 + (lane / 16) * 8);
+}
+
+// B fragments of two n8 blocks n0..n0+15 at k0..k0+15 (b[0], b[1] for
+// n0..n0+7, b[2], b[3] for n0+8..n0+15): NK, the tile is [n][k]
+// (B = T^T); otherwise it is [k][n] (B = T); row-major either way
+template <bool NK>
+__device__ __forceinline__ void ld_b(uint32_t (&b)[4], const bf16* tile,
+                                     int ld, int n0, int k0, int lane) {
+  if (NK)
+    ldsm_x4(b, tile + (n0 + (lane / 16) * 8 + (lane % 8)) * ld + k0 +
+                   ((lane / 8) % 2) * 8);
+  else
+    ldsm_x4_t(b, tile + (k0 + ((lane / 8) % 2) * 8 + (lane % 8)) * ld + n0 +
+                     (lane / 16) * 8);
+}
+
+// the sum over a warp, the same bits on every lane (a tree to lane 0,
+// then broadcast)
+__device__ __forceinline__ float warp_total(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+  return __shfl_sync(FULL, v, 0);
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  v += __shfl_xor_sync(FULL, v, 2);
+  return v;
+}
+
+// the values of a 16-byte vector as floats
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __uint_as_float(w[k] << 16);
+    f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
   }
+}
 
-  for (int c = nc - 1; c >= 0; --c) {
-    const int t0 = c * Q;
-    for (int i = threadIdx.x; i < Q; i += NT) {
-      sdr[i] = 0.f;
-      sdc[i] = 0.f;
-    }
-    {
-      const float* src = states + (bh * nc + c) * PN;
-      for (int i = threadIdx.x; i < MAXP * LDN; i += NT) {
-        const int p = i / LDN, n = i % LDN;
-        sS0[i] = (p < P && n < N) ? src[p * N + n] : 0.f;
-      }
-    }
-    chunk_cum(sdt, scum, dt, A, d, b, h, t0);
-    const float clast = scum[Q - 1];
-    const T* xb = x + ((long)b * d.S + t0) * xs + (long)h * P;
-    const float* dyb = dy + ((long)b * d.S + t0) * xs + (long)h * P;
-    const T* Bb = Bm + ((long)b * d.S + t0) * N;
-    const T* Cb = Cm + ((long)b * d.S + t0) * N;
+// a tile in shared memory as its bf16 planes (hi, mid, lo; one plane for
+// a bf16 input)
+struct Planes {
+  bf16* p[3];
+};
 
-    // ---- pass B: for each column tile j, sum over the row tiles i >= j:
-    // dB_j, dxdt_j and the column terms of d cum; then the state terms
-    for (int jt = 0; jt < nt; ++jt) {
-      const int j0 = jt * TQ;
-      load_tile(sB, LDN, Bb, N, j0, Q, N, MAXN);
-      load_tile(sX, LDP, xb, xs, j0, Q, P, MAXP);
-      float dBa[4][8], dXa[4][4];   // rows ty + 16a; n / p = tx + 16q
+template <int NP>
+__device__ __forceinline__ Planes planes_at(bf16* base, int size) {
+  Planes r;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
+  for (int k = 0; k < 3; ++k) r.p[k] = k < NP ? base + k * size : nullptr;
+  return r;
+}
+
+// two values, as NP planes, into dst at offset o (or, TRANS, at o and
+// o + ld: the transposed tile's next row)
+template <int NP, bool TRANS>
+__device__ __forceinline__ void put2(const Planes& dst, int o, int ld,
+                                     float v0, float v1) {
+  uint32_t s[3];
+  split3(v0, v1, s);
 #pragma unroll
-        for (int q = 0; q < 8; ++q) dBa[a][q] = 0.f;
+  for (int k = 0; k < NP; ++k) {
+    if (TRANS) {
+      dst.p[k][o] = __ushort_as_bfloat16(static_cast<unsigned short>(s[k]));
+      dst.p[k][o + ld] =
+          __ushort_as_bfloat16(static_cast<unsigned short>(s[k] >> 16));
+    } else {
+      *reinterpret_cast<uint32_t*>(dst.p[k] + o) = s[k];
+    }
+  }
+}
+
+// rows [r0, r0 + 64) and columns [0, W) of a row-major source (row stride
+// rs; rows at or past `rows` and columns at or past `w` are zeros) ->
+// NP planes with row stride ld, or with TRANS the transpose (element
+// (r, c) at [c][r]). SCALE multiplies row t = r0 + r by exp(cum[t]).
+// Where the rows are whole 16-byte vectors, each thread issues its loads
+// four at a time before it converts any, so that they are in flight
+// together.
+template <int W, bool TRANS, int NP, bool SCALE, typename T>
+__device__ __forceinline__ void load_planes(const Planes& dst, int ld,
+                                            const T* __restrict__ src,
+                                            long rs, int r0, int rows, int w,
+                                            const float* cum = nullptr) {
+  constexpr int VEC = Elem<T>::vec, VPR = W / VEC;
+  constexpr int NV = BT * VPR / MT;   // vectors per thread
+  const bool vec_ok = w % VEC == 0 && rs % VEC == 0 &&
+                      reinterpret_cast<uintptr_t>(src) % 16 == 0;
+  if (vec_ok) {
+    constexpr int NB4 = NV;   // loads in flight per batch
 #pragma unroll
-        for (int q = 0; q < 4; ++q) dXa[a][q] = 0.f;
+    for (int k0 = 0; k0 < NV; k0 += NB4) {
+      uint4 buf[NB4];
+#pragma unroll
+      for (int k = 0; k < NB4; ++k) {
+        const int idx = threadIdx.x + (k0 + k) * MT, r = idx / VPR;
+        const int c = (idx - r * VPR) * VEC, t = r0 + r;
+        buf[k] = t < rows && c < w
+                     ? *reinterpret_cast<const uint4*>(src + t * rs + c)
+                     : make_uint4(0u, 0u, 0u, 0u);
       }
-      for (int it = jt; it < nt; ++it) {
-        const int r0 = it * TQ;
-        load_tile(sC, LDN, Cb, N, r0, Q, N, MAXN);
-        load_tile(sDy, LDP, dyb, xs, r0, Q, P, MAXP);
-        __syncthreads();
-        // the tile: rows t = r0 + ty + 16a, columns j = j0 + tx + 16q
-        float s[4][4], w[4][4];
 #pragma unroll
-        for (int a = 0; a < 4; ++a)
+      for (int k = 0; k < NB4; ++k) {
+        const int idx = threadIdx.x + (k0 + k) * MT, r = idx / VPR;
+        const int c = (idx - r * VPR) * VEC, t = r0 + r;
+        float v[VEC];
+        unpack(buf[k], v);
+        const float f = SCALE && t < rows ? expf(cum[t]) : 1.f;
 #pragma unroll
-          for (int q = 0; q < 4; ++q) s[a][q] = w[a][q] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cr[4], br[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) cr[a] = sC[(ty + 16 * a) * LDN + n];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) br[q] = sB[(tx + 16 * q) * LDN + n];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) s[a][q] += cr[a] * br[q];
-        }
-        for (int p = 0; p < P; ++p) {
-          float dr[4], xr[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dr[a] = sDy[(ty + 16 * a) * LDP + p];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) xr[q] = sX[(tx + 16 * q) * LDP + p];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) w[a][q] += dr[a] * xr[q];
-        }
-        float colp[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int ti = r0 + ty + 16 * a;
-          float rowp = 0.f;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int tj = j0 + tx + 16 * q;
-            const bool live = tj <= ti && ti < Q;
-            const float e = live ? expf(scum[ti] - scum[tj]) : 0.f;
-            const float mw = live ? w[a][q] * sdt[tj] * e : 0.f;
-            const float ms = s[a][q] * e;
-            sMw[(ty + 16 * a) * LDT + tx + 16 * q] = mw;
-            sMs[(ty + 16 * a) * LDT + tx + 16 * q] = ms;
-            const float m = mw * s[a][q];
-            rowp += m;
-            colp[q] += m;
-          }
-          rowp = half_warp_sum(rowp);
-          if (tx == 0 && ti < Q) sdr[ti] += rowp;
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) scol[ty * TQ + tx + 16 * q] = colp[q];
-        __syncthreads();
-        if (threadIdx.x < TQ) {
-          const int tj = j0 + threadIdx.x;
-          float v = 0.f;
-          for (int k = 0; k < 16; ++k) v += scol[k * TQ + threadIdx.x];
-          if (tj < Q) sdc[tj] += v;
-        }
-        for (int k = 0; k < TQ; ++k) {
-          float mw[4], ms[4], cv[8], dv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            mw[a] = sMw[k * LDT + ty + 16 * a];
-            ms[a] = sMs[k * LDT + ty + 16 * a];
-          }
-#pragma unroll
-          for (int q = 0; q < 8; ++q) cv[q] = sC[k * LDN + tx + 16 * q];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) dv[q] = sDy[k * LDP + tx + 16 * q];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-#pragma unroll
-            for (int q = 0; q < 8; ++q) dBa[a][q] += mw[a] * cv[q];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) dXa[a][q] += ms[a] * dv[q];
-          }
-        }
-        __syncthreads();
+        for (int e = 0; e < VEC; e += 2)
+          put2<NP, TRANS>(dst, TRANS ? (c + e) * ld + r : r * ld + c + e, ld,
+                          v[e] * f, v[e + 1] * f);
       }
-      // state terms of tile j (dS is the gradient of the chunk-end state):
-      // dB_j += g_end xdt_j dS, dxdt_j += g_end dS B_j, U_j = xdt_j . that
-      float* dBp = dB_part + (bh * d.S + t0) * N;
-      T* dxb = dx + ((long)b * d.S + t0) * xs + (long)h * P;
+    }
+    return;
+  }
+  constexpr int HW = W / 2;
+  for (int idx = threadIdx.x; idx < BT * HW; idx += MT) {
+    const int r = idx / HW, c = 2 * (idx - r * HW), t = r0 + r;
+    float v0 = 0.f, v1 = 0.f;
+    if (t < rows) {
+      const T* row = src + t * rs;
+      const float f = SCALE ? expf(cum[t]) : 1.f;
+      if (c < w) v0 = to_f(row[c]) * f;
+      if (c + 1 < w) v1 = to_f(row[c + 1]) * f;
+    }
+    put2<NP, TRANS>(dst, TRANS ? c * ld + r : r * ld + c, ld, v0, v1);
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void zero(float (&a)[NB][4]) {
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int r = ty + 16 * a, tj = j0 + r;
-        const bool ok = tj < Q;
-        const float dtj = ok ? sdt[tj] : 0.f;
-        const float ge = ok ? expf(clast - scum[tj]) * dtj : 0.f;
-        float sb[8], sx[4];
+  for (int n = 0; n < NB; ++n)
 #pragma unroll
-        for (int q = 0; q < 8; ++q) sb[q] = 0.f;
+    for (int e = 0; e < 4; ++e) a[n][e] = 0.f;
+}
+
+// acc[NB][4] += A.B for the warp's 16 rows a0.. of A (NA planes,
+// row-major [m][k], K = KT) and B (NBP planes; BNK: [n][k], else
+// [k][n]); each 64 of K is one chain of MMAs per n8 block from zero,
+// folded into acc with f32 adds, rows g scaled by s0 and rows g + 8 by
+// s1. The k16 steps are the outer loop, so the NB chains are independent
+// MMAs in flight together.
+template <int NB, int KT, int NA, int NBP, bool BNK>
+__device__ __forceinline__ void warp_mma(float (&acc)[NB][4], const Planes& A,
+                                         int lda, int a0, const Planes& Bp,
+                                         int ldb, int lane, float s0 = 1.f,
+                                         float s1 = 1.f) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) sx[q] = 0.f;
-        for (int p = 0; p < P; ++p) {
-          const float xv = sX[r * LDP + p];
+  for (int k0 = 0; k0 < KT; k0 += 64) {
+    float t[NB][4];
+    zero(t);
 #pragma unroll
-          for (int q = 0; q < 8; ++q) sb[q] += xv * sdS[p * LDN + tx + 16 * q];
+    for (int kt = 0; kt < 4; ++kt) {
+      uint32_t a[3][4];
+#pragma unroll
+      for (int k = 0; k < NA; ++k)
+        ld_a(a[k], A.p[k], lda, a0, k0 + 16 * kt, lane);
+#pragma unroll
+      for (int np = 0; np < NB / 2; np += 2) {
+        uint32_t f[4][3][2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int k = 0; k < NBP; ++k) {
+            uint32_t b[4];
+            ld_b<BNK>(b, Bp.p[k], ldb, (np + q) * 16, k0 + 16 * kt, lane);
+            f[2 * q][k][0] = b[0];
+            f[2 * q][k][1] = b[1];
+            f[2 * q + 1][k][0] = b[2];
+            f[2 * q + 1][k][1] = b[3];
+          }
+        mma_terms<NA, NBP, 4>(blocks<4>(t, 2 * np), a, f);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n) add_to(acc[n], t[n], s0, s1);
+  }
+}
+
+// acc[NB][4] += A.B for A the warp's 16 x 64 f32 accumulator tile a[8][4]
+// (three bf16 terms) and B columns b0.. of NBP planes [k][n], K = 64: one
+// chain per n8 block, folded into acc with an f32 add. KOUTER steps over
+// k first, so that the NB chains are in flight together and only one
+// step's A fragments are live (for a narrow acc); otherwise the n8 blocks
+// go first with every A fragment split once (for a wide acc).
+template <int NB, int NBP, bool KOUTER>
+__device__ __forceinline__ void warp_mma_regs(float (&acc)[NB][4],
+                                              const float (&a)[8][4],
+                                              const Planes& Bp, int ldb,
+                                              int b0, int lane) {
+  // the B fragments of n8 blocks b0 + 8 (2 np) .. + 31 at k step kt
+  auto frags = [&](int np, int kt, uint32_t (&f)[4][3][2]) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int k = 0; k < NBP; ++k) {
+        uint32_t b[4];
+        ld_b<false>(b, Bp.p[k], ldb, b0 + (np + q) * 16, 16 * kt, lane);
+        f[2 * q][k][0] = b[0];
+        f[2 * q][k][1] = b[1];
+        f[2 * q + 1][k][0] = b[2];
+        f[2 * q + 1][k][1] = b[3];
+      }
+  };
+  if (KOUTER) {
+    float t[NB][4];
+    zero(t);
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      uint32_t af[3][4];
+      a_split3(a[2 * kt], a[2 * kt + 1], af);
+#pragma unroll
+      for (int np = 0; np < NB / 2; np += 2) {
+        uint32_t f[4][3][2];
+        frags(np, kt, f);
+        mma_terms<3, NBP, 4>(blocks<4>(t, 2 * np), af, f);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n) add_to(acc[n], t[n]);
+    return;
+  }
+  uint32_t af[4][3][4];
+#pragma unroll
+  for (int kt = 0; kt < 4; ++kt) a_split3(a[2 * kt], a[2 * kt + 1], af[kt]);
+#pragma unroll
+  for (int np = 0; np < NB / 2; np += 2) {
+    float t[4][4];
+    zero(t);
+#pragma unroll
+    for (int kt = 0; kt < 4; ++kt) {
+      uint32_t f[4][3][2];
+      frags(np, kt, f);
+      mma_terms<3, NBP, 4>(t, af[kt], f);
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) add_to(acc[2 * np + q], t[q]);
+  }
+}
+
+// scum[t] = sum_{s <= t} dt_s * A over the chunk's Q tokens (dtp[s *
+// dstride]), summed in double and rounded to f32 once per token: each
+// thread sums a run of consecutive tokens, a fixed scan adds the runs
+// before it. sw: 4 doubles of shared memory. Syncs before returning.
+__device__ __forceinline__ void chunk_cum_scan(float* scum, const float* dtp,
+                                               long dstride, float A, int Q,
+                                               double* sw) {
+  const int per = (Q + MT - 1) / MT;
+  const int lo = threadIdx.x * per, hi = min(Q, lo + per);
+  double tot = 0.0;
+  for (int t = lo; t < hi; ++t)
+    tot += static_cast<double>(__fmul_rn(dtp[t * dstride], A));
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  double incl = tot;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double v = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) sw[warp] = incl;
+  __syncthreads();
+  double run = incl - tot;
+  for (int k = 0; k < warp; ++k) run += sw[k];
+  for (int t = lo; t < hi; ++t) {
+    run += static_cast<double>(__fmul_rn(dtp[t * dstride], A));
+    scum[t] = static_cast<float>(run);
+  }
+  __syncthreads();
+}
+
+// the value at offset o of a tile held as NP planes: hi + mid + lo gives
+// back the f32 exactly
+template <int NP>
+__device__ __forceinline__ float plane_val(const Planes& t, int o) {
+  float v = __bfloat162float(t.p[0][o]);
+  if (NP > 1) v += __bfloat162float(t.p[1][o]);
+  if (NP > 2) v += __bfloat162float(t.p[2][o]);
+  return v;
+}
+
+// two consecutive values to o, as one store where aligned
+__device__ __forceinline__ void store2(float* o, float v0, float v1,
+                                       bool aligned) {
+  if (aligned) {
+    *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+  } else {
+    o[0] = v0;
+    o[1] = v1;
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* o, float v0, float v1,
+                                       bool aligned) {
+  if (aligned) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    o[0] = __float2bfloat16_rn(v0);
+    o[1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// --- scores: G^T_ji = B_j . C_i^T for one tile pair i >= j of a chunk ---------
+//
+// gt [B * nc, qp, qp] f32 (qp = the chunk padded to whole tiles), row j,
+// column i; tiles above the diagonal are not written. It has no head
+// axis: every head of the chunk reads it.
+template <typename T>
+__global__ void __launch_bounds__(MT)
+ssd_bwd_scores_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
+                      float* __restrict__ gt, Dims d) {
+  constexpr int NP = Elem<T>::planes;
+  extern __shared__ __align__(16) unsigned char bsm[];
+  bf16* p = reinterpret_cast<bf16*>(bsm);
+  const Planes sB = planes_at<NP>(p, BT * LDW);
+  const Planes sC = planes_at<NP>(p + NP * BT * LDW, BT * LDW);
+
+  const int nc = d.S / d.Q, nt = (d.Q + BT - 1) / BT, qp = nt * BT;
+  int i = 0, j = blockIdx.x;
+  while (j > i) j -= ++i;
+  const int bc = blockIdx.y;
+  const long tok0 = static_cast<long>(bc / nc) * d.S +
+                    static_cast<long>(bc % nc) * d.Q;
+  load_planes<MAXN, false, NP, false>(sB, LDW, Bm + tok0 * d.N, d.N, j * BT,
+                                      d.Q, d.N);
+  load_planes<MAXN, false, NP, false>(sC, LDW, Cm + tok0 * d.N, d.N, i * BT,
+                                      d.Q, d.N);
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float g[8][4];
+  zero(g);
+  warp_mma<8, MAXN, NP, NP, true>(g, sB, LDW, warp * 16, sC, LDW, lane);
+  float* out = gt + (static_cast<long>(bc) * qp + j * BT + warp * 16) * qp +
+               i * BT;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(out + static_cast<long>(lane / 4 + 8 * r) *
+                                           qp + nb * 8 + 2 * (lane % 4)) =
+          make_float2(g[nb][2 * r], g[nb][2 * r + 1]);
+}
+
+// --- w: the chunk's cum and W_c = sum_i exp(cum_i) dy_i C_i^T -----------------
+//
+// One block per (batch, chunk, head); cum [B, H, S] f32, w [B, H, nc, P,
+// N] f32. The A operand is dy scaled and split, stored transposed ([p][i]).
+template <typename T>
+__global__ void __launch_bounds__(MT)
+ssd_bwd_w_kernel(const float* __restrict__ dt, const float* __restrict__ Av,
+                 const T* __restrict__ Cm, const float* __restrict__ dy,
+                 float* __restrict__ cum, float* __restrict__ w, Dims d) {
+  constexpr int NP = Elem<T>::planes;
+  extern __shared__ __align__(16) unsigned char bsm[];
+  double* sw = reinterpret_cast<double*>(bsm);
+  bf16* p = reinterpret_cast<bf16*>(bsm + 64);
+  const Planes sDy = planes_at<3>(p, MAXP * LDK);
+  p += 3 * MAXP * LDK;
+  const Planes sC = planes_at<NP>(p, BT * LDW);
+  p += NP * BT * LDW;
+  float* scum = reinterpret_cast<float*>(p);
+
+  const int h = blockIdx.x, bc = blockIdx.y;
+  const int nc = d.S / d.Q, b = bc / nc, c = bc % nc;
+  const long tok0 = static_cast<long>(b) * d.S + static_cast<long>(c) * d.Q;
+  const long bh = static_cast<long>(b) * d.H + h;
+  const long xs = static_cast<long>(d.H) * d.P;
+  chunk_cum_scan(scum, dt + tok0 * d.H + h, d.H, Av[h], d.Q, sw);
+  for (int t = threadIdx.x; t < d.Q; t += MT)
+    cum[bh * d.S + static_cast<long>(c) * d.Q + t] = scum[t];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[16][4];
+  zero(acc);
+  for (int k0 = 0; k0 < d.Q; k0 += BT) {
+    __syncthreads();
+    load_planes<MAXP, true, 3, true>(sDy, LDK, dy + tok0 * xs + h * d.P, xs,
+                                     k0, d.Q, d.P, scum);
+    load_planes<MAXN, false, NP, false>(sC, LDW, Cm + tok0 * d.N, d.N, k0,
+                                        d.Q, d.N);
+    __syncthreads();
+    warp_mma<16, BT, 3, NP, false>(acc, sDy, LDK, warp * 16, sC, LDW, lane);
+  }
+  float* out = w + (bh * nc + c) * d.P * d.N;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pr = warp * 16 + lane / 4 + 8 * r;
+    if (pr >= d.P) continue;
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = nb * 8 + 2 * (lane % 4) + e;
+        if (n < d.N) out[pr * d.N + n] = acc[nb][2 * r + e];
+      }
+  }
+}
+
+// --- pass: dS_{c-1} = exp(cum_Q,c) dS_c + W_c, in place over w ------------------
+//
+// One thread per element of a (batch, head)'s [P, N] tile, the chunks in
+// reverse, PASS_BATCH chunks' W loaded at once; afterwards w[b, h, c]
+// holds the gradient of chunk c's end state.
+__global__ void __launch_bounds__(PASS_NT)
+ssd_bwd_pass_kernel(const float* __restrict__ cum,
+                    const float* __restrict__ dfinal, float* __restrict__ w,
+                    Dims d) {
+  const long PN = static_cast<long>(d.P) * d.N;
+  const long e = static_cast<long>(blockIdx.x) * PASS_NT + threadIdx.x;
+  if (e >= PN) return;
+  const long bh = blockIdx.y;
+  const int nc = d.S / d.Q;
+  float carry = dfinal != nullptr ? dfinal[bh * PN + e] : 0.f;
+  for (int top = nc - 1; top >= 0; top -= PASS_BATCH) {
+    float wv[PASS_BATCH], gv[PASS_BATCH];
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k) {
+      const int c = top - k;
+      wv[k] = c >= 0 ? w[(bh * nc + c) * PN + e] : 0.f;
+      gv[k] = c >= 0 ? cum[bh * d.S + static_cast<long>(c) * d.Q + d.Q - 1]
+                     : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k) {
+      const int c = top - k;
+      if (c < 0) break;
+      w[(bh * nc + c) * PN + e] = carry;
+      carry = __fadd_rn(__fmul_rn(expf(gv[k]), carry), wv[k]);
+    }
+  }
+}
+
+// --- chunk: dx, ddt and dA's share of one (batch, chunk, head) -----------------
+//
+// Works in the transposed orientation, rows j (the source token) and
+// columns i >= j (the token that reads it), so that dxdt_j, a sum over i,
+// stays in registers while the column tiles i go by; G^T comes from the
+// scores kernel, and each tile pair's dG^T = (x_j . dy_i) dt_j L^T goes to
+// dgt for the dB / dC kernel. d cum collects its + terms (index i) in drow
+// and its - terms (index j) in dcol, each with one owner per entry, in a
+// fixed order.
+template <typename T>
+__global__ void __launch_bounds__(MT, 2)
+ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ Av, const T* __restrict__ Bm,
+                     const T* __restrict__ Cm,
+                     const float* __restrict__ states,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ cum,
+                     const float* __restrict__ gt,
+                     const float* __restrict__ dS, T* __restrict__ dx,
+                     float* ddt, float* __restrict__ dA_part,
+                     float* __restrict__ dgt, Dims d) {
+  constexpr int NP = Elem<T>::planes;
+  extern __shared__ __align__(16) unsigned char bsm[];
+  bf16* p = reinterpret_cast<bf16*>(bsm);
+  const Planes sS = planes_at<3>(p, MAXP * LDW);   // dS: [p][n]
+  p += 3 * MAXP * LDW;
+  const Planes sX = planes_at<NP>(p, BT * LDK);    // x_j: [j][p]
+  p += NP * BT * LDK;
+  const Planes sW = planes_at<NP>(p, BT * LDW);    // C_i, then B_j: [.][n]
+  p += NP * BT * LDW;
+  const Planes sD = planes_at<3>(p, BT * LDK);     // dy_i: [i][p]
+  p += 3 * BT * LDK;
+  float* colp = reinterpret_cast<float*>(p);       // [4][BT] column partials
+  float* sred = colp + 4 * BT;                     // [MT]
+  float* sdt = sred + MT;                          // [Q] each:
+  float* scum = sdt + d.Q;
+  float* drow = scum + d.Q;
+  float* dcol = drow + d.Q;
+  float* sgx = dcol + d.Q;
+  float* su = sgx + d.Q;
+
+  const int h = blockIdx.x, bc = blockIdx.y;
+  const int Q = d.Q, P = d.P, N = d.N;
+  const int nc = d.S / Q, b = bc / nc, c = bc % nc;
+  const int nt = (Q + BT - 1) / BT, qp = nt * BT, npairs = nt * (nt + 1) / 2;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const float A = Av[h];
+  const long tok0 = static_cast<long>(b) * d.S + static_cast<long>(c) * Q;
+  const long bh = static_cast<long>(b) * d.H + h;
+  const long PN = static_cast<long>(P) * N;
+  const long xs = static_cast<long>(d.H) * P;
+  const T* xc = x + tok0 * xs + h * P;
+  const float* dyc = dy + tok0 * xs + h * P;
+  const float* S0g = states + (bh * nc + c) * PN;
+  const float* dSg = dS + (bh * nc + c) * PN;
+  const float* gtc = gt + static_cast<long>(bc) * qp * qp;
+
+  for (int t = tid; t < Q; t += MT) {
+    sdt[t] = dt[(tok0 + t) * d.H + h];
+    scum[t] = cum[bh * d.S + static_cast<long>(c) * Q + t];
+    drow[t] = ddt[(tok0 + t) * d.H + h];   // the inter kernel's term
+    dcol[t] = sgx[t] = su[t] = 0.f;
+  }
+  float dot = 0.f;                                 // <S0, dS>, this thread's
+  for (long e = tid; e < PN; e += MT) dot += S0g[e] * dSg[e];
+  sred[tid] = dot;
+  __syncthreads();
+  for (int o = MT / 2; o > 0; o >>= 1) {
+    if (tid < o) sred[tid] += sred[tid + o];
+    __syncthreads();
+  }
+  const float sdot = sred[0];
+
+  __syncthreads();
+  load_planes<MAXN, false, 3, false>(sS, LDW, dSg, N, 0, P, N);
+
+  for (int jt = 0; jt < nt; ++jt) {
+    const int j0 = jt * BT;
+    __syncthreads();
+    load_planes<MAXP, false, NP, false>(sX, LDK, xc, xs, j0, Q, P);
+    load_planes<MAXN, false, NP, false>(sW, LDW, Bm + tok0 * N, N, j0, Q, N);
+    __syncthreads();
+    // the state term: dxdt_j = exp(cum_Q - cum_j) dS B_j, and its share
+    // of d cum, u_j = xdt_j . dxdt_j (- at j, + at the chunk's end)
+    float acc[8][4];
+    zero(acc);
+    warp_mma<8, MAXN, NP, 3, true>(acc, sW, LDW, warp * 16, sS, LDW, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = j0 + warp * 16 + g + 8 * r;
+      const bool ok = j < Q;
+      const float eo = ok ? expf(scum[Q - 1] - scum[j]) : 0.f;
+      float uu = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pc = nb * 8 + 2 * tq + e;
+          acc[nb][2 * r + e] *= eo;
+          if (ok && pc < P)
+            uu += plane_val<NP>(sX, (j - j0) * LDK + pc) * acc[nb][2 * r + e];
         }
-        const float gs = ok ? expf(clast - scum[tj]) : 0.f;
-        for (int n = 0; n < N; ++n) {
-          const float bv = sB[r * LDN + n];
+      uu = quad_sum(uu) * (ok ? sdt[j] : 0.f);
+      if (tq == 0 && ok) {
+        su[j] = uu;
+        dcol[j] += uu;
+      }
+    }
+
+    for (int it = jt; it < nt; ++it) {
+      const int i0 = it * BT;
+      __syncthreads();
+      load_planes<MAXP, false, 3, false>(sD, LDK, dyc, xs, i0, Q, P);
+      __syncthreads();
+      float m[8][4];   // x_j . dy_i^T, then G^T L^T
+      zero(m);
+      warp_mma<8, MAXP, NP, 3, true>(m, sX, LDK, warp * 16, sD, LDK, lane);
+      const float* gtile =
+          gtc + static_cast<long>(j0 + warp * 16) * qp + i0;
+      // this head's dG^T tile, for the dB / dC kernel
+      float* dtile = dgt + ((static_cast<long>(bc) * d.H + h) * npairs +
+                            it * (it + 1) / 2 + jt) * BT * BT +
+                     warp * 16 * BT;
+      float rs[2] = {0.f, 0.f}, cs[8][2];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) sx[q] += sdS[(tx + 16 * q) * LDN + n] * bv;
-        }
-        float u = 0.f, gx = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        const int jl = g + 8 * r, j = j0 + warp * 16 + jl;
+        const float dtj = j < Q ? sdt[j] : 0.f;
+        const float cj = j < Q ? scum[j] : 0.f;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = tx + 16 * q;
-          const float xs_state = gs * sx[q];
-          const float xv = p < P ? sX[r * LDP + p] : 0.f;
-          u += xv * dtj * xs_state;
-          const float dxdt = dXa[a][q] + xs_state;
-          gx += dxdt * xv;
-          if (ok && p < P) dxb[(long)tj * xs + p] = from_f<T>(dxdt * dtj);
-        }
-        u = half_warp_sum(u);
-        gx = half_warp_sum(gx);
-        if (tx == 0 && ok) {
-          sU[tj] = u;
-          sgx[tj] = gx;
-        }
+        for (int nb = 0; nb < 8; ++nb) {
+          const float2 gv = *reinterpret_cast<const float2*>(
+              gtile + static_cast<long>(jl) * qp + nb * 8 + 2 * tq);
+          float dgv[2];
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int n = tx + 16 * q;
-          if (ok && n < N) dBp[(long)tj * N + n] = dBa[a][q] + ge * sb[q];
+          for (int e = 0; e < 2; ++e) {
+            const int i = i0 + nb * 8 + 2 * tq + e;
+            const bool live = i >= j && i < Q;
+            const float L = live ? expf(scum[i] - cj) : 0.f;
+            const float G = e ? gv.y : gv.x;
+            dgv[e] = m[nb][2 * r + e] * dtj * L;
+            const float gd = G * dgv[e];
+            rs[r] += gd;
+            cs[nb][e] = r == 0 ? gd : cs[nb][e] + gd;
+            m[nb][2 * r + e] = G * L;
+          }
+          *reinterpret_cast<float2*>(dtile + jl * BT + nb * 8 + 2 * tq) =
+              make_float2(dgv[0], dgv[1]);
         }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = j0 + warp * 16 + g + 8 * r;
+        const float v = quad_sum(rs[r]);
+        if (tq == 0 && j < Q) dcol[j] += v;
+      }
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = cs[nb][e];
+          v += __shfl_xor_sync(FULL, v, 4);
+          v += __shfl_xor_sync(FULL, v, 8);
+          v += __shfl_xor_sync(FULL, v, 16);
+          if (g == 0) colp[warp * BT + nb * 8 + 2 * tq + e] = v;
+        }
+      // dxdt_j += (G L)^T_ji dy_i
+      warp_mma_regs<8, 3, true>(acc, m, sD, LDK, 0, lane);
+      __syncthreads();
+      if (tid < BT && i0 + tid < Q)
+        drow[i0 + tid] += colp[tid] + colp[BT + tid] + colp[2 * BT + tid] +
+                          colp[3 * BT + tid];
+    }
+
+    // dx = dxdt dt (two columns a store), and sum_p dxdt x for ddt
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = j0 + warp * 16 + g + 8 * r;
+      const bool ok = j < Q;
+      const float dtj = ok ? sdt[j] : 0.f;
+      float gx = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int pc = nb * 8 + 2 * tq;
+        if (!ok || pc >= P) continue;
+        const float v0 = acc[nb][2 * r], v1 = acc[nb][2 * r + 1];
+        T* o = dx + (tok0 + j) * xs + h * P + pc;
+        gx += v0 * plane_val<NP>(sX, (j - j0) * LDK + pc);
+        if (pc + 1 < P) {
+          gx += v1 * plane_val<NP>(sX, (j - j0) * LDK + pc + 1);
+          store2(o, v0 * dtj, v1 * dtj, P % 2 == 0);
+        } else {
+          o[0] = from_f<T>(v0 * dtj);
+        }
+      }
+      gx = quad_sum(gx);
+      if (tq == 0 && ok) sgx[j] = gx;
+    }
+  }
+  __syncthreads();
+  // d cum -> its reverse cumsum -> ddt and dA's share, by one warp: each
+  // lane a run of consecutive tokens, the runs after it added by a fixed
+  // shuffle scan, every sum in a fixed order
+  if (warp == 0) {
+    const int per = (Q + 31) / 32, lo = min(Q, lane * per),
+              hi = min(Q, lo + per);
+    float us = 0.f;
+    for (int t = lo; t < hi; ++t) us += su[t];
+    us = warp_total(us);
+    const float tail = us + expf(scum[Q - 1]) * sdot;   // d cum at Q - 1
+    float own = 0.f;
+    for (int t = hi - 1; t >= lo; --t)
+      own += drow[t] - dcol[t] + (t == Q - 1 ? tail : 0.f);
+    float after = own;                   // the runs of lanes >= this one
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float v = __shfl_down_sync(FULL, after, o);
+      if (lane + o < 32) after += v;
+    }
+    float run = __shfl_down_sync(FULL, after, 1);
+    if (lane == 31) run = 0.f;
+    float dA_acc = 0.f;
+    for (int t = hi - 1; t >= lo; --t) {
+      run += drow[t] - dcol[t] + (t == Q - 1 ? tail : 0.f);
+      ddt[(tok0 + t) * d.H + h] = run * A + sgx[t];
+      dA_acc += run * sdt[t];
+    }
+    dA_acc = warp_total(dA_acc);
+    if (lane == 0) dA_part[bh * nc + c] = dA_acc;
+  }
+}
+
+// the planes' columns from n0 on
+__device__ __forceinline__ Planes shifted(const Planes& s, int n0) {
+  Planes r;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.p[k] = s.p[k] != nullptr ? s.p[k] + n0 : nullptr;
+  return r;
+}
+
+// rows r0.. (the warp's 16) and columns n0..n0+8NB-1 of a [rows][N] f32
+// array: out = (add ? out : 0) + t, within Q rows and N columns; a pair
+// of columns at a time where N is even, every old value loaded before
+// any is stored
+template <int NB>
+__device__ __forceinline__ void rmw_rows(float* out, int r0, int n0, int Q,
+                                         int N, bool add,
+                                         const float (&t)[NB][4], int lane) {
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + lane / 4 + 8 * r;
+    if (row >= Q) continue;
+    float* o = out + static_cast<long>(row) * N + n0 + 2 * (lane % 4);
+    float2 old[NB];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int n = n0 + nb * 8 + 2 * (lane % 4);
+      old[nb] = make_float2(0.f, 0.f);
+      if (add && pairs && n < N)
+        old[nb] = *reinterpret_cast<const float2*>(o + nb * 8);
+      else if (add) {
+        if (n < N) old[nb].x = o[nb * 8];
+        if (n + 1 < N) old[nb].y = o[nb * 8 + 1];
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const int n = n0 + nb * 8 + 2 * (lane % 4);
+      const float2 v = make_float2(old[nb].x + t[nb][2 * r],
+                                   old[nb].y + t[nb][2 * r + 1]);
+      if (pairs && n < N) {
+        *reinterpret_cast<float2*>(o + nb * 8) = v;
+      } else {
+        if (n < N) o[nb * 8] = v.x;
+        if (n + 1 < N) o[nb * 8 + 1] = v.y;
+      }
+    }
+  }
+}
+
+// --- inter: dC's inter-chunk term and d cum's, per head group -----------------
+//
+// dC_i += sum_h exp(cum_i) (dy_i . S0^h) and, per head, d cum_i's
+// inter-chunk term exp(cum_i) C_i . (dy_i . S0^h): the same chain of
+// MMAs gives both, so one owner per (batch, chunk, group of HG heads)
+// computes it once for each head and tile, folds it into the group's dC
+// rows (written first: the dbc kernel adds the in-chunk term to them) and
+// dots it with C_i. The d cum term goes to ddt's positions [B, S, H],
+// which the chunk kernel of the same (batch, chunk, head) reads before it
+// writes ddt there.
+template <typename T>
+__global__ void __launch_bounds__(MT)
+ssd_bwd_inter_kernel(const T* __restrict__ Cm, const float* __restrict__ states,
+                     const float* __restrict__ dy,
+                     const float* __restrict__ cum, float* __restrict__ dinter,
+                     float* __restrict__ dC_part, Dims d) {
+  constexpr int NP = Elem<T>::planes;
+  extern __shared__ __align__(16) unsigned char bsm[];
+  bf16* p = reinterpret_cast<bf16*>(bsm);
+  const Planes sD = planes_at<3>(p, BT * LDK);     // dy_i: [i][p]
+  p += 3 * BT * LDK;
+  const Planes sC = planes_at<NP>(p, BT * LDW);    // C_i: [i][n]
+  p += NP * BT * LDW;
+  const Planes sS = planes_at<3>(p, MAXP * LDW);   // S0: [p][n]
+
+  const int gi = blockIdx.x, bc = blockIdx.y;
+  const int Q = d.Q, P = d.P, N = d.N;
+  const int nc = d.S / Q, b = bc / nc, c = bc % nc;
+  const int ng = (d.H + HG - 1) / HG, h0 = gi * HG, nh = min(HG, d.H - h0);
+  const int nt = (Q + BT - 1) / BT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const long tok0 = static_cast<long>(b) * d.S + static_cast<long>(c) * Q;
+  const long PN = static_cast<long>(P) * N;
+  const long xs = static_cast<long>(d.H) * P;
+  float* dCg = dC_part + ((static_cast<long>(b) * ng + gi) * d.S +
+                          static_cast<long>(c) * Q) * N;
+
+  for (int it = 0; it < nt; ++it) {
+    const int i0 = it * BT;
+    float t[16][4];
+    zero(t);
+    for (int k = 0; k < nh; ++k) {
+      const int h = h0 + k;
+      const long bh = static_cast<long>(b) * d.H + h;
+      float sc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = i0 + warp * 16 + g + 8 * r;
+        sc[r] = i < Q ? expf(__ldg(cum + bh * d.S + static_cast<long>(c) * Q +
+                                   i))
+                      : 0.f;
       }
       __syncthreads();
-    }
-
-    // ---- pass A: for each row tile i: dC_i over the column tiles j <= i
-    // plus the inter-chunk term; the inter term of d cum; dS0
-    float dS0[4][8];   // p = ty + 16a, n = tx + 16q
-    float sdot = 0.f;  // <S0, dS>, this thread's entries
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int idx = (ty + 16 * a) * LDN + tx + 16 * q;
-        dS0[a][q] = 0.f;
-        sdot += sS0[idx] * sdS[idx];
-      }
-    for (int it = 0; it < nt; ++it) {
-      const int r0 = it * TQ;
-      load_tile(sC, LDN, Cb, N, r0, Q, N, MAXN);
-      load_tile(sDy, LDP, dyb, xs, r0, Q, P, MAXP);
+      if (k == 0)
+        load_planes<MAXN, false, NP, false>(sC, LDW, Cm + tok0 * N, N, i0, Q,
+                                            N);
+      load_planes<MAXP, false, 3, false>(sD, LDK, dy + tok0 * xs + h * P, xs,
+                                         i0, Q, P);
+      load_planes<MAXN, false, 3, false>(sS, LDW,
+                                         states + (bh * nc + c) * PN, N, 0, P,
+                                         N);
       __syncthreads();
-      float dCa[4][8];   // rows t = ty + 16a, n = tx + 16q
+      float ch[16][4];   // dy_i . S0: the warp's 16 rows, every column n
+      zero(ch);
+      warp_mma<16, MAXP, 3, 3, false>(ch, sD, LDK, warp * 16, sS, LDW, lane);
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int q = 0; q < 8; ++q) dCa[a][q] = 0.f;
-      for (int p = 0; p < P; ++p) {
-        float dr[4], sv[8];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) dr[a] = sDy[(ty + 16 * a) * LDP + p];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) sv[q] = sS0[p * LDN + tx + 16 * q];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int q = 0; q < 8; ++q) dCa[a][q] += dr[a] * sv[q];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int ti = r0 + ty + 16 * a;
-        const float gin = ti < Q ? expf(scum[ti]) : 0.f;
+      for (int r = 0; r < 2; ++r) {
+        const int il = warp * 16 + g + 8 * r;
         float v = 0.f;
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          dCa[a][q] *= gin;
-          v += sC[(ty + 16 * a) * LDN + tx + 16 * q] * dCa[a][q];
-        }
-        v = half_warp_sum(v);
-        if (tx == 0 && ti < Q) sdr[ti] += v;
-      }
-      // dS0 += sum_t exp(cum_t) dy_t[p] C_t[n]
-      for (int k = 0; k < TQ; ++k) {
-        const int t = r0 + k;
-        const float gin = t < Q ? expf(scum[t]) : 0.f;
-        float dv[4], cv[8];
+        for (int nb = 0; nb < 16; ++nb)
 #pragma unroll
-        for (int a = 0; a < 4; ++a) dv[a] = sDy[k * LDP + ty + 16 * a] * gin;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) cv[q] = sC[k * LDN + tx + 16 * q];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int q = 0; q < 8; ++q) dS0[a][q] += dv[a] * cv[q];
-      }
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * TQ;
-        load_tile(sB, LDN, Bb, N, j0, Q, N, MAXN);
-        load_tile(sX, LDP, xb, xs, j0, Q, P, MAXP);
-        __syncthreads();
-        float w[4][4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) w[a][q] = 0.f;
-        for (int p = 0; p < P; ++p) {
-          float dr[4], xr[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) dr[a] = sDy[(ty + 16 * a) * LDP + p];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) xr[q] = sX[(tx + 16 * q) * LDP + p];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) w[a][q] += dr[a] * xr[q];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int ti = r0 + ty + 16 * a;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int tj = j0 + tx + 16 * q;
-            const bool live = tj <= ti && ti < Q;
-            sMw[(ty + 16 * a) * LDT + tx + 16 * q] =
-                live ? w[a][q] * sdt[tj] * expf(scum[ti] - scum[tj]) : 0.f;
+          for (int e = 0; e < 2; ++e) {
+            const int n = nb * 8 + 2 * tq + e;
+            if (n < N) v += plane_val<NP>(sC, il * LDW + n) * ch[nb][2 * r + e];
           }
-        }
-        __syncthreads();
-        for (int k = 0; k < TQ; ++k) {
-          float mw[4], bv[8];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) mw[a] = sMw[(ty + 16 * a) * LDT + k];
-#pragma unroll
-          for (int q = 0; q < 8; ++q) bv[q] = sB[k * LDN + tx + 16 * q];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int q = 0; q < 8; ++q) dCa[a][q] += mw[a] * bv[q];
-        }
-        __syncthreads();
+        v = quad_sum(v);
+        if (tq == 0 && i0 + il < Q)
+          dinter[(tok0 + i0 + il) * d.H + h] = v * sc[r];
       }
-      float* dCp = dC_part + (bh * d.S + t0) * N;
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int t = r0 + ty + 16 * a;
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const int n = tx + 16 * q;
-          if (t < Q && n < N) dCp[(long)t * N + n] = dCa[a][q];
-        }
-      }
+      for (int nb = 0; nb < 16; ++nb) add_to(t[nb], ch[nb], sc[0], sc[1]);
     }
-
-    // <S0, dS> over the block, in a fixed tree
-    sred[threadIdx.x] = sdot;
-    __syncthreads();
-    for (int o = NT / 2; o > 0; o >>= 1) {
-      if (threadIdx.x < o) sred[threadIdx.x] += sred[threadIdx.x + o];
-      __syncthreads();
-    }
-    // the gradient of the chunk-start state, for the previous chunk
-    const float glast = expf(clast);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int p = ty + 16 * a, n = tx + 16 * q;
-        const int idx = p * LDN + n;
-        sdS[idx] = (p < P && n < N) ? glast * sdS[idx] + dS0[a][q] : 0.f;
-      }
-    // d cum -> d dA (reverse cumsum) -> ddt, dA; one thread, in order
-    if (threadIdx.x == 0) {
-      float usum = 0.f;
-      for (int t = 0; t < Q; ++t) usum += sU[t];
-      float run = 0.f;
-      for (int t = Q - 1; t >= 0; --t) {
-        float dc = sdr[t] - sdc[t] - sU[t];
-        if (t == Q - 1) dc += usum + glast * sred[0];
-        run += dc;
-        ddt[((long)b * d.S + t0 + t) * d.H + h] = run * A + sgx[t];
-        dA_acc += run * sdt[t];
-      }
-    }
-    __syncthreads();
+    rmw_rows(dCg, i0 + warp * 16, 0, Q, N, false, t, lane);
   }
-  if (threadIdx.x == 0) dA_part[bh] = dA_acc;
+}
+
+// --- dbc: one head group's dB and dC for a (batch, chunk) -------------------------
+//
+// dB_j = sum_i dGs^T_ji C_i + sum_h exp(cum_Q - cum_j) dt_j (x_j . dS^h)
+// dC_i += sum_j dGs_ij B_j   (onto the inter kernel's term)
+// with dGs = sum over the group's heads, in order, of (dy_i . x_j) dt_j L_ij
+// (each head's tile written by the chunk kernel): one owner per (batch,
+// chunk, group), which writes dB_part / dC_part [B, n_groups, S, N] f32
+// for the wrapper's fixed-order sum over groups. The head loop is
+// innermost, so dGs of a tile pair stays in registers and meets B and C
+// once; dB_j stays in registers over the pairs, dC_i is added to its rows
+// of dC_part pair by pair. The state term's per-token factor scales the
+// rows of each head's chain before it is folded in.
+template <typename T>
+__global__ void __launch_bounds__(MT)
+ssd_bwd_dbc_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                   const T* __restrict__ Bm, const T* __restrict__ Cm,
+                   const float* __restrict__ cum,
+                   const float* __restrict__ dS,
+                   const float* __restrict__ dgt, float* __restrict__ dB_part,
+                   float* __restrict__ dC_part, Dims d) {
+  constexpr int NP = Elem<T>::planes;
+  extern __shared__ __align__(16) unsigned char bsm[];
+  bf16* p = reinterpret_cast<bf16*>(bsm);
+  const Planes sX = planes_at<NP>(p, BT * LDK);    // x_j: [j][p]
+  p += NP * BT * LDK;
+  const Planes sB = planes_at<NP>(p, BT * LDW);    // B_j: [j][n]
+  p += NP * BT * LDW;
+  // one region for either C_i and dGs ([i][n], [i][j]) or a state [p][n]
+  const Planes sC = planes_at<NP>(p, BT * LDW);
+  const Planes sG = planes_at<3>(p + NP * BT * LDW, BT * LDK);
+  const Planes sS = planes_at<3>(p, MAXP * LDW);
+
+  const int gi = blockIdx.x, bc = blockIdx.y;
+  const int Q = d.Q, P = d.P, N = d.N;
+  const int nc = d.S / Q, b = bc / nc, c = bc % nc;
+  const int ng = (d.H + HG - 1) / HG, h0 = gi * HG, nh = min(HG, d.H - h0);
+  const int nt = (Q + BT - 1) / BT, npairs = nt * (nt + 1) / 2;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const long tok0 = static_cast<long>(b) * d.S + static_cast<long>(c) * Q;
+  const long PN = static_cast<long>(P) * N;
+  const long xs = static_cast<long>(d.H) * P;
+  const T* Bc = Bm + tok0 * N;
+  const T* Cc = Cm + tok0 * N;
+  const long grow = ((static_cast<long>(b) * ng + gi) * d.S +
+                     static_cast<long>(c) * Q) * N;
+  float* dBg = dB_part + grow;
+  float* dCg = dC_part + grow;
+  // head k's cum and dt at token t
+  auto hcum = [&](int k, int t) {
+    return __ldg(cum + (static_cast<long>(b) * d.H + h0 + k) * d.S +
+                 static_cast<long>(c) * Q + t);
+  };
+  auto hdt = [&](int k, int t) { return __ldg(dt + (tok0 + t) * d.H + h0 + k); };
+
+  for (int jt = 0; jt < nt; ++jt) {
+    const int j0 = jt * BT;
+    __syncthreads();
+    load_planes<MAXN, false, NP, false>(sB, LDW, Bc, N, j0, Q, N);
+    float db[16][4];
+    zero(db);
+    for (int it = jt; it < nt; ++it) {
+      const int i0 = it * BT;
+      __syncthreads();
+      load_planes<MAXN, false, NP, false>(sC, LDW, Cc, N, i0, Q, N);
+      // dGs: the group's heads' dG^T tiles (from the chunk kernel), in
+      // head order
+      float dg[8][4];
+      zero(dg);
+      const float* dsrc = dgt + (static_cast<long>(bc) * d.H + h0) * npairs *
+                                    BT * BT +
+                          static_cast<long>(it * (it + 1) / 2 + jt) * BT * BT +
+                          warp * 16 * BT;
+      for (int k = 0; k < nh; ++k) {
+        const float* tk = dsrc + static_cast<long>(k) * npairs * BT * BT;
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb) {
+            const float2 v = *reinterpret_cast<const float2*>(
+                tk + (g + 8 * r) * BT + nb * 8 + 2 * tq);
+            dg[nb][2 * r] += v.x;
+            dg[nb][2 * r + 1] += v.y;
+          }
+      }
+      __syncthreads();   // C_i is in shared memory
+      // dB_j += dGs^T_ji C_i
+      warp_mma_regs<16, NP, false>(db, dg, sC, LDW, 0, lane);
+      // dC_i += dGs_ij B_j: dGs through shared memory, transposed
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int jl = warp * 16 + g + 8 * r, il = nb * 8 + 2 * tq;
+          put2<3, true>(sG, il * LDK + jl, LDK, dg[nb][2 * r],
+                        dg[nb][2 * r + 1]);
+        }
+      __syncthreads();
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float t[8][4];
+        zero(t);
+        warp_mma<8, BT, 3, NP, false>(t, sG, LDK, warp * 16,
+                                      shifted(sB, 64 * half), LDW, lane);
+        rmw_rows(dCg, i0 + warp * 16, 64 * half, Q, N, true, t, lane);
+      }
+    }
+    // the state term of dB_j, head by head
+    for (int k = 0; k < nh; ++k) {
+      const int h = h0 + k;
+      const long bh = static_cast<long>(b) * d.H + h;
+      float sc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = j0 + warp * 16 + g + 8 * r;
+        sc[r] = j < Q ? expf(hcum(k, Q - 1) - hcum(k, j)) * hdt(k, j) : 0.f;
+      }
+      __syncthreads();
+      load_planes<MAXP, false, NP, false>(sX, LDK, x + tok0 * xs + h * P, xs,
+                                          j0, Q, P);
+      load_planes<MAXN, false, 3, false>(sS, LDW, dS + (bh * nc + c) * PN, N,
+                                         0, P, N);
+      __syncthreads();
+      warp_mma<16, MAXP, NP, 3, false>(db, sX, LDK, warp * 16, sS, LDW,
+                                       lane, sc[0], sc[1]);
+    }
+    rmw_rows(dBg, j0 + warp * 16, 0, Q, N, false, db, lane);
+  }
+
 }
 
 size_t fwd_smem(int Q) {
   return sizeof(float) *
          ((size_t)MAXP * LDN + 2 * TQ * LDN + TQ * LDP + TQ * LDT + 2 * Q);
-}
-
-size_t bwd_smem(int Q) {
-  return sizeof(float) * ((size_t)2 * MAXP * LDN + 2 * TQ * LDN +
-                          2 * TQ * LDP + 2 * TQ * LDT + 16 * TQ + NT + 6 * Q);
 }
 
 template <typename K>
@@ -714,18 +1455,69 @@ int launch_fwd(const void* x, const float* dt, const float* A, const void* Bm,
   return static_cast<int>(cudaGetLastError());
 }
 
+size_t w_smem(int Q, int np) {
+  return 64 + sizeof(bf16) * (3 * MAXP * LDK + np * BT * LDW) +
+         sizeof(float) * Q;
+}
+
+size_t chunk_smem(int Q, int np) {
+  return sizeof(bf16) * (3 * MAXP * LDW + np * BT * LDK + np * BT * LDW +
+                         3 * BT * LDK) +
+         sizeof(float) * (4 * BT + MT + 6 * Q);
+}
+
+size_t inter_smem(int np) {
+  return sizeof(bf16) * (3 * BT * LDK + np * BT * LDW + 3 * MAXP * LDW);
+}
+
+size_t dbc_smem(int np) {
+  const int region = std::max(np * BT * LDW + 3 * BT * LDK, 3 * MAXP * LDW);
+  return sizeof(bf16) * (np * BT * LDK + np * BT * LDW + region);
+}
+
 template <typename T>
-int launch_bwd(const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, const float* states, const float* dy,
-               const float* dfinal, void* dx, float* ddt, float* dA_part,
-               float* dB_part, float* dC_part, const Dims& d,
+int launch_bwd(const void* xv, const float* dt, const float* A,
+               const void* Bv, const void* Cv, const float* states,
+               const float* dy, const float* dfinal, void* dxv, float* ddt,
+               float* dA_part, float* dB_part, float* dC_part, float* cum,
+               float* gt, float* w, float* dg, const Dims& d,
                cudaStream_t st) {
-  const size_t smem = bwd_smem(d.Q);
-  if (int e = prepare(ssd_bwd_kernel<T>, smem)) return e;
-  ssd_bwd_kernel<T><<<d.B * d.H, NT, smem, st>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), states, dy, dfinal, static_cast<T*>(dx),
-      ddt, dA_part, dB_part, dC_part, d);
+  const int np = Elem<T>::planes;
+  const T* x = static_cast<const T*>(xv);
+  const T* Bm = static_cast<const T*>(Bv);
+  const T* Cm = static_cast<const T*>(Cv);
+  const int nc = d.S / d.Q, nt = (d.Q + BT - 1) / BT;
+  const int ng = (d.H + HG - 1) / HG;
+  const unsigned bnc = static_cast<unsigned>(d.B * nc);
+  const size_t s0 = sizeof(bf16) * 2 * np * BT * LDW;
+  const size_t s1 = w_smem(d.Q, np), s2 = inter_smem(np),
+               s3 = chunk_smem(d.Q, np),
+               s4 = dbc_smem(np);
+  if (int e = prepare(ssd_bwd_scores_kernel<T>, s0)) return e;
+  if (int e = prepare(ssd_bwd_w_kernel<T>, s1)) return e;
+  if (int e = prepare(ssd_bwd_inter_kernel<T>, s2)) return e;
+  if (int e = prepare(ssd_bwd_chunk_kernel<T>, s3)) return e;
+  if (int e = prepare(ssd_bwd_dbc_kernel<T>, s4)) return e;
+  ssd_bwd_scores_kernel<T><<<dim3(nt * (nt + 1) / 2, bnc), MT, s0, st>>>(
+      Bm, Cm, gt, d);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  ssd_bwd_w_kernel<T><<<dim3(d.H, bnc), MT, s1, st>>>(dt, A, Cm, dy, cum, w,
+                                                       d);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  const unsigned pn = static_cast<unsigned>(
+      (static_cast<long>(d.P) * d.N + PASS_NT - 1) / PASS_NT);
+  ssd_bwd_pass_kernel<<<dim3(pn, d.B * d.H), PASS_NT, 0, st>>>(cum, dfinal,
+                                                               w, d);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  ssd_bwd_inter_kernel<T><<<dim3(ng, bnc), MT, s2, st>>>(Cm, states, dy, cum,
+                                                          ddt, dC_part, d);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  ssd_bwd_chunk_kernel<T><<<dim3(d.H, bnc), MT, s3, st>>>(
+      x, dt, A, Bm, Cm, states, dy, cum, gt, w, static_cast<T*>(dxv), ddt,
+      dA_part, dg, d);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  ssd_bwd_dbc_kernel<T><<<dim3(ng, bnc), MT, s4, st>>>(
+      x, dt, Bm, Cm, cum, w, dg, dB_part, dC_part, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -761,12 +1553,18 @@ int ssd_fwd(int dtype, const void* x, const void* dt, const void* A,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dfinal may be null (a zero gradient of the final state)
+// dfinal may be null (a zero gradient of the final state). Scratch, all
+// f32 and allocated by the caller: cum [B, H, S]; gt [B, nc, qp, qp] with
+// qp = Q rounded up to a multiple of 64; w [B, H, nc, P, N]; dg [B, nc, H,
+// nt (nt + 1) / 2, 64, 64] with nt = qp / 64. Outputs:
+// dx (x's dtype), ddt [B, S, H], dA_part [B, H, nc], dB_part and dC_part
+// [B, ceil(H / 8), S, N], the partials summed by the caller.
 int ssd_bwd(int dtype, const void* x, const void* dt, const void* A,
             const void* Bm, const void* Cm, const void* states,
             const void* dy, const void* dfinal, void* dx, void* ddt,
-            void* dA_part, void* dB_part, void* dC_part, int B, int S, int H,
-            int P, int N, int Q, void* stream) {
+            void* dA_part, void* dB_part, void* dC_part, void* cum, void* gt,
+            void* w, void* dg, int B, int S, int H, int P, int N, int Q,
+            void* stream) {
   const Dims d{B, S, H, P, N, Q};
   if (B == 0 || H == 0 || S == 0) return 0;
   if (!dims_ok(d)) return static_cast<int>(cudaErrorInvalidValue);
@@ -780,12 +1578,18 @@ int ssd_bwd(int dtype, const void* x, const void* dt, const void* A,
   float* f_dA = static_cast<float*>(dA_part);
   float* f_dB = static_cast<float*>(dB_part);
   float* f_dC = static_cast<float*>(dC_part);
+  float* f_cum = static_cast<float*>(cum);
+  float* f_gt = static_cast<float*>(gt);
+  float* f_w = static_cast<float*>(w);
+  float* f_dg = static_cast<float*>(dg);
   if (dtype == 0)
     return launch_bwd<float>(x, f_dt, f_A, Bm, Cm, f_st, f_dy, f_df, dx,
-                             f_ddt, f_dA, f_dB, f_dC, d, st);
+                             f_ddt, f_dA, f_dB, f_dC, f_cum, f_gt, f_w, f_dg,
+                             d, st);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(x, f_dt, f_A, Bm, Cm, f_st, f_dy, f_df,
-                                     dx, f_ddt, f_dA, f_dB, f_dC, d, st);
+                                     dx, f_ddt, f_dA, f_dB, f_dC, f_cum, f_gt,
+                                     f_w, f_dg, d, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

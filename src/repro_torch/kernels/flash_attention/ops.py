@@ -17,7 +17,9 @@ Each kernel has two implementations behind one wrapper:
   package's ``ref.attention_ref`` plus the LSE for the forward, and the
   explicit backward formulas of ``backward.py`` for ``dq`` and ``dk/dv``
   — what the CPU tests hold against the JAX Pallas kernels (interpret
-  mode) and what ``chip_smoke.py`` holds the CUDA kernels against.
+  mode) and what ``chip_smoke.py`` holds the CUDA kernels against. Their
+  exponentials are ``numerics.exp_f32``, so the same inputs give the
+  same bits in every process (ROADMAP C18).
 
 A CUDA tensor never takes the plain version: the wrapper launches the
 kernel or raises, and it refuses what the kernels cannot take (a head
@@ -43,6 +45,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.numerics import exp_f32
 from repro_torch.kernels.nvcc import CudaLibrary
 
 NEG_INF = -1e30
@@ -180,7 +183,7 @@ def _groups(q: torch.Tensor, k: torch.Tensor):
 
 def _probs(qs, kf, mask, lse_rows):
     s = torch.einsum("gqd,cd->gqc", qs, kf).masked_fill(~mask, NEG_INF)
-    return torch.exp(s - lse_rows[..., None])
+    return exp_f32(s - lse_rows[..., None])
 
 
 def flash_fwd_plain(q, k, v, *, causal: bool = True, window: int = 0
@@ -195,7 +198,7 @@ def flash_fwd_plain(q, k, v, *, causal: bool = True, window: int = 0
         s = torch.einsum("gqd,cd->gqc", qs, k[b, hk].float())
         s = s.masked_fill(~mask, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
-        p = torch.exp(s - m)
+        p = exp_f32(s - m)
         l = p.sum(dim=-1)
         out[b, hs] = torch.einsum("gqc,cd->gqd", p / l[..., None],
                                   v[b, hk].float()).to(q.dtype)

@@ -11,7 +11,10 @@ what ``chip_smoke.py`` holds the CUDA kernel against on the card.
   The decay is never a product over the whole sequence: at the model's
   inits ``log_a`` reaches -0.84 a token, so over 32,768 tokens
   ``exp(cumsum(log_a))`` underflows to 0 and a division by it gives 0/0.
-  The in-chunk cumsum is taken in float64.
+  The in-chunk cumsum is taken in float64. Its exponentials are
+  ``numerics.exp_f32`` (``exp_stable`` in :func:`softplus`, which the
+  card's decode step also runs), so the same inputs give the same bits
+  in every process (ROADMAP C18).
 * :func:`model_inputs` — x, r, i and lam drawn the way a freshly
   initialised RG-LRU block makes them, for the kernel checks.
 """
@@ -22,6 +25,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.numerics import exp_f32, exp_stable
+
 F32 = torch.float32
 GATE_C = 8.0        # Griffin's gate sharpness constant (hybrid._C)
 CHUNK = 64
@@ -30,7 +35,7 @@ CHUNK = 64
 def softplus(v: torch.Tensor) -> torch.Tensor:
     """The stable form ``jax.nn.softplus`` takes (``logaddexp(v, 0)``):
     ``max(v, 0) + log1p(exp(-|v|))``."""
-    return torch.clamp(v, min=0) + torch.log1p(torch.exp(-v.abs()))
+    return torch.clamp(v, min=0) + torch.log1p(exp_stable(-v.abs()))
 
 
 def gates(r: torch.Tensor, lam: torch.Tensor
@@ -60,9 +65,9 @@ def rg_lru_plain(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
         diff = cum[:, :, None] - cum[:, None, :]                # [B,t,s,W]
         causal = torch.ones(q, q, dtype=torch.bool,
                             device=x.device).tril()[None, :, :, None]
-        decay = torch.exp(diff.masked_fill(~causal, -math.inf).to(F32))
+        decay = exp_f32(diff.masked_fill(~causal, -math.inf).to(F32))
         out[:, lo:hi] = torch.einsum("btsw,bsw->btw", decay, b[:, lo:hi]) \
-            + torch.exp(cum.to(F32)) * h[:, None]
+            + exp_f32(cum.to(F32)) * h[:, None]
         h = out[:, hi - 1]
     return out
 

@@ -8,7 +8,11 @@ Each kernel has two implementations behind one wrapper:
 * on a CUDA tensor, the hand-written CUDA kernel of
   ``csrc/ssd_scan.cu`` (built and bound through
   ``repro_torch.kernels.nvcc``), launched on the current stream; a
-  refused launch raises;
+  refused launch raises. The backward is six launches in three phases
+  on the tensor cores (``ref.ssd_bwd_phased_plain`` is its algebra),
+  counted as one ``ssd_bwd``; its scratch and the partials it leaves
+  (dB / dC per group of ``HEAD_GROUP`` heads, dA per batch and chunk)
+  are allocated here and summed here in a fixed order;
 * on a CPU tensor, its plain PyTorch version (``ref.ssd_fwd_plain``;
   for the backward ``ref.ssd_grads_plain``, autograd through the plain
   forward from the first chunk-start state).
@@ -31,7 +35,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.nvcc import CudaLibrary
-from repro_torch.kernels.ssd_scan.ref import ssd_fwd_plain, ssd_grads_plain
+from repro_torch.kernels.ssd_scan.ref import (HEAD_GROUP, ssd_fwd_plain,
+                                              ssd_grads_plain)
 
 KERNELS = ("ssd_fwd", "ssd_bwd")
 MAX_HEAD_DIM, MAX_STATE, MAX_CHUNK = 64, 128, 1024
@@ -41,7 +46,7 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _DIMS = [_INT] * 6 + [_VP]                       # B S H P N Q stream
 LIB = CudaLibrary("ssd_scan", {
     "ssd_fwd": [_INT] + [_VP] * 9 + _DIMS,
-    "ssd_bwd": [_INT] + [_VP] * 13 + _DIMS,
+    "ssd_bwd": [_INT] + [_VP] * 17 + _DIMS,
 }, error_fn="ssd_error_string")
 
 _count_lock = threading.Lock()
@@ -175,20 +180,31 @@ def ssd_bwd(x, dt, A, Bm, Cm, states, dy, dfinal: Optional[torch.Tensor],
         return ssd_grads_plain(x, dt, A, Bm, Cm, dy, chunk, dfinal,
                                init_state=states[:, :, 0])
     q = min(chunk, S)
+    nc, qp = S // q, -(-q // 64) * 64
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     ddt = torch.empty((Bsz, S, H), **f32)
-    dA_part = torch.empty((Bsz, H), **f32)
-    dB_part = torch.empty((Bsz, H, S, N), **f32)
-    dC_part = torch.empty((Bsz, H, S, N), **f32)
+    dA_part = torch.empty((Bsz, H, nc), **f32)
+    groups = -(-H // HEAD_GROUP)
+    dB_part = torch.empty((Bsz, groups, S, N), **f32)
+    dC_part = torch.empty((Bsz, groups, S, N), **f32)
+    # scratch: the chunks' cum, C.B^T per chunk, W_c then dS in place, and
+    # each head's in-chunk dG tile pairs (the chunk kernel's, for dB / dC)
+    cum = torch.empty((Bsz, H, S), **f32)
+    gt = torch.empty((Bsz, nc, qp, qp), **f32)
+    w = torch.empty((Bsz, H, nc, P, N), **f32)
+    nt = qp // 64
+    dg = torch.empty((Bsz, nc, H, nt * (nt + 1) // 2, 64, 64), **f32)
     code = LIB.library().ssd_bwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), states.data_ptr(), dy.data_ptr(),
         _ptr(dfinal), dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
-        dB_part.data_ptr(), dC_part.data_ptr(), *_dims(x, N, q))
+        dB_part.data_ptr(), dC_part.data_ptr(), cum.data_ptr(),
+        gt.data_ptr(), w.data_ptr(), dg.data_ptr(), *_dims(x, N, q))
     LIB.check(code, "ssd_bwd")
-    # the per-head partials, summed in a fixed order (no atomics)
-    return (dx, ddt, dA_part.sum(0), dB_part.sum(1).to(Bm.dtype),
+    # the partials of the head groups and of the (batch, chunk) pairs,
+    # summed in a fixed order (no atomics)
+    return (dx, ddt, dA_part.sum((0, 2)), dB_part.sum(1).to(Bm.dtype),
             dC_part.sum(1).to(Cm.dtype))
 
 

@@ -13,6 +13,10 @@ kernels against on the card.
 * :func:`ssd_grads_plain` — ``torch.autograd.grad`` through
   ``ssd_chunked_plain``: the gradient ``jax.grad`` takes of the JAX
   function.
+* :func:`ssd_bwd_phased_plain` — the same gradient in the three phases
+  the CUDA backward takes (``csrc/ssd_scan.cu``), from the chunk-start
+  states: the algebra of the kernel, held against the two above on the
+  CPU. Nothing on the model's path calls it.
 * :func:`model_dt_A` — dt and A drawn the way the model makes them, for
   the kernel checks.
 
@@ -25,7 +29,7 @@ gradient becomes NaN. Here the mask is applied before the exponential
 (``exp(-inf) = 0``), which gives the same forward values and a finite
 gradient (ROADMAP C10).
 
-Every exponential of the chunked scan is :func:`exp_f32`, not
+Every exponential of the chunked scan is ``numerics.exp_f32``, not
 ``torch.exp``, so that the same inputs give the same bits in every
 process (ROADMAP C16). On the CPU ``torch.exp`` of a large float32
 tensor is split over threads and handed to MKL's vector math, and in
@@ -40,58 +44,10 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+# exp_f32 stays importable from here (it was first written for this scan)
+from repro_torch.kernels.numerics import exp_f32
+
 F32 = torch.float32
-
-# exp(x) = 2^k * e^r with k = round(x / ln 2) and r = x - k ln 2 split in
-# two parts (ln 2's high part has few enough bits that k * _LN2_HI is
-# exact), e^r from a degree-7 polynomial (SLEEF's expf coefficients);
-# all of them float32 values
-_LOG2E = 1.44269502162933349609375
-_LN2_HI = 0.693145751953125
-_LN2_LO = 1.428606765330187045e-06
-_EXP_POLY = (1.98527617612853646278381e-4, 1.39304355252534151077271e-3,
-             8.33336077630519866943359e-3, 4.16664853692054748535156e-2,
-             1.66666671633720397949219e-1, 0.5)
-
-
-def _pow2(k: torch.Tensor) -> torch.Tensor:
-    """2^k for integer-valued float32 k in [-126, 127], from its bits."""
-    return ((k.to(torch.int32) + 127) << 23).view(F32)
-
-
-def _exp_values(x: torch.Tensor) -> torch.Tensor:
-    xc = x.clamp(-104.0, 89.0)
-    k = torch.round(xc * _LOG2E)
-    r = (xc - k * _LN2_HI) - k * _LN2_LO
-    u = torch.full_like(r, _EXP_POLY[0])
-    for c in _EXP_POLY[1:]:
-        u = u * r + c
-    e = (r * r) * u + r + 1.0
-    k1 = torch.floor(k * 0.5)
-    e = e * _pow2(k1) * _pow2(k - k1)
-    e = e.masked_fill(x < -104.0, 0.0)     # past 88.7 the product is inf
-    return torch.where(torch.isnan(x), x, e)
-
-
-class _Exp(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        out = _exp_values(x)
-        ctx.save_for_backward(out)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        out, = ctx.saved_tensors
-        return g * out
-
-
-def exp_f32(x: torch.Tensor) -> torch.Tensor:
-    """exp of a float32 tensor from IEEE multiplies, adds, rounding and
-    bit shifts alone: each element's bits depend on its value only, not
-    on the thread split, the alignment or the device (within ~1 ulp of
-    ``torch.exp``; -inf gives 0). Its gradient is ``g * exp_f32(x)``."""
-    return _Exp.apply(x)
 
 
 def _chunked(t: torch.Tensor, nc: int, q: int) -> torch.Tensor:
@@ -184,6 +140,95 @@ def ssd_grads_plain(x, dt, A, Bm, Cm, dy, chunk: int,
             outs.append(final)
             cots.append(dfinal.to(F32))
         return torch.autograd.grad(outs, leaves, cots)
+
+
+HEAD_GROUP = 8     # heads per owner of the dB / dC sums: csrc/ssd_scan.cu HG
+
+
+def ssd_bwd_phased_plain(x, dt, A, Bm, Cm, states, dy,
+                         dfinal: Optional[torch.Tensor], chunk: int):
+    """(dx, ddt, dA, dB, dC), each in its input's dtype — the gradient of
+    ``ssd_fwd_plain`` from its chunk-start ``states`` [B,H,nc,P,N], as the
+    CUDA backward decomposes it. Per chunk c, with cum the in-chunk
+    cumsum of dt * A, e_i = exp(cum_i), g_c = exp(cum_{q-1}),
+    e'_j = exp(cum_{q-1} - cum_j) and dS_c the gradient of the chunk's
+    end state:
+
+    0. G = C . B^T once per (batch, chunk): no head axis;
+    1. W_c = sum_i e_i dy_i C_i^T per (batch, chunk, head), chunk by
+       chunk independently;
+    2. dS_{c-1} = g_c dS_c + W_c, dS_{nc-1} = dfinal: a reverse pass per
+       (batch, head) over [P, N] tiles;
+    3. every gradient of chunk c from dS_c and the chunk's start state:
+       per head dx, ddt and the head's share of dA; per owner of
+       ``HEAD_GROUP`` heads (the last group ragged) the sums over its
+       heads of the in-chunk term dG = (dy . x^T) dt_j L (L the masked
+       decay), the inter-chunk term of dC and the state term of dB,
+       which give that group's dB and dC; the groups' shares summed in
+       group order.
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    q, nc = _num_chunks(S, chunk)
+    xf, dtf, dyf = _chunked(x, nc, q), _chunked(dt, nc, q), _chunked(dy, nc, q)
+    Bf, Cf = _chunked(Bm, nc, q), _chunked(Cm, nc, q)
+    Af = A.to(F32)
+    S0 = states.to(F32).permute(0, 2, 1, 3, 4)               # [B,nc,H,P,N]
+    cum = torch.cumsum(dtf * Af, dim=2)                      # [B,nc,q,H]
+    e_in = exp_f32(cum)
+    e_out = exp_f32(cum[:, :, -1:] - cum)
+    g = exp_f32(cum[:, :, -1])                               # [B,nc,H]
+
+    # phase 0
+    G = torch.einsum("bcin,bcjn->bcij", Cf, Bf)              # [B,nc,q,q]
+    # phase 1
+    W = torch.einsum("bcih,bcihp,bcin->bchpn", e_in, dyf, Cf)
+    # phase 2
+    dS = torch.empty_like(W)
+    carry = torch.zeros_like(W[:, 0]) if dfinal is None else dfinal.to(F32)
+    for c in reversed(range(nc)):
+        dS[:, c] = carry
+        carry = g[:, c, :, None, None] * carry + W[:, c]
+    # phase 3, per head
+    causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    seg = cum.permute(0, 1, 3, 2)                            # [B,nc,H,q]
+    L = exp_f32((seg[..., :, None] - seg[..., None, :])
+                .masked_fill(~causal, float("-inf")))        # [B,nc,H,i,j]
+    M = torch.einsum("bcihp,bcjhp->bchij", dyf, xf)
+    dG = M * dtf.permute(0, 1, 3, 2)[:, :, :, None, :] * L
+    GL = G[:, :, None] * L
+    dS_B = torch.einsum("bcjn,bchpn->bcjhp", Bf, dS)
+    dxdt = torch.einsum("bchij,bcihp->bcjhp", GL, dyf) \
+        + e_out[..., None] * dS_B
+    GdG = G[:, :, None] * dG
+    dcum = (GdG.sum(-1) - GdG.sum(-2)).permute(0, 1, 3, 2)   # [B,nc,q,H]
+    S0_C = torch.einsum("bcin,bchpn->bcihp", Cf, S0)
+    dcum = dcum + e_in * (dyf * S0_C).sum(-1)
+    u = e_out * (xf * dtf[..., None] * dS_B).sum(-1)
+    dcum = dcum - u
+    dcum[:, :, -1] += u.sum(2) + g * (S0 * dS).sum((-1, -2))
+    run = dcum.flip(2).cumsum(2).flip(2)
+    dx = (dxdt * dtf[..., None]).reshape(Bsz, S, H, P)
+    ddt = (run * Af + (dxdt * xf).sum(-1)).reshape(Bsz, S, H)
+    dA = (run * dtf).sum((0, 1, 2))
+    # phase 3, per head group: the sums over heads, in a fixed order
+    dB = torch.zeros((Bsz, nc, q, N), dtype=F32, device=x.device)
+    dC = torch.zeros_like(dB)
+    for h0 in range(0, H, HEAD_GROUP):
+        hs = range(h0, min(h0 + HEAD_GROUP, H))
+        dGs = dG[:, :, h0]
+        for h in hs[1:]:
+            dGs = dGs + dG[:, :, h]
+        hsl = slice(h0, hs[-1] + 1)
+        dC_g = torch.einsum("bcij,bcjn->bcin", dGs, Bf) + torch.einsum(
+            "bcih,bcihp,bchpn->bcin", e_in[..., hsl], dyf[..., hsl, :],
+            S0[:, :, hsl])
+        dB_g = torch.einsum("bcij,bcin->bcjn", dGs, Cf) + torch.einsum(
+            "bcjh,bcjhp,bchpn->bcjn", e_out[..., hsl],
+            (xf * dtf[..., None])[..., hsl, :], dS[:, :, hsl])
+        dB, dC = dB + dB_g, dC + dC_g
+    return (dx.to(x.dtype), ddt, dA, dB.reshape(Bsz, S, N).to(Bm.dtype),
+            dC.reshape(Bsz, S, N).to(Cm.dtype))
 
 
 def model_dt_A(B: int, S: int, H: int, generator: torch.Generator,

@@ -10,7 +10,9 @@ dense/chunked attention below.
 
 The arithmetic follows the JAX functions step for step (float32 norms,
 RoPE and softmax; ``-1e30`` instead of ``-inf`` for masked scores), so
-the two packages agree to float rounding. One deliberate difference:
+the two packages agree to float rounding. The softmax's exponential is
+``numerics.exp_stable``: on the CPU its bits depend on the values alone
+(ROADMAP C18), on the card it is ``torch.exp``. One deliberate difference:
 the JAX package updates the KV cache functionally (``.at[].set``); here
 the cache tensors are written in place (``index_put_`` / ``copy_``),
 which keeps one cache allocation alive instead of two. A snapshot of the
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.numerics import exp_stable
 from repro_torch.models.params import P
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
@@ -157,8 +160,8 @@ def chunked_attention(
         valid = _mask(q_pos, pc, causal, window)
         s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
+        p = exp_stable(s - m_new[..., None])
+        corr = exp_stable(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bqkgc,bckd->bqkgd",
                                                    p, vc)
@@ -182,7 +185,7 @@ def dense_attention(
     valid = _mask(q_pos, kv_pos, causal, window)
     s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
+    p = exp_stable(s - m)
     out = torch.einsum("bqkgc,bckd->bqkgd", p, v.float())
     out = out / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
     return out.to(q.dtype)

@@ -66,6 +66,29 @@ def test_kernels_match_plain(cuda_device, n_bytes):
     ops.reset_counts()
 
 
+# the XOR kernel's cases: the delta codec's 4 MiB view, a size that is no
+# multiple of the unroll (8 words of 16 bytes a thread), and views 1 and 3
+# bytes off the 16-byte alignment (the byte path), each as (bytes, offset
+# of a, offset of b)
+XOR_CASES = [(4 << 20, 0, 0), ((4 << 20) + 16 * 8 * 3 + 37, 0, 0),
+             (4 << 20, 1, 1), (4 << 20, 3, 3), ((4 << 20) + 5, 1, 3)]
+
+
+@pytest.mark.parametrize("case", XOR_CASES)
+def test_xor_kernel_is_bit_exact(cuda_device, case):
+    n, oa, ob = case
+    g = torch.Generator(device=cuda_device).manual_seed(n + oa + ob)
+    a = torch.randint(0, 256, (n + oa,), dtype=torch.uint8,
+                      device=cuda_device, generator=g)[oa:]
+    b = torch.randint(0, 256, (n + ob,), dtype=torch.uint8,
+                      device=cuda_device, generator=g)[ob:]
+    ops.reset_counts()
+    got = ops.xor_blocks(a, b)
+    assert ops.counts("cuda")["xor"] == 1
+    assert torch.equal(got, ops.xor_plain(a, b))
+    ops.reset_counts()
+
+
 def _codec_input(case, device):
     """Inputs of the int8 codec kernels: a ragged size (numel and nb not
     multiples of any tile), zero blocks, exact ties at scale 1.0, values
@@ -422,6 +445,8 @@ SSD_CASES = [   # B, S, H, P, N, chunk, dtype, init_state
     (1, 300, 2, 64, 128, 300, torch.float32, True),    # ragged, chunk = S
     (2, 100, 3, 16, 16, 100, torch.float32, True),     # smoke dims
     (1, 192, 2, 8, 8, 64, torch.bfloat16, False),      # matrix dims
+    # 8 chunks, and 10 heads: no multiple of the backward's head group (8)
+    (1, 2048, 10, 64, 128, 256, torch.bfloat16, True),
 ]
 
 
@@ -481,6 +506,22 @@ def test_ssd_kernels_are_deterministic(cuda_device):
                                               256)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+def test_ssd_backward_is_deterministic_at_the_training_shape(cuda_device):
+    """mamba2-780m's training shape (x [8,4096,48,64], B/C [8,4096,128]
+    bf16, chunk 256): three ``ssd_bwd`` calls give the same bits — the
+    head-group and (batch, chunk) partials are summed in a fixed order,
+    with no atomics."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    x, dt, A, Bm, Cm, _, dy, _ = _ssd_inputs(cuda_device, 8, 4096, 48, 64,
+                                             128, torch.bfloat16, False)
+    _, _, st = ssd.ssd_fwd(x, dt, A, Bm, Cm, 256)
+    first = ssd.ssd_bwd(x, dt, A, Bm, Cm, st, dy, None, 256)
+    for _ in range(2):
+        again = ssd.ssd_bwd(x, dt, A, Bm, Cm, st, dy, None, 256)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
