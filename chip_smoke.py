@@ -30,12 +30,16 @@ Phases, each reported on its own line:
    shape with an initial state, with limits set from the plain version's
    own spread between two chunk lengths, its time, its bound and the
    plain version's time (no single PyTorch call computes an SSD scan),
-   and the backward the same bits over three calls at the training shape;
+   the forward and the backward each the same bits over three calls at
+   the training shape, and each launch's device time (the forward's four
+   kernels, the backward's six) from torch.profiler;
    then the RG-LRU kernel against its plain version at the prefill shape
    (x, r, i ``[2, 32768, 4096]`` f32 drawn as a fresh block makes them,
    ``rg_lru/ref.model_inputs``) from a zero and from a random state, and
    at a ragged shape with a state, every element within 1e-4 * (|plain|
-   + rms(plain)), with its time, its bound and the plain version's time;
+   + rms(plain)), with its time, its bound, this design's own floor (x,
+   r, i read twice), the plain version's time and each of its three
+   launches' device time;
 5. the serving path: phi4-mini-3.8b at full width and depth (bf16
    params from seeded ``torch.Generator``s) serves 6 requests on 4
    slots under a ``CheckpointSession`` with chained snapshots, is
@@ -622,12 +626,21 @@ def check_ssd(torch, ssd, R):
         if label != "training":
             continue
         for _ in range(2):
+            again = ssd.ssd_fwd(x, dt, A, Bm, Cm, q, s0)
+            if not all(torch.equal(a, b) for a, b in zip((y, fin, states),
+                                                         again)):
+                raise AssertionError("ssd_fwd gave other bits on a repeated "
+                                     "call at the training shape")
             again = ssd.ssd_bwd(x, dt, A, Bm, Cm, states, dy, None, q)
             if not all(torch.equal(a, b) for a, b in zip(grads, again)):
                 raise AssertionError("ssd_bwd gave other bits on a repeated "
                                      "call at the training shape")
         del again
-        log("kernel ssd (training): ssd_bwd the same bits over 3 calls")
+        log("kernel ssd (training): ssd_fwd and ssd_bwd each the same bits "
+            "over 3 calls")
+        log_phases(torch, "ssd_fwd", lambda: ssd.ssd_fwd(x, dt, A, Bm, Cm, q))
+        log_phases(torch, "ssd_bwd", lambda: ssd.ssd_bwd(
+            x, dt, A, Bm, Cm, states, dy, None, q))
         work = ssd_work(B, S, H, P, N, q, x.element_size())
         calls = {
             "ssd_fwd": (lambda: ssd.ssd_fwd(x, dt, A, Bm, Cm, q),
@@ -721,10 +734,14 @@ def check_rglru(torch, rg, R, within):
                plain_ms=time_ms(lambda: R.rg_lru_plain(x, r, i, lam), 2,
                                 flush),
                bound_ms=b, bound_by=o, library_ms=None)
+    # the three-phase design reads x, r, i twice: 28 bytes an element
+    floor = 28 * n / HBM_BYTES_PER_S * 1e3
     log(f"timing rg_lru_fwd: {out['ms']:.4f} ms (bound {b:.4f} ms by {o}: "
-        f"{nbytes / 1e9:.3f} GB, {ops_n / 1e9:.1f} GFLOP), plain "
+        f"{nbytes / 1e9:.3f} GB, {ops_n / 1e9:.1f} GFLOP; this design's "
+        f"floor {floor:.4f} ms, 28 bytes an element), plain "
         f"{out['plain_ms']:.4f} ms, library none (no single PyTorch call "
         "computes this recurrence)")
+    log_phases(torch, "rg_lru_fwd", lambda: rg.rg_lru_fwd(x, r, i, lam))
     del big, ragged, slow, x, r, i, lam, l2
     torch.cuda.empty_cache()
     return {"rg_lru_fwd": out}
@@ -1056,6 +1073,29 @@ def profile_call(torch, fn, n_top=6):
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
     return out, wall, dev, len(kernels), top
+
+
+def log_phases(torch, label, fn, calls=3):
+    """Log the device time of each kernel that ``fn`` (a wrapper that
+    launches several) launches: its mean over its launches in ``calls``
+    calls under torch.profiler, after one call outside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = per.get(_kernel_name(e.name), (0.0, 0))
+            per[_kernel_name(e.name)] = (ms + e.time_range.elapsed_us() / 1e3,
+                                         n + 1)
+    log(f"phases {label} ({calls} calls): " + "; ".join(
+        f"{name} {ms / n:.4f} ms ({n} launches)"
+        for name, (ms, n) in sorted(per.items(), key=lambda kv: -kv[1][0])))
 
 
 def prefill_vs_replay(torch, M, ServingEngine, rg, cfg, params, prompts):

@@ -1,5 +1,5 @@
-// The Mamba-2 SSD chunked scan for Hopper (sm_90a): the forward, and its
-// gradient as six backward kernels.
+// The Mamba-2 SSD chunked scan for Hopper (sm_90a): the forward as four
+// kernels and its gradient as six, chunk-parallel on the tensor cores.
 //
 // Replaces:
 //   ssd_fwd <- repro/kernels/ssd_scan/kernel.py ssd_scan_fwd (body
@@ -8,8 +8,9 @@
 //   ssd_bwd <- no Pallas kernel: the JAX package differentiates the jnp
 //              ssd_chunked with jax.grad; this is that gradient
 // The plain PyTorch versions are in repro_torch/kernels/ssd_scan/ref.py
-// (ssd_fwd_plain; ssd_grads_plain, autograd through it, for the backward;
-// ssd_bwd_phased_plain, the backward's three phases in plain tensors).
+// (ssd_fwd_plain, and ssd_fwd_phased_plain, the forward's four phases in
+// plain tensors; ssd_grads_plain, autograd through ssd_fwd_plain, for the
+// backward, and ssd_bwd_phased_plain, the backward's three phases).
 //
 // Layouts, all contiguous: x [B, S, H, P] and Bm, Cm [B, S, N] in T
 // (float or bfloat16); dt [B, S, H], A [H], states [B, H, nc, P, N] and
@@ -29,36 +30,51 @@
 // included) — ~150 operations per byte, below the H100's balance point
 // for bf16, so the bytes bound it; the backward likewise.
 //
-// The forward does its products in f32 on the CUDA cores (67 TFLOP/s):
-// one block of 256 threads per (batch, head) walks the chunks in order
-// and carries the [P, N] state in shared memory (the Pallas grid's
-// sequential chunk axis becomes the loop; batch x heads = 384 blocks). A
-// chunk is cut into 64-row tiles; each thread owns a 4 x 4 piece of a
-// 64 x 64 tile. Tensor cores and C.B^T shared across heads are B15's.
+// Both directions are chunk-parallel, because given the state at a chunk's
+// start (forward) or the gradient of its end state (backward) every output of
+// the chunk is local to it, and those states follow a short linear recurrence
+// over chunks. The forward: C.B^T once per (batch, chunk) tile pair (no head
+// axis: every head reads it); per (batch, chunk, head) the chunk's cum and its
+// end state from a zero start, dS_c = sum_j exp(cum_Q - cum_j) xdt_j B_j^T; the
+// pass per (batch, head) over [P, N] tiles, S_{c+1} = exp(cum_Q,c) S_c + dS_c,
+// which turns dS into the chunk-start states in place; then y per (batch,
+// chunk, head). That is 6,144 blocks at the training shape where one block per
+// (batch, head) walking the chunks on the CUDA cores gave 384 (the first
+// version, 11.4 ms on an H100; it also redid C.B^T for every head and summed
+// each chunk's cum on one thread). In the output kernel, building M = G
+// exp(cum_i - cum_j) dt_j for the MMAs first cost more than the MMAs: G^T read
+// four bytes at a time from its scores and an exponential per element sat on
+// the path of every tile pair, behind 2 blocks an SM (PERF.md §6). So G^T tiles
+// come through shared memory in 16-byte loads, and below the diagonal the decay
+// factors through the last token of the column tile (see the kernel). What
+// stays above the bound: the f32 operands' extra bf16 terms (~250 GFLOP of MMAs
+// issued for the 129 counted), x and the states read a second time, and 4-warp
+// blocks at ~200 registers whose loads wait behind a barrier per tile.
 //
-// The backward is chunk-parallel. The gradient of chunk c's end state
-// follows dS_{c-1} = exp(cum_Q,c) dS_c + W_c with W_c = sum_i exp(cum_i)
-// dy_i C_i^T, and given dS_c and the saved start state every gradient of
-// chunk c is local to it. So: W_c per (batch, chunk, head), then the
-// short reverse pass per (batch, head) over [P, N] tiles, then the chunk
-// gradients — 6,144 blocks at the training shape where one block per
-// (batch, head) walking the chunks gave 384. C.B^T has no head axis and
-// is computed once per (batch, chunk) tile pair. The chunk gradients are
-// three kernels because their sums nest the other way round: dx and ddt
-// sum over the tokens that read a token (a loop over column tiles inside
-// one head), dB and dC also sum over the heads (a loop over heads inside
-// one tile pair, whose head sum then meets B or C once per group of 8
-// heads); the inter-chunk terms, which read the start state but no other
-// chunk gradient, are a third kernel per head group that runs first.
+// The backward: the gradient of chunk c's end state follows dS_{c-1} =
+// exp(cum_Q,c) dS_c + W_c with W_c = sum_i exp(cum_i) dy_i C_i^T, and
+// given dS_c and the saved start state every gradient of chunk c is
+// local to it. So: W_c per (batch, chunk, head), then the short reverse
+// pass per (batch, head), then the chunk gradients. The chunk gradients
+// are three kernels because their sums nest the other way round: dx and
+// ddt sum over the tokens that read a token (a loop over column tiles
+// inside one head), dB and dC also sum over the heads (a loop over heads
+// inside one tile pair, whose head sum then meets B or C once per group
+// of 8 heads); the inter-chunk terms, which read the start state but no
+// other chunk gradient, are a third kernel per head group that runs
+// first.
+//
 // All products run on the tensor cores (see below). No atomics: every sum
 // has one owner and a fixed order, and the head-group partials of dB and
 // dC ([B, ceil(H/8), S, N]) and the (batch, chunk) partials of dA are
-// summed in a fixed order by the wrapper, so a training step is the same
-// bits on every run.
+// summed in a fixed order by the wrapper, so a call gives the same bits
+// on every run.
 //
-// Numerics: the in-chunk cumsum is accumulated in double and rounded to
-// f32 once per token; exp is taken only on and below the diagonal (above
-// it exp(cum_i - cum_j) overflows to inf and inf * 0 would be NaN).
+// Numerics: the in-chunk cumsum is accumulated in double, each of 128
+// threads a run of consecutive tokens added to the runs before it by a
+// fixed scan, and rounded to f32 once per token; exp is taken only on
+// and below the diagonal (above it exp(cum_i - cum_j) overflows to inf
+// and inf * 0 would be NaN).
 //
 // Every entry point launches on the caller's stream, allocates nothing,
 // does not synchronise, and returns cudaGetLastError() right after its
@@ -72,14 +88,9 @@
 
 namespace {
 
-constexpr int TQ = 64;            // rows of a sub-tile of a chunk
-constexpr int NT = 256;           // threads: 16 x 16
 constexpr int MAXP = 64;          // head dim the kernels take
 constexpr int MAXN = 128;         // state dim
 constexpr int MAXQ = 1024;        // chunk length
-constexpr int LDN = MAXN + 1;     // f32 row of a [., N] tile
-constexpr int LDP = MAXP + 1;     // f32 row of a [., P] tile
-constexpr int LDT = TQ + 1;       // f32 row of a [TQ, TQ] tile
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -98,236 +109,16 @@ struct Dims {
   int B, S, H, P, N, Q;
 };
 
-// rows [r0, r0 + TQ) of a [B, S, ...] tensor (row stride `stride`, `w`
-// values per row starting at `base`) into the first `width` columns of a
-// [TQ][ld] f32 tile; rows past `rows` and columns past `w` load as 0, so
-// every column a product reads (up to MAXP / MAXN) is defined
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* base,
-                                          long stride, int r0, int rows,
-                                          int w, int width) {
-  for (int i = threadIdx.x; i < TQ * width; i += NT) {
-    const int r = i / width, c = i % width;
-    float v = 0.f;
-    if (r0 + r < rows && c < w) v = to_f(base[(long)(r0 + r) * stride + c]);
-    dst[r * ld + c] = v;
-  }
-}
-
-// the chunk's dt into sdt[0, Q) and cum = cumsum(dt * A) into scum[0, Q),
-// accumulated in double by one thread
-__device__ __forceinline__ void chunk_cum(float* sdt, float* scum,
-                                          const float* dt, float A,
-                                          const Dims& d, int b, int h,
-                                          int t0) {
-  for (int i = threadIdx.x; i < d.Q; i += NT)
-    sdt[i] = dt[((long)b * d.S + t0 + i) * d.H + h];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double acc = 0.0;
-    for (int i = 0; i < d.Q; ++i) {
-      acc += (double)(sdt[i] * A);
-      scum[i] = (float)acc;
-    }
-  }
-  __syncthreads();
-}
-
-// sum of v over the 16 threads of a half warp (same ty), in a fixed order
-__device__ __forceinline__ float half_warp_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT, 1)
-ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-               const float* __restrict__ Av, const T* __restrict__ Bm,
-               const T* __restrict__ Cm, const float* __restrict__ init,
-               float* __restrict__ y, float* __restrict__ final_state,
-               float* __restrict__ states, Dims d) {
-  extern __shared__ __align__(16) float smem[];
-  float* sS = smem;                      // [MAXP][LDN] the carried state
-  float* sC = sS + MAXP * LDN;           // [TQ][LDN]
-  float* sB = sC + TQ * LDN;             // [TQ][LDN]
-  float* sX = sB + TQ * LDN;             // [TQ][LDP] x * dt (* decay)
-  float* sPt = sX + TQ * LDP;            // [TQ][LDT] scores * decay
-  float* sdt = sPt + TQ * LDT;           // [Q]
-  float* scum = sdt + d.Q;               // [Q]
-
-  const int b = blockIdx.x / d.H, h = blockIdx.x % d.H;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int P = d.P, N = d.N, Q = d.Q;
-  const float A = Av[h];
-  const long PN = (long)P * N;
-  const long bh = (long)b * d.H + h;
-  const int nc = d.S / Q, nt = (Q + TQ - 1) / TQ;
-  const long xs = (long)d.H * P;          // row stride of x and y
-
-  for (int i = threadIdx.x; i < MAXP * LDN; i += NT) {
-    const int p = i / LDN, n = i % LDN;
-    sS[i] = (init != nullptr && p < P && n < N) ? init[bh * PN + p * N + n]
-                                               : 0.f;
-  }
-
-  for (int c = 0; c < nc; ++c) {
-    const int t0 = c * Q;
-    chunk_cum(sdt, scum, dt, A, d, b, h, t0);   // syncs: sS is written
-    if (states != nullptr) {
-      float* dst = states + (bh * nc + c) * PN;
-      for (int i = threadIdx.x; i < P * N; i += NT)
-        dst[i] = sS[(i / N) * LDN + i % N];
-    }
-    const T* xb = x + ((long)b * d.S + t0) * xs + (long)h * P;
-    const T* Bb = Bm + ((long)b * d.S + t0) * N;
-    const T* Cb = Cm + ((long)b * d.S + t0) * N;
-
-    for (int it = 0; it < nt; ++it) {
-      const int r0 = it * TQ;
-      load_tile(sC, LDN, Cb, N, r0, Q, N, MAXN);
-      __syncthreads();
-      float acc[4][4];
-      // inter-chunk: exp(cum_t) * sum_n C_t[n] S0[p][n]
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[a][q] = 0.f;
-      for (int n = 0; n < N; ++n) {
-        float cr[4], sp[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) cr[a] = sC[(ty + 16 * a) * LDN + n];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) sp[q] = sS[(tx + 16 * q) * LDN + n];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[a][q] += cr[a] * sp[q];
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int t = r0 + ty + 16 * a;
-        const float e = t < Q ? expf(scum[t]) : 0.f;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[a][q] *= e;
-      }
-      // intra-chunk: the causal tiles jt <= it
-      for (int jt = 0; jt <= it; ++jt) {
-        const int j0 = jt * TQ;
-        load_tile(sB, LDN, Bb, N, j0, Q, N, MAXN);
-        for (int i = threadIdx.x; i < TQ * MAXP; i += NT) {
-          const int r = i / MAXP, p = i % MAXP;
-          const int t = j0 + r;
-          sX[r * LDP + p] =
-              (t < Q && p < P) ? to_f(xb[(long)t * xs + p]) * sdt[t] : 0.f;
-        }
-        __syncthreads();
-        float s[4][4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) s[a][q] = 0.f;
-        for (int n = 0; n < N; ++n) {
-          float cr[4], br[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) cr[a] = sC[(ty + 16 * a) * LDN + n];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) br[q] = sB[(tx + 16 * q) * LDN + n];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) s[a][q] += cr[a] * br[q];
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int ti = r0 + ty + 16 * a;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int tj = j0 + tx + 16 * q;
-            const float e =
-                (tj <= ti && ti < Q) ? expf(scum[ti] - scum[tj]) : 0.f;
-            sPt[(ty + 16 * a) * LDT + tx + 16 * q] = s[a][q] * e;
-          }
-        }
-        __syncthreads();
-        for (int k = 0; k < TQ; ++k) {
-          float pr[4], xv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) pr[a] = sPt[(ty + 16 * a) * LDT + k];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) xv[q] = sX[k * LDP + tx + 16 * q];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int q = 0; q < 4; ++q) acc[a][q] += pr[a] * xv[q];
-        }
-        __syncthreads();
-      }
-      float* yb = y + ((long)b * d.S + t0) * xs + (long)h * P;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int t = r0 + ty + 16 * a;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = tx + 16 * q;
-          if (t < Q && p < P) yb[(long)t * xs + p] = acc[a][q];
-        }
-      }
-    }
-
-    // state update: S = exp(cum_Q) S + sum_t exp(cum_Q - cum_t) xdt_t B_t^T
-    // thread owns p = ty + 16a, n = tx + 16q
-    const float clast = scum[Q - 1];
-    float st[4][8];
-    const float g = expf(clast);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        st[a][q] = sS[(ty + 16 * a) * LDN + tx + 16 * q] * g;
-    for (int jt = 0; jt < nt; ++jt) {
-      const int j0 = jt * TQ;
-      load_tile(sB, LDN, Bb, N, j0, Q, N, MAXN);
-      for (int i = threadIdx.x; i < TQ * MAXP; i += NT) {
-        const int r = i / MAXP, p = i % MAXP;
-        const int t = j0 + r;
-        sX[r * LDP + p] = (t < Q && p < P) ? to_f(xb[(long)t * xs + p]) *
-                                                 sdt[t] * expf(clast - scum[t])
-                                           : 0.f;
-      }
-      __syncthreads();
-      for (int k = 0; k < TQ; ++k) {
-        float xv[4], bv[8];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) xv[a] = sX[k * LDP + ty + 16 * a];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) bv[q] = sB[k * LDN + tx + 16 * q];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int q = 0; q < 8; ++q) st[a][q] += xv[a] * bv[q];
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int p = ty + 16 * a, n = tx + 16 * q;
-        sS[p * LDN + n] = (p < P && n < N) ? st[a][q] : 0.f;
-      }
-    // the next chunk's chunk_cum syncs before sS is read
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < P * N; i += NT)
-    final_state[bh * PN + i] = sS[(i / N) * LDN + i % N];
-}
-
 // =========================================================================
-// the backward on the tensor cores
+// the tensor-core machinery
 // =========================================================================
 //
-// Six kernels, launched in order on one stream (see the header):
-//   scores (G^T = B C^T per (batch, chunk) tile pair, into gt),
+// The forward is four kernels and the backward six, each launched in
+// order on one stream (see launch_fwd, launch_bwd):
+//   scores (G^T = B C^T per (batch, chunk) tile pair, into gt; both),
+//   fwd state (the chunk's cum into `cum`, its end state from a zero
+//           start into `states`), fwd pass (states -> chunk-start states
+//           in place, and final), fwd out (y);
 //   w      (the chunk's cum into `cum`, W_c = sum_i e_i dy_i C_i^T into w),
 //   pass   (w -> dS in place: the reverse recurrence over chunks),
 //   inter  (per (batch, chunk, head group): the inter-chunk terms, of dC
@@ -348,9 +139,11 @@ ssd_fwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 // terms (2^-17 a product) were measured on this card to move dx and dC
 // of a small bf16 case past their limits, where one bf16 rounding of
 // the output decides: the limits hold the kernel to the plain version's
-// f32 within 4x its own reblocking spread. Each chain of MMAs covers 64
-// of K from zero accumulators and is folded in with f32 adds (the tensor
-// cores' own accumulation drifts over long chains).
+// f32 within 4x its own reblocking spread. Per-token factors (exp(cum),
+// dt) scale a chain's rows or the f32 operand, so x, B and C stay exact
+// bf16 operands. Each chain of MMAs covers 64 of K from zero
+// accumulators and is folded in with f32 adds (the tensor cores' own
+// accumulation drifts over long chains).
 
 using bf16 = __nv_bfloat16;
 
@@ -358,6 +151,7 @@ constexpr int MT = 128;          // threads of a tensor-core block: 4 warps
 constexpr int BT = 64;           // rows of a tile; each warp owns 16
 constexpr int LDK = MAXP + 8;    // bf16 row of a [., 64] tile (P or tokens)
 constexpr int LDW = MAXN + 8;    // bf16 row of a [., 128] tile (N)
+constexpr int LDG = BT + 4;      // f32 row of a [64, 64] tile of G^T
 constexpr int HG = 8;            // heads per owner of the dB / dC sums
 constexpr int PASS_NT = 256;     // threads of the reverse state pass
 constexpr int PASS_BATCH = 8;    // chunks whose W a pass thread loads at once
@@ -486,6 +280,13 @@ __device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile,
   ldsm_x4(a, tile + (r0 + (lane % 16)) * ld + c0 + (lane / 16) * 8);
 }
 
+// the same from a tile stored transposed, [c][r]
+__device__ __forceinline__ void ld_a_t(uint32_t (&a)[4], const bf16* tile,
+                                       int ld, int r0, int c0, int lane) {
+  ldsm_x4_t(a, tile + (c0 + (lane / 16) * 8 + (lane % 8)) * ld + r0 +
+                   ((lane / 8) % 2) * 8);
+}
+
 // B fragments of two n8 blocks n0..n0+15 at k0..k0+15 (b[0], b[1] for
 // n0..n0+7, b[2], b[3] for n0+8..n0+15): NK, the tile is [n][k]
 // (B = T^T); otherwise it is [k][n] (B = T); row-major either way
@@ -567,15 +368,22 @@ __device__ __forceinline__ void put2(const Planes& dst, int o, int ld,
 // rows [r0, r0 + 64) and columns [0, W) of a row-major source (row stride
 // rs; rows at or past `rows` and columns at or past `w` are zeros) ->
 // NP planes with row stride ld, or with TRANS the transpose (element
-// (r, c) at [c][r]). SCALE multiplies row t = r0 + r by exp(cum[t]).
+// (r, c) at [c][r]). SCALE multiplies row t = r0 + r by exp(f[t])
+// (SCALE_EXP) or by f[t] (SCALE_BY).
 // Where the rows are whole 16-byte vectors, each thread issues its loads
 // four at a time before it converts any, so that they are in flight
 // together.
-template <int W, bool TRANS, int NP, bool SCALE, typename T>
+enum Scale { SCALE_NONE, SCALE_EXP, SCALE_BY };
+
+__device__ __forceinline__ float row_scale(int mode, const float* f, int t) {
+  return mode == SCALE_EXP ? expf(f[t]) : mode == SCALE_BY ? f[t] : 1.f;
+}
+
+template <int W, bool TRANS, int NP, int SCALE, typename T>
 __device__ __forceinline__ void load_planes(const Planes& dst, int ld,
                                             const T* __restrict__ src,
                                             long rs, int r0, int rows, int w,
-                                            const float* cum = nullptr) {
+                                            const float* f = nullptr) {
   constexpr int VEC = Elem<T>::vec, VPR = W / VEC;
   constexpr int NV = BT * VPR / MT;   // vectors per thread
   const bool vec_ok = w % VEC == 0 && rs % VEC == 0 &&
@@ -599,11 +407,11 @@ __device__ __forceinline__ void load_planes(const Planes& dst, int ld,
         const int c = (idx - r * VPR) * VEC, t = r0 + r;
         float v[VEC];
         unpack(buf[k], v);
-        const float f = SCALE && t < rows ? expf(cum[t]) : 1.f;
+        const float sc = t < rows ? row_scale(SCALE, f, t) : 1.f;
 #pragma unroll
         for (int e = 0; e < VEC; e += 2)
           put2<NP, TRANS>(dst, TRANS ? (c + e) * ld + r : r * ld + c + e, ld,
-                          v[e] * f, v[e + 1] * f);
+                          v[e] * sc, v[e + 1] * sc);
       }
     }
     return;
@@ -614,9 +422,9 @@ __device__ __forceinline__ void load_planes(const Planes& dst, int ld,
     float v0 = 0.f, v1 = 0.f;
     if (t < rows) {
       const T* row = src + t * rs;
-      const float f = SCALE ? expf(cum[t]) : 1.f;
-      if (c < w) v0 = to_f(row[c]) * f;
-      if (c + 1 < w) v1 = to_f(row[c + 1]) * f;
+      const float sc = row_scale(SCALE, f, t);
+      if (c < w) v0 = to_f(row[c]) * sc;
+      if (c + 1 < w) v1 = to_f(row[c + 1]) * sc;
     }
     put2<NP, TRANS>(dst, TRANS ? c * ld + r : r * ld + c, ld, v0, v1);
   }
@@ -631,12 +439,13 @@ __device__ __forceinline__ void zero(float (&a)[NB][4]) {
 }
 
 // acc[NB][4] += A.B for the warp's 16 rows a0.. of A (NA planes,
-// row-major [m][k], K = KT) and B (NBP planes; BNK: [n][k], else
-// [k][n]); each 64 of K is one chain of MMAs per n8 block from zero,
+// row-major [m][k], or with AKM [k][m]; K = KT) and B (NBP planes; BNK:
+// [n][k], else [k][n]); each 64 of K is one chain of MMAs per n8 block
+// from zero,
 // folded into acc with f32 adds, rows g scaled by s0 and rows g + 8 by
 // s1. The k16 steps are the outer loop, so the NB chains are independent
 // MMAs in flight together.
-template <int NB, int KT, int NA, int NBP, bool BNK>
+template <int NB, int KT, int NA, int NBP, bool BNK, bool AKM = false>
 __device__ __forceinline__ void warp_mma(float (&acc)[NB][4], const Planes& A,
                                          int lda, int a0, const Planes& Bp,
                                          int ldb, int lane, float s0 = 1.f,
@@ -649,8 +458,12 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NB][4], const Planes& A,
     for (int kt = 0; kt < 4; ++kt) {
       uint32_t a[3][4];
 #pragma unroll
-      for (int k = 0; k < NA; ++k)
-        ld_a(a[k], A.p[k], lda, a0, k0 + 16 * kt, lane);
+      for (int k = 0; k < NA; ++k) {
+        if (AKM)
+          ld_a_t(a[k], A.p[k], lda, a0, k0 + 16 * kt, lane);
+        else
+          ld_a(a[k], A.p[k], lda, a0, k0 + 16 * kt, lane);
+      }
 #pragma unroll
       for (int np = 0; np < NB / 2; np += 2) {
         uint32_t f[4][3][2];
@@ -675,7 +488,8 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NB][4], const Planes& A,
 
 // acc[NB][4] += A.B for A the warp's 16 x 64 f32 accumulator tile a[8][4]
 // (three bf16 terms) and B columns b0.. of NBP planes [k][n], K = 64: one
-// chain per n8 block, folded into acc with an f32 add. KOUTER steps over
+// chain per n8 block, folded into acc with an f32 add (with KOUTER, rows
+// g scaled by s0 and rows g + 8 by s1). KOUTER steps over
 // k first, so that the NB chains are in flight together and only one
 // step's A fragments are live (for a narrow acc); otherwise the n8 blocks
 // go first with every A fragment split once (for a wide acc).
@@ -683,7 +497,8 @@ template <int NB, int NBP, bool KOUTER>
 __device__ __forceinline__ void warp_mma_regs(float (&acc)[NB][4],
                                               const float (&a)[8][4],
                                               const Planes& Bp, int ldb,
-                                              int b0, int lane) {
+                                              int b0, int lane,
+                                              float s0 = 1.f, float s1 = 1.f) {
   // the B fragments of n8 blocks b0 + 8 (2 np) .. + 31 at k step kt
   auto frags = [&](int np, int kt, uint32_t (&f)[4][3][2]) {
 #pragma unroll
@@ -713,7 +528,7 @@ __device__ __forceinline__ void warp_mma_regs(float (&acc)[NB][4],
       }
     }
 #pragma unroll
-    for (int n = 0; n < NB; ++n) add_to(acc[n], t[n]);
+    for (int n = 0; n < NB; ++n) add_to(acc[n], t[n], s0, s1);
     return;
   }
   uint32_t af[4][3][4];
@@ -799,10 +614,11 @@ __device__ __forceinline__ void store2(bf16* o, float v0, float v1,
 //
 // gt [B * nc, qp, qp] f32 (qp = the chunk padded to whole tiles), row j,
 // column i; tiles above the diagonal are not written. It has no head
-// axis: every head of the chunk reads it.
+// axis: every head of the chunk reads it, in the forward and the
+// backward alike.
 template <typename T>
 __global__ void __launch_bounds__(MT)
-ssd_bwd_scores_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
+ssd_scores_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
                       float* __restrict__ gt, Dims d) {
   constexpr int NP = Elem<T>::planes;
   extern __shared__ __align__(16) unsigned char bsm[];
@@ -816,10 +632,10 @@ ssd_bwd_scores_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
   const int bc = blockIdx.y;
   const long tok0 = static_cast<long>(bc / nc) * d.S +
                     static_cast<long>(bc % nc) * d.Q;
-  load_planes<MAXN, false, NP, false>(sB, LDW, Bm + tok0 * d.N, d.N, j * BT,
-                                      d.Q, d.N);
-  load_planes<MAXN, false, NP, false>(sC, LDW, Cm + tok0 * d.N, d.N, i * BT,
-                                      d.Q, d.N);
+  load_planes<MAXN, false, NP, SCALE_NONE>(sB, LDW, Bm + tok0 * d.N, d.N,
+                                           j * BT, d.Q, d.N);
+  load_planes<MAXN, false, NP, SCALE_NONE>(sC, LDW, Cm + tok0 * d.N, d.N,
+                                           i * BT, d.Q, d.N);
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float g[8][4];
@@ -834,6 +650,244 @@ ssd_bwd_scores_kernel(const T* __restrict__ Bm, const T* __restrict__ Cm,
       *reinterpret_cast<float2*>(out + static_cast<long>(lane / 4 + 8 * r) *
                                            qp + nb * 8 + 2 * (lane % 4)) =
           make_float2(g[nb][2 * r], g[nb][2 * r + 1]);
+}
+
+// --- fwd state: the chunk's cum and its end state from a zero start --------
+//
+// dS_c = sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T per (batch, chunk, head),
+// into states[b, h, c] ([B, H, nc, P, N] f32; the pass turns it into the
+// chunk-start state); cum [B, H, S] f32. The A operand is x_j scaled by
+// its token's factor, three bf16 terms, stored as x is ([j][p]) and read
+// transposed by ldmatrix (a transposed store would put a warp's 2-byte
+// stores on few banks); B stays an exact bf16 operand.
+template <typename T>
+__global__ void __launch_bounds__(MT)
+ssd_fwd_state_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ Av, const T* __restrict__ Bm,
+                     float* __restrict__ cum, float* __restrict__ states,
+                     Dims d) {
+  constexpr int NP = Elem<T>::planes;
+  extern __shared__ __align__(16) unsigned char bsm[];
+  double* sw = reinterpret_cast<double*>(bsm);
+  bf16* p = reinterpret_cast<bf16*>(bsm + 64);
+  const Planes sX = planes_at<3>(p, BT * LDK);    // x_j sf_j: [j][p]
+  p += 3 * BT * LDK;
+  const Planes sB = planes_at<NP>(p, BT * LDW);   // B_j: [j][n]
+  p += NP * BT * LDW;
+  float* scum = reinterpret_cast<float*>(p);
+  float* sf = scum + d.Q;                  // dt_j exp(cum_Q - cum_j)
+
+  const int h = blockIdx.x, bc = blockIdx.y;
+  const int Q = d.Q, nc = d.S / Q, b = bc / nc, c = bc % nc;
+  const long tok0 = static_cast<long>(b) * d.S + static_cast<long>(c) * Q;
+  const long bh = static_cast<long>(b) * d.H + h;
+  const long xs = static_cast<long>(d.H) * d.P;
+  chunk_cum_scan(scum, dt + tok0 * d.H + h, d.H, Av[h], Q, sw);
+  for (int t = threadIdx.x; t < Q; t += MT) {
+    cum[bh * d.S + static_cast<long>(c) * Q + t] = scum[t];
+    sf[t] = dt[(tok0 + t) * d.H + h] * expf(scum[Q - 1] - scum[t]);
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float acc[16][4];
+  zero(acc);
+  for (int k0 = 0; k0 < Q; k0 += BT) {
+    __syncthreads();
+    load_planes<MAXP, false, 3, SCALE_BY>(sX, LDK, x + tok0 * xs + h * d.P,
+                                          xs, k0, Q, d.P, sf);
+    load_planes<MAXN, false, NP, SCALE_NONE>(sB, LDW, Bm + tok0 * d.N, d.N,
+                                             k0, Q, d.N);
+    __syncthreads();
+    warp_mma<16, BT, 3, NP, false, true>(acc, sX, LDK, warp * 16, sB, LDW,
+                                         lane);
+  }
+  float* out = states + (bh * nc + c) * d.P * d.N;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pr = warp * 16 + lane / 4 + 8 * r;
+    if (pr >= d.P) continue;
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = nb * 8 + 2 * (lane % 4) + e;
+        if (n < d.N) out[pr * d.N + n] = acc[nb][2 * r + e];
+      }
+  }
+}
+
+// --- fwd pass: S_{c+1} = exp(cum_Q,c) S_c + dS_c, in place over states ------
+//
+// One thread per element of a (batch, head)'s [P, N] tile, the chunks in
+// order, PASS_BATCH chunks' dS loaded at once; afterwards states[b, h, c]
+// holds the state at chunk c's start and final the state after the last.
+__global__ void __launch_bounds__(PASS_NT)
+ssd_fwd_pass_kernel(const float* __restrict__ cum,
+                    const float* __restrict__ init,
+                    float* __restrict__ states,
+                    float* __restrict__ final_state, Dims d) {
+  const long PN = static_cast<long>(d.P) * d.N;
+  const long e = static_cast<long>(blockIdx.x) * PASS_NT + threadIdx.x;
+  if (e >= PN) return;
+  const long bh = blockIdx.y;
+  const int nc = d.S / d.Q;
+  float carry = init != nullptr ? init[bh * PN + e] : 0.f;
+  for (int c0 = 0; c0 < nc; c0 += PASS_BATCH) {
+    float wv[PASS_BATCH], gv[PASS_BATCH];
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k) {
+      const int c = c0 + k;
+      wv[k] = c < nc ? states[(bh * nc + c) * PN + e] : 0.f;
+      gv[k] = c < nc ? cum[bh * d.S + static_cast<long>(c) * d.Q + d.Q - 1]
+                     : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < PASS_BATCH; ++k) {
+      const int c = c0 + k;
+      if (c >= nc) break;
+      states[(bh * nc + c) * PN + e] = carry;
+      carry = __fadd_rn(__fmul_rn(expf(gv[k]), carry), wv[k]);
+    }
+  }
+  final_state[bh * PN + e] = carry;
+}
+
+// --- fwd out: y of one (batch, chunk, head) ----------------------------------
+//
+// Per 64-row tile i of the chunk, in the warp's 16 rows:
+//   y_i = exp(cum_i) C_i . S0^T + sum over tiles j <= i of M_ij x_j,
+//   M_ij = G_ij exp(cum_i - cum_j) dt_j   (j <= i; 0 above the diagonal)
+// C and x are exact bf16 operands and S0 three terms in shared memory; M
+// is built in registers from the scores kernel's G^T tile, which the
+// block loads into shared memory with whole 16-byte loads, and goes in
+// as three terms (warp_mma_regs). The inter-chunk term comes first, then
+// the tiles j in order. cum falls through a chunk (dt >= 0, A <= 0: the
+// model's softplus dt and A = -exp, and the wrapper's stated
+// precondition), so below the diagonal the decay factors through the last
+// token e of tile j: exp(cum_i - cum_j) = exp(cum_i - cum_e) exp(cum_e -
+// cum_j), both at most 1 (a factor that underflows leaves a product below
+// 1e-38; with a rising cum one factor could overflow instead).
+// dt_j exp(cum_e - cum_j) is taken once per token (sw), and exp(cum_i -
+// cum_e) scales the chain's rows; only the diagonal tiles take an
+// exponential per element, masked before it.
+template <typename T>
+__global__ void __launch_bounds__(MT, 2)
+ssd_fwd_out_kernel(const T* __restrict__ x, const float* __restrict__ dt,
+                   const T* __restrict__ Cm, const float* __restrict__ cum,
+                   const float* __restrict__ gt,
+                   const float* __restrict__ states, float* __restrict__ y,
+                   Dims d) {
+  constexpr int NP = Elem<T>::planes;
+  extern __shared__ __align__(16) unsigned char bsm[];
+  bf16* p = reinterpret_cast<bf16*>(bsm);
+  const Planes sS = planes_at<3>(p, MAXP * LDW);   // S0: [p][n]
+  p += 3 * MAXP * LDW;
+  const Planes sC = planes_at<NP>(p, BT * LDW);    // C_i: [i][n]
+  p += NP * BT * LDW;
+  const Planes sX = planes_at<NP>(p, BT * LDK);    // x_j: [j][p]
+  p += NP * BT * LDK;
+  float* sG = reinterpret_cast<float*>(p);         // G^T: [j][i]
+  float* sdt = sG + BT * LDG;
+  float* scum = sdt + d.Q;
+  float* sw = scum + d.Q;
+
+  const int h = blockIdx.x, bc = blockIdx.y;
+  const int Q = d.Q, P = d.P, N = d.N;
+  const int nc = d.S / Q, b = bc / nc, c = bc % nc;
+  const int nt = (Q + BT - 1) / BT, qp = nt * BT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const long tok0 = static_cast<long>(b) * d.S + static_cast<long>(c) * Q;
+  const long bh = static_cast<long>(b) * d.H + h;
+  const long PN = static_cast<long>(P) * N;
+  const long xs = static_cast<long>(d.H) * P;
+  const T* xc = x + tok0 * xs + h * P;
+  const float* gtc = gt + static_cast<long>(bc) * qp * qp;
+
+  for (int t = tid; t < Q; t += MT) {
+    sdt[t] = dt[(tok0 + t) * d.H + h];
+    scum[t] = cum[bh * d.S + static_cast<long>(c) * Q + t];
+  }
+  load_planes<MAXN, false, 3, SCALE_NONE>(sS, LDW, states + (bh * nc + c) * PN,
+                                          N, 0, P, N);
+  __syncthreads();
+  for (int t = tid; t < Q; t += MT) {
+    const int e = min(Q - 1, t / BT * BT + BT - 1);
+    sw[t] = sdt[t] * expf(scum[e] - scum[t]);
+  }
+
+  for (int it = 0; it < nt; ++it) {
+    const int i0 = it * BT;
+    __syncthreads();
+    load_planes<MAXN, false, NP, SCALE_NONE>(sC, LDW, Cm + tok0 * N, N, i0,
+                                             Q, N);
+    __syncthreads();
+    int ir[2];
+    float ci[2], ei[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ir[r] = i0 + warp * 16 + g + 8 * r;
+      ci[r] = ir[r] < Q ? scum[ir[r]] : 0.f;
+      ei[r] = ir[r] < Q ? expf(ci[r]) : 0.f;
+    }
+    float acc[8][4];
+    zero(acc);
+    warp_mma<8, MAXN, NP, 3, true>(acc, sC, LDW, warp * 16, sS, LDW, lane,
+                                   ei[0], ei[1]);
+    for (int jt = 0; jt <= it; ++jt) {
+      const int j0 = jt * BT;
+      __syncthreads();
+      load_planes<MAXP, false, NP, SCALE_NONE>(sX, LDK, xc, xs, j0, Q, P);
+      // G^T rows j0.., columns i0.. (whole tiles: the scores kernel
+      // writes every element of a tile pair, padding included)
+#pragma unroll
+      for (int k = 0; k < BT * BT / 4 / MT; ++k) {
+        const int e = tid + k * MT, row = e / (BT / 4), col = e % (BT / 4) * 4;
+        *reinterpret_cast<float4*>(sG + row * LDG + col) =
+            __ldg(reinterpret_cast<const float4*>(
+                gtc + static_cast<long>(j0 + row) * qp + i0 + col));
+      }
+      __syncthreads();
+      float m[8][4], s[2];
+      const bool diag = jt == it;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        s[r] = 1.f;
+        if (!diag)
+          s[r] = ir[r] < Q ? expf(ci[r] - scum[j0 + BT - 1]) : 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int jl = nb * 8 + 2 * tq + e, j = j0 + jl;
+            const float G = sG[jl * LDG + ir[r] - i0];
+            float v;
+            if (!diag)
+              v = G * sw[j];
+            else
+              v = j <= ir[r] && ir[r] < Q
+                      ? G * expf(ci[r] - scum[j]) * sdt[j] : 0.f;
+            m[nb][2 * r + e] = v;
+          }
+      }
+      warp_mma_regs<8, NP, true>(acc, m, sX, LDK, 0, lane, s[0], s[1]);
+    }
+    float* yb = y + tok0 * xs + h * P;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (ir[r] >= Q) continue;
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        const int pc = nb * 8 + 2 * tq;
+        if (pc >= P) continue;
+        float* o = yb + static_cast<long>(ir[r]) * xs + pc;
+        if (pc + 1 < P)
+          store2(o, acc[nb][2 * r], acc[nb][2 * r + 1], P % 2 == 0);
+        else
+          o[0] = acc[nb][2 * r];
+      }
+    }
+  }
 }
 
 // --- w: the chunk's cum and W_c = sum_i exp(cum_i) dy_i C_i^T -----------------
@@ -869,10 +923,10 @@ ssd_bwd_w_kernel(const float* __restrict__ dt, const float* __restrict__ Av,
   zero(acc);
   for (int k0 = 0; k0 < d.Q; k0 += BT) {
     __syncthreads();
-    load_planes<MAXP, true, 3, true>(sDy, LDK, dy + tok0 * xs + h * d.P, xs,
-                                     k0, d.Q, d.P, scum);
-    load_planes<MAXN, false, NP, false>(sC, LDW, Cm + tok0 * d.N, d.N, k0,
-                                        d.Q, d.N);
+    load_planes<MAXP, true, 3, SCALE_EXP>(sDy, LDK, dy + tok0 * xs + h * d.P,
+                                          xs, k0, d.Q, d.P, scum);
+    load_planes<MAXN, false, NP, SCALE_NONE>(sC, LDW, Cm + tok0 * d.N, d.N,
+                                             k0, d.Q, d.N);
     __syncthreads();
     warp_mma<16, BT, 3, NP, false>(acc, sDy, LDK, warp * 16, sC, LDW, lane);
   }
@@ -1000,13 +1054,14 @@ ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const float sdot = sred[0];
 
   __syncthreads();
-  load_planes<MAXN, false, 3, false>(sS, LDW, dSg, N, 0, P, N);
+  load_planes<MAXN, false, 3, SCALE_NONE>(sS, LDW, dSg, N, 0, P, N);
 
   for (int jt = 0; jt < nt; ++jt) {
     const int j0 = jt * BT;
     __syncthreads();
-    load_planes<MAXP, false, NP, false>(sX, LDK, xc, xs, j0, Q, P);
-    load_planes<MAXN, false, NP, false>(sW, LDW, Bm + tok0 * N, N, j0, Q, N);
+    load_planes<MAXP, false, NP, SCALE_NONE>(sX, LDK, xc, xs, j0, Q, P);
+    load_planes<MAXN, false, NP, SCALE_NONE>(sW, LDW, Bm + tok0 * N, N, j0, Q,
+                                             N);
     __syncthreads();
     // the state term: dxdt_j = exp(cum_Q - cum_j) dS B_j, and its share
     // of d cum, u_j = xdt_j . dxdt_j (- at j, + at the chunk's end)
@@ -1038,7 +1093,7 @@ ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int it = jt; it < nt; ++it) {
       const int i0 = it * BT;
       __syncthreads();
-      load_planes<MAXP, false, 3, false>(sD, LDK, dyc, xs, i0, Q, P);
+      load_planes<MAXP, false, 3, SCALE_NONE>(sD, LDK, dyc, xs, i0, Q, P);
       __syncthreads();
       float m[8][4];   // x_j . dy_i^T, then G^T L^T
       zero(m);
@@ -1262,13 +1317,12 @@ ssd_bwd_inter_kernel(const T* __restrict__ Cm, const float* __restrict__ states,
       }
       __syncthreads();
       if (k == 0)
-        load_planes<MAXN, false, NP, false>(sC, LDW, Cm + tok0 * N, N, i0, Q,
-                                            N);
-      load_planes<MAXP, false, 3, false>(sD, LDK, dy + tok0 * xs + h * P, xs,
-                                         i0, Q, P);
-      load_planes<MAXN, false, 3, false>(sS, LDW,
-                                         states + (bh * nc + c) * PN, N, 0, P,
-                                         N);
+        load_planes<MAXN, false, NP, SCALE_NONE>(sC, LDW, Cm + tok0 * N, N,
+                                                 i0, Q, N);
+      load_planes<MAXP, false, 3, SCALE_NONE>(sD, LDK, dy + tok0 * xs + h * P,
+                                              xs, i0, Q, P);
+      load_planes<MAXN, false, 3, SCALE_NONE>(
+          sS, LDW, states + (bh * nc + c) * PN, N, 0, P, N);
       __syncthreads();
       float ch[16][4];   // dy_i . S0: the warp's 16 rows, every column n
       zero(ch);
@@ -1353,13 +1407,13 @@ ssd_bwd_dbc_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int jt = 0; jt < nt; ++jt) {
     const int j0 = jt * BT;
     __syncthreads();
-    load_planes<MAXN, false, NP, false>(sB, LDW, Bc, N, j0, Q, N);
+    load_planes<MAXN, false, NP, SCALE_NONE>(sB, LDW, Bc, N, j0, Q, N);
     float db[16][4];
     zero(db);
     for (int it = jt; it < nt; ++it) {
       const int i0 = it * BT;
       __syncthreads();
-      load_planes<MAXN, false, NP, false>(sC, LDW, Cc, N, i0, Q, N);
+      load_planes<MAXN, false, NP, SCALE_NONE>(sC, LDW, Cc, N, i0, Q, N);
       // dGs: the group's heads' dG^T tiles (from the chunk kernel), in
       // head order
       float dg[8][4];
@@ -1413,10 +1467,10 @@ ssd_bwd_dbc_kernel(const T* __restrict__ x, const float* __restrict__ dt,
         sc[r] = j < Q ? expf(hcum(k, Q - 1) - hcum(k, j)) * hdt(k, j) : 0.f;
       }
       __syncthreads();
-      load_planes<MAXP, false, NP, false>(sX, LDK, x + tok0 * xs + h * P, xs,
-                                          j0, Q, P);
-      load_planes<MAXN, false, 3, false>(sS, LDW, dS + (bh * nc + c) * PN, N,
-                                         0, P, N);
+      load_planes<MAXP, false, NP, SCALE_NONE>(sX, LDK, x + tok0 * xs + h * P,
+                                               xs, j0, Q, P);
+      load_planes<MAXN, false, 3, SCALE_NONE>(sS, LDW, dS + (bh * nc + c) * PN,
+                                              N, 0, P, N);
       __syncthreads();
       warp_mma<16, MAXP, NP, 3, false>(db, sX, LDK, warp * 16, sS, LDW,
                                        lane, sc[0], sc[1]);
@@ -1426,9 +1480,14 @@ ssd_bwd_dbc_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 }
 
-size_t fwd_smem(int Q) {
-  return sizeof(float) *
-         ((size_t)MAXP * LDN + 2 * TQ * LDN + TQ * LDP + TQ * LDT + 2 * Q);
+size_t fwd_state_smem(int Q, int np) {
+  return 64 + sizeof(bf16) * (3 * BT * LDK + np * BT * LDW) +
+         sizeof(float) * 2 * Q;
+}
+
+size_t fwd_out_smem(int Q, int np) {
+  return sizeof(bf16) * (3 * MAXP * LDW + np * BT * LDW + np * BT * LDK) +
+         sizeof(float) * (BT * LDG + 3 * Q);
 }
 
 template <typename K>
@@ -1444,14 +1503,34 @@ bool dims_ok(const Dims& d) {
 }
 
 template <typename T>
-int launch_fwd(const void* x, const float* dt, const float* A, const void* Bm,
-               const void* Cm, const float* init, float* y, float* fin,
-               float* states, const Dims& d, cudaStream_t st) {
-  const size_t smem = fwd_smem(d.Q);
-  if (int e = prepare(ssd_fwd_kernel<T>, smem)) return e;
-  ssd_fwd_kernel<T><<<d.B * d.H, NT, smem, st>>>(
-      static_cast<const T*>(x), dt, A, static_cast<const T*>(Bm),
-      static_cast<const T*>(Cm), init, y, fin, states, d);
+int launch_fwd(const void* xv, const float* dt, const float* A,
+               const void* Bv, const void* Cv, const float* init, float* y,
+               float* fin, float* states, float* cum, float* gt,
+               const Dims& d, cudaStream_t st) {
+  const int np = Elem<T>::planes;
+  const T* x = static_cast<const T*>(xv);
+  const T* Bm = static_cast<const T*>(Bv);
+  const T* Cm = static_cast<const T*>(Cv);
+  const int nc = d.S / d.Q, nt = (d.Q + BT - 1) / BT;
+  const unsigned bnc = static_cast<unsigned>(d.B * nc);
+  const size_t s0 = sizeof(bf16) * 2 * np * BT * LDW;
+  const size_t s1 = fwd_state_smem(d.Q, np), s3 = fwd_out_smem(d.Q, np);
+  if (int e = prepare(ssd_scores_kernel<T>, s0)) return e;
+  if (int e = prepare(ssd_fwd_state_kernel<T>, s1)) return e;
+  if (int e = prepare(ssd_fwd_out_kernel<T>, s3)) return e;
+  ssd_scores_kernel<T><<<dim3(nt * (nt + 1) / 2, bnc), MT, s0, st>>>(
+      Bm, Cm, gt, d);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  ssd_fwd_state_kernel<T><<<dim3(d.H, bnc), MT, s1, st>>>(x, dt, A, Bm, cum,
+                                                           states, d);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  const unsigned pn = static_cast<unsigned>(
+      (static_cast<long>(d.P) * d.N + PASS_NT - 1) / PASS_NT);
+  ssd_fwd_pass_kernel<<<dim3(pn, d.B * d.H), PASS_NT, 0, st>>>(cum, init,
+                                                               states, fin, d);
+  if (int e = static_cast<int>(cudaGetLastError())) return e;
+  ssd_fwd_out_kernel<T><<<dim3(d.H, bnc), MT, s3, st>>>(x, dt, Cm, cum, gt,
+                                                         states, y, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1493,12 +1572,12 @@ int launch_bwd(const void* xv, const float* dt, const float* A,
   const size_t s1 = w_smem(d.Q, np), s2 = inter_smem(np),
                s3 = chunk_smem(d.Q, np),
                s4 = dbc_smem(np);
-  if (int e = prepare(ssd_bwd_scores_kernel<T>, s0)) return e;
+  if (int e = prepare(ssd_scores_kernel<T>, s0)) return e;
   if (int e = prepare(ssd_bwd_w_kernel<T>, s1)) return e;
   if (int e = prepare(ssd_bwd_inter_kernel<T>, s2)) return e;
   if (int e = prepare(ssd_bwd_chunk_kernel<T>, s3)) return e;
   if (int e = prepare(ssd_bwd_dbc_kernel<T>, s4)) return e;
-  ssd_bwd_scores_kernel<T><<<dim3(nt * (nt + 1) / 2, bnc), MT, s0, st>>>(
+  ssd_scores_kernel<T><<<dim3(nt * (nt + 1) / 2, bnc), MT, s0, st>>>(
       Bm, Cm, gt, d);
   if (int e = static_cast<int>(cudaGetLastError())) return e;
   ssd_bwd_w_kernel<T><<<dim3(d.H, bnc), MT, s1, st>>>(dt, A, Cm, dy, cum, w,
@@ -1529,14 +1608,18 @@ const char* ssd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype 0 = float32, 1 = bfloat16 (x, Bm, Cm); init and states may be null
+// dtype 0 = float32, 1 = bfloat16 (x, Bm, Cm); init may be null (a zero
+// state). Scratch, all f32 and allocated by the caller: cum [B, H, S]; gt
+// [B, nc, qp, qp] with qp = Q rounded up to a multiple of 64. states [B,
+// H, nc, P, N] is written in any case (the pass needs it).
 int ssd_fwd(int dtype, const void* x, const void* dt, const void* A,
             const void* Bm, const void* Cm, const void* init, void* y,
-            void* final_state, void* states, int B, int S, int H, int P,
-            int N, int Q, void* stream) {
+            void* final_state, void* states, void* cum, void* gt, int B,
+            int S, int H, int P, int N, int Q, void* stream) {
   const Dims d{B, S, H, P, N, Q};
   if (B == 0 || H == 0 || S == 0) return 0;
-  if (!dims_ok(d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!dims_ok(d) || states == nullptr || cum == nullptr || gt == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* f_dt = static_cast<const float*>(dt);
   const float* f_A = static_cast<const float*>(A);
@@ -1544,12 +1627,14 @@ int ssd_fwd(int dtype, const void* x, const void* dt, const void* A,
   float* f_y = static_cast<float*>(y);
   float* f_fin = static_cast<float*>(final_state);
   float* f_st = static_cast<float*>(states);
+  float* f_cum = static_cast<float*>(cum);
+  float* f_gt = static_cast<float*>(gt);
   if (dtype == 0)
     return launch_fwd<float>(x, f_dt, f_A, Bm, Cm, f_init, f_y, f_fin, f_st,
-                             d, st);
+                             f_cum, f_gt, d, st);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(x, f_dt, f_A, Bm, Cm, f_init, f_y,
-                                     f_fin, f_st, d, st);
+    return launch_fwd<bf16>(x, f_dt, f_A, Bm, Cm, f_init, f_y, f_fin, f_st,
+                            f_cum, f_gt, d, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -5,7 +5,11 @@ One wrapper, two implementations:
 
 * on a CUDA tensor, the hand-written kernel of ``csrc/rg_lru.cu`` (built
   and bound through ``repro_torch.kernels.nvcc``), launched on the
-  current stream; a refused launch raises;
+  current stream; a refused launch raises. It cuts time into chunks and
+  takes three launches (each chunk from a zero state, the carry pass
+  over chunks, each chunk from its carry-in; ``ref.rg_lru_phased_plain``
+  is its algebra), counted as one ``rg_lru_fwd``; their scratch (each
+  chunk's decay product and end value) is allocated here;
 * on a CPU tensor, its plain PyTorch version (``ref.rg_lru_plain``).
 
 A CUDA tensor never takes the plain version. Every kernel launch adds
@@ -33,7 +37,8 @@ KERNELS = ("rg_lru_fwd",)
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 LIB = CudaLibrary("rg_lru", {
-    "rg_lru_fwd": [_VP] * 6 + [_INT] * 3 + [_VP],
+    "rg_lru_fwd": [_VP] * 8 + [_INT] * 3 + [_VP],
+    "rg_lru_chunks": [_INT],
 }, error_fn="rg_lru_error_string")
 
 _count_lock = threading.Lock()
@@ -97,10 +102,18 @@ def rg_lru_fwd(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
         _counts[route]["rg_lru_fwd"] += 1
     if route == "cpu":
         return rg_lru_plain(x, r, i, lam, h0)
+    lib = LIB.library()
+    B, S, W = x.shape
     h = torch.empty_like(x)
-    code = LIB.library().rg_lru_fwd(
+    # scratch: each chunk but the last's decay product and end value
+    nl = lib.rg_lru_chunks(S) - 1
+    dec, loc = torch.empty((2, B, nl, W), dtype=torch.float32,
+                           device=x.device) if nl > 0 else (None, None)
+    code = lib.rg_lru_fwd(
         x.data_ptr(), r.data_ptr(), i.data_ptr(), lam.data_ptr(),
-        None if h0 is None else h0.data_ptr(), h.data_ptr(), *x.shape,
+        None if h0 is None else h0.data_ptr(), h.data_ptr(),
+        None if dec is None else dec.data_ptr(),
+        None if loc is None else loc.data_ptr(), B, S, W,
         torch.cuda.current_stream(x.device).cuda_stream)
     LIB.check(code, "rg_lru_fwd")
     return h
@@ -110,8 +123,8 @@ def rg_lru_scan(x, r, i, lam, *, chunk: int = 256, block_w: int = 512,
                 h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The JAX package's ``rg_lru_scan`` contract: h [B,S,W] with any
     padding removed. ``chunk`` and ``block_w`` are the Pallas kernel's
-    time and channel tiles; the CUDA kernel walks the whole sequence per
-    channel and needs no padding, so they only have to be positive."""
+    time and channel tiles; the CUDA kernel cuts time into chunks of its
+    own and needs no padding, so they only have to be positive."""
     if chunk <= 0 or block_w <= 0:
         raise ValueError(f"rg_lru_scan: chunk {chunk} and block_w {block_w} "
                          "must be positive")

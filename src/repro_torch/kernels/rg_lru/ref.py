@@ -15,6 +15,11 @@ what ``chip_smoke.py`` holds the CUDA kernel against on the card.
   ``numerics.exp_f32`` (``exp_stable`` in :func:`softplus`, which the
   card's decode step also runs), so the same inputs give the same bits
   in every process (ROADMAP C18).
+* :func:`rg_lru_phased_plain` — the same recurrence in the three phases
+  the CUDA kernel takes (``csrc/rg_lru.cu``), chunks of ``TIME_CHUNK``
+  tokens: each chunk but the last run from a zero state, the carry pass
+  over chunks, each chunk run again from its carry-in. Nothing on the
+  model's path calls it.
 * :func:`model_inputs` — x, r, i and lam drawn the way a freshly
   initialised RG-LRU block makes them, for the kernel checks.
 """
@@ -30,6 +35,7 @@ from repro_torch.kernels.numerics import exp_f32, exp_stable
 F32 = torch.float32
 GATE_C = 8.0        # Griffin's gate sharpness constant (hybrid._C)
 CHUNK = 64
+TIME_CHUNK = 256    # tokens per chunk of the CUDA kernel: csrc/rg_lru.cu TCHUNK
 
 
 def softplus(v: torch.Tensor) -> torch.Tensor:
@@ -70,6 +76,37 @@ def rg_lru_plain(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
             + exp_f32(cum.to(F32)) * h[:, None]
         h = out[:, hi - 1]
     return out
+
+
+def rg_lru_phased_plain(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
+                        lam: torch.Tensor, h0: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """h f32 [B,S,W] as :func:`rg_lru_plain` returns it, in the CUDA
+    kernel's three phases over chunks of ``TIME_CHUNK`` tokens (the last
+    one ragged):
+
+    1. every chunk c but the last, from a zero state: its decay product
+       A_c = exp(sum of its log_a, summed in float64) and its end value;
+    2. the carry into each chunk, in order: h_in_0 = h0 (or 0),
+       h_in_{c+1} = A_c h_in_c + end_c;
+    3. every chunk again from its carry-in.
+    """
+    B, S, W = x.shape
+    log_a = gates(r.to(F32), lam.to(F32))[0]
+    spans = [slice(lo, min(lo + TIME_CHUNK, S))
+             for lo in range(0, S, TIME_CHUNK)]
+    zero = torch.zeros((B, W), dtype=F32, device=x.device)
+    # phase 1
+    local = [(exp_f32(log_a[:, t].double().sum(1).to(F32)),
+              rg_lru_plain(x[:, t], r[:, t], i[:, t], lam, zero)[:, -1])
+             for t in spans[:-1]]
+    # phase 2
+    carry = [zero if h0 is None else h0.to(F32)]
+    for dec, end in local:
+        carry.append(dec * carry[-1] + end)
+    # phase 3
+    return torch.cat([rg_lru_plain(x[:, t], r[:, t], i[:, t], lam, h_in)
+                      for t, h_in in zip(spans, carry)], dim=1)
 
 
 def model_inputs(B: int, S: int, W: int, generator: torch.Generator,

@@ -8,11 +8,17 @@ Each kernel has two implementations behind one wrapper:
 * on a CUDA tensor, the hand-written CUDA kernel of
   ``csrc/ssd_scan.cu`` (built and bound through
   ``repro_torch.kernels.nvcc``), launched on the current stream; a
-  refused launch raises. The backward is six launches in three phases
-  on the tensor cores (``ref.ssd_bwd_phased_plain`` is its algebra),
-  counted as one ``ssd_bwd``; its scratch and the partials it leaves
-  (dB / dC per group of ``HEAD_GROUP`` heads, dA per batch and chunk)
-  are allocated here and summed here in a fixed order;
+  refused launch raises. Both run chunk-parallel on the tensor cores.
+  The forward is four launches (C.B^T once per chunk for every head,
+  each chunk's end state from a zero start, the pass over chunks that
+  makes them chunk-start states, the outputs; ``ref.ssd_fwd_phased_plain``
+  is its algebra), counted as one ``ssd_fwd``; its scratch (the chunks'
+  cum and C.B^T, and the states where the caller does not keep them) is
+  allocated here. The backward is six launches in three phases
+  (``ref.ssd_bwd_phased_plain`` is its algebra), counted as one
+  ``ssd_bwd``; its scratch and the partials it leaves (dB / dC per group
+  of ``HEAD_GROUP`` heads, dA per batch and chunk) are allocated here
+  and summed here in a fixed order;
 * on a CPU tensor, its plain PyTorch version (``ref.ssd_fwd_plain``;
   for the backward ``ref.ssd_grads_plain``, autograd through the plain
   forward from the first chunk-start state).
@@ -24,7 +30,12 @@ one to its count (``counts("cuda")``), every plain call one to
 Layouts are the model's: x ``[B,S,H,P]`` and Bm/Cm ``[B,S,N]`` in float32
 or bfloat16 (one dtype for the three), dt ``[B,S,H]`` and A ``[H]``
 float32; states float32. The kernels take P <= 64, N <= 128 and a chunk
-of at most 1024 tokens that divides S.
+of at most 1024 tokens that divides S. The forward kernel also takes
+dt >= 0 and A <= 0, as the model makes them (softplus dt, A = -exp): it
+splits each decay below the diagonal into two factors of at most 1, and
+with a cumsum that rises inside a chunk a factor can overflow where the
+plain version's single exponential stays finite. Nothing checks this on
+the card, since that would cost a sync.
 """
 from __future__ import annotations
 
@@ -45,7 +56,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _DIMS = [_INT] * 6 + [_VP]                       # B S H P N Q stream
 LIB = CudaLibrary("ssd_scan", {
-    "ssd_fwd": [_INT] + [_VP] * 9 + _DIMS,
+    "ssd_fwd": [_INT] + [_VP] * 11 + _DIMS,
     "ssd_bwd": [_INT] + [_VP] * 17 + _DIMS,
 }, error_fn="ssd_error_string")
 
@@ -138,7 +149,10 @@ def ssd_fwd(x, dt, A, Bm, Cm, chunk: int,
             init_state: Optional[torch.Tensor] = None, *,
             save_states: bool = True):
     """(y f32 [B,S,H,P], final_state f32 [B,H,P,N], the chunk-start
-    states f32 [B,H,nc,P,N] or None if not ``save_states``)."""
+    states f32 [B,H,nc,P,N] or None if not ``save_states``).
+
+    On the card dt must be >= 0 and A <= 0 (see the module docstring);
+    the plain CPU route takes any sign."""
     extra = () if init_state is None else (init_state,)
     route = _route("ssd_fwd", x, dt, A, Bm, Cm, chunk, *extra)
     Bsz, S, H, P = x.shape
@@ -149,17 +163,22 @@ def ssd_fwd(x, dt, A, Bm, Cm, chunk: int,
         y, final, states = ssd_fwd_plain(x, dt, A, Bm, Cm, chunk, init_state)
         return y, final, states if save_states else None
     N, q = Bm.shape[-1], min(chunk, S)
+    nc, qp = S // q, -(-q // 64) * 64
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((Bsz, S, H, P), **f32)
     final = torch.empty((Bsz, H, P, N), **f32)
-    states = torch.empty((Bsz, H, S // q, P, N), **f32) if save_states \
-        else None
+    # the pass over chunks needs the states: scratch if not saved
+    states = torch.empty((Bsz, H, nc, P, N), **f32)
+    # scratch: the chunks' cum and C.B^T per chunk
+    cum = torch.empty((Bsz, H, S), **f32)
+    gt = torch.empty((Bsz, nc, qp, qp), **f32)
     code = LIB.library().ssd_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), _ptr(init_state), y.data_ptr(),
-        final.data_ptr(), _ptr(states), *_dims(x, N, q))
+        final.data_ptr(), states.data_ptr(), cum.data_ptr(), gt.data_ptr(),
+        *_dims(x, N, q))
     LIB.check(code, "ssd_fwd")
-    return y, final, states
+    return y, final, states if save_states else None
 
 
 def ssd_bwd(x, dt, A, Bm, Cm, states, dy, dfinal: Optional[torch.Tensor],
@@ -214,7 +233,8 @@ class SSDScan(torch.autograd.Function):
     of the final state. ``init_state`` (prefill continuing a cache) is a
     constant: a gradient for it is refused. Under
     ``torch.utils.checkpoint`` the forward runs again in the backward
-    pass (a second ``ssd_fwd`` launch per layer)."""
+    pass (a second ``ssd_fwd`` launch per layer). On the card it takes
+    dt >= 0 and A <= 0, as :func:`ssd_fwd` does."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk):

@@ -8,6 +8,10 @@ kernels against on the card.
   math, one chunk at a time with the state carried across chunks.
   ``ssd_fwd_plain`` also returns the state at the start of every chunk
   (what the backward reads).
+* :func:`ssd_fwd_phased_plain` — the same forward in the four phases
+  the CUDA forward takes (``csrc/ssd_scan.cu``): C.B^T shared by the
+  heads, every chunk's end state from a zero start, the pass over
+  chunks, then the outputs. Nothing on the model's path calls it.
 * :func:`ssd_sequential_plain` — the literal O(S) recurrence
   (``repro.kernels.ssd_scan.ref.ssd_sequential``).
 * :func:`ssd_grads_plain` — ``torch.autograd.grad`` through
@@ -140,6 +144,67 @@ def ssd_grads_plain(x, dt, A, Bm, Cm, dy, chunk: int,
             outs.append(final)
             cots.append(dfinal.to(F32))
         return torch.autograd.grad(outs, leaves, cots)
+
+
+TILE = 64          # tokens per tile of a chunk: csrc/ssd_scan.cu BT
+
+
+def ssd_fwd_phased_plain(x, dt, A, Bm, Cm, chunk: int,
+                         init_state: Optional[torch.Tensor] = None):
+    """(y, final_state, states) as :func:`ssd_fwd_plain` returns them,
+    computed in the four phases the CUDA forward takes. Per chunk c, with
+    cum the in-chunk cumsum of dt * A:
+
+    0. G = C . B^T once per (batch, chunk): no head axis;
+    1. per (batch, chunk, head), every chunk independently: the chunk's
+       end state from a zero start, dS_c = sum_j exp(cum_{q-1} - cum_j)
+       dt_j x_j B_j^T;
+    2. per (batch, head), the chunks in order: the chunk-start states
+       S_0 = init_state (or 0), S_{c+1} = exp(cum_{q-1,c}) S_c + dS_c;
+    3. per (batch, chunk, head): y_i = sum_{j <= i} (G_ij exp(cum_i -
+       cum_j) dt_j) x_j + exp(cum_i) C_i . S_c^T, in tiles of ``TILE``
+       tokens: on the diagonal tiles the decay masked before the
+       exponential; below them, since cum falls through a chunk, factored
+       through the last token e of the column tile, exp(cum_i - cum_e)
+       exp(cum_e - cum_j), each at most 1.
+    """
+    Bsz, S, H, P = x.shape
+    N = Bm.shape[-1]
+    q, nc = _num_chunks(S, chunk)
+    xf, dtf = _chunked(x, nc, q), _chunked(dt, nc, q)
+    Bf, Cf = _chunked(Bm, nc, q), _chunked(Cm, nc, q)
+    cum = torch.cumsum(dtf * A.to(F32), dim=2)               # [B,nc,q,H]
+    # phase 0
+    G = torch.einsum("bcin,bcjn->bcij", Cf, Bf)              # [B,nc,q,q]
+    # phase 1
+    scale = dtf * exp_f32(cum[:, :, -1:] - cum)
+    dS = torch.einsum("bcjhp,bcjh,bcjn->bchpn", xf, scale, Bf)
+    # phase 2
+    g = exp_f32(cum[:, :, -1])                               # [B,nc,H]
+    starts = torch.empty_like(dS)
+    s = (torch.zeros((Bsz, H, P, N), dtype=F32, device=x.device)
+         if init_state is None else init_state.to(F32))
+    for c in range(nc):
+        starts[:, c] = s
+        s = g[:, c, :, None, None] * s + dS[:, c]
+    # phase 3
+    tile = torch.arange(q, device=x.device) // TILE
+    diag = (tile[:, None] == tile[None, :]) & torch.ones(
+        (q, q), dtype=torch.bool, device=x.device).tril()
+    below = tile[:, None] > tile[None, :]
+    last = torch.clamp((tile + 1) * TILE - 1, max=q - 1)     # e of column j
+    seg = cum.permute(0, 1, 3, 2)                            # [B,nc,H,q]
+    dtj = dtf.permute(0, 1, 3, 2)
+    inf = float("-inf")
+    L_diag = exp_f32((seg[..., :, None] - seg[..., None, :])
+                     .masked_fill(~diag, inf)) * dtj[..., None, :]
+    w = dtj * exp_f32(seg[..., last] - seg)                  # per column j
+    L_below = exp_f32((seg[..., :, None] - seg[..., last][..., None, :])
+                      .masked_fill(~below, inf)) * w[..., None, :]
+    M = G[:, :, None] * (L_diag + L_below)                   # [B,nc,H,i,j]
+    y = torch.einsum("bchij,bcjhp->bcihp", M, xf) + exp_f32(cum)[..., None] \
+        * torch.einsum("bcin,bchpn->bcihp", Cf, starts)
+    return y.reshape(Bsz, S, H, P), s, starts.permute(0, 2, 1, 3, 4)
 
 
 HEAD_GROUP = 8     # heads per owner of the dB / dC sums: csrc/ssd_scan.cu HG

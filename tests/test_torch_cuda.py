@@ -447,6 +447,8 @@ SSD_CASES = [   # B, S, H, P, N, chunk, dtype, init_state
     (1, 192, 2, 8, 8, 64, torch.bfloat16, False),      # matrix dims
     # 8 chunks, and 10 heads: no multiple of the backward's head group (8)
     (1, 2048, 10, 64, 128, 256, torch.bfloat16, True),
+    # 32 chunks: the forward's pass carries the state across all of them
+    (1, 8192, 4, 64, 128, 256, torch.bfloat16, True),
 ]
 
 
@@ -522,6 +524,36 @@ def test_ssd_backward_is_deterministic_at_the_training_shape(cuda_device):
         again = ssd.ssd_bwd(x, dt, A, Bm, Cm, st, dy, None, 256)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def test_ssd_forward_is_deterministic_at_the_training_shape(cuda_device):
+    """mamba2-780m's training shape: three ``ssd_fwd`` calls give the same
+    bits (y, final state, chunk-start states) — every sum has one owner
+    and a fixed order, with no atomics."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    x, dt, A, Bm, Cm, *_ = _ssd_inputs(cuda_device, 8, 4096, 48, 64, 128,
+                                       torch.bfloat16, False)
+    first = ssd.ssd_fwd(x, dt, A, Bm, Cm, 256)
+    for _ in range(2):
+        again = ssd.ssd_fwd(x, dt, A, Bm, Cm, 256)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_forward_without_saved_states_matches(cuda_device, init):
+    """A serving prefill (``save_states=False``: the states are the
+    wrapper's scratch) gives the bits of the call that saves them."""
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    x, dt, A, Bm, Cm, s0, *_ = _ssd_inputs(cuda_device, 2, 1024, 6, 64, 128,
+                                           torch.bfloat16, init)
+    ssd.reset_counts()
+    y, fin, states = ssd.ssd_fwd(x, dt, A, Bm, Cm, 256, s0)
+    y2, fin2, none = ssd.ssd_fwd(x, dt, A, Bm, Cm, 256, s0,
+                                 save_states=False)
+    assert states is not None and none is None
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    assert ssd.counts("cuda")["ssd_fwd"] == 2
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
@@ -603,12 +635,16 @@ def test_mamba2_trainer_kill_restore_on_the_card(cuda_device, tmp_path):
 
 
 # (B, S, W, with h0, the rglru_a init's range): a prefill-like width, a
-# ragged one, a tail shorter than the kernel's 16-step unroll, decays
-# near one (where 1 - a^2 in f32 keeps under two digits)
+# ragged one, a tail shorter than the kernel's 8-step unroll, decays
+# near one (where 1 - a^2 in f32 keeps under two digits); a sequence that
+# is no multiple of the kernel's 256-token time chunk, one shorter than a
+# chunk, and 128 chunks at decays near one, where the carry crosses
+# every chunk almost undiminished
 INIT, NEAR_ONE = (0.9, 0.999), (0.99999, 0.999999)
 RGLRU_CASES = [(2, 4096, 1024, False, INIT), (2, 4096, 1024, True, INIT),
                (3, 1000, 1000, True, INIT), (1, 7, 33, False, INIT),
-               (3, 1000, 1000, True, NEAR_ONE)]
+               (3, 1000, 1000, True, NEAR_ONE), (2, 1000, 300, True, INIT),
+               (1, 200, 64, True, INIT), (1, 32768, 256, True, NEAR_ONE)]
 
 
 @pytest.mark.parametrize("case", RGLRU_CASES)

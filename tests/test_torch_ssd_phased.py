@@ -1,4 +1,16 @@
-"""The three-phase SSD backward, in plain tensors, on the CPU.
+"""The SSD forward's four phases and the backward's three, in plain
+tensors, on the CPU.
+
+``ref.ssd_fwd_phased_plain`` is the algebra of the CUDA forward: C.B^T
+once per chunk for every head, each chunk's end state from a zero
+start, the pass over chunks that turns them into chunk-start states,
+then the outputs. It is held, in float32 at rtol 1e-5 (and an atol of
+1e-5 x the largest element), against ``ref.ssd_fwd_plain`` (y, the
+final state and every chunk-start state), the JAX package's
+``repro.models.ssm.ssd_chunked`` (y and the final state) and its Pallas
+``ssd_scan`` in interpret mode (y from a zero state: the Pallas kernel
+takes none), over the backward's cases and one whose decays are near
+one, so that the state carries across every chunk.
 
 ``ref.ssd_bwd_phased_plain`` is the algebra of the CUDA backward: the
 chunk-state gradients W_c, the reverse pass over chunks, then every
@@ -19,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ssd_scan.ops import ssd_scan as jssd_scan
 from repro.models import ssm as JSSM
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as R
@@ -33,7 +46,7 @@ CASES = [
 ]
 
 
-def _inputs(B, S, H, P, N, seed):
+def _inputs(B, S, H, P, N, seed, a_scale=1.0):
     """Inputs as the model makes them (dt a softplus, A < 0), numpy; the
     decays stay small enough that the reference's exponential of the
     masked-out upper triangle does not overflow into a NaN gradient
@@ -42,7 +55,7 @@ def _inputs(B, S, H, P, N, seed):
     f = lambda *s: rng.randn(*s).astype(np.float32)
     return [f(B, S, H, P),
             np.logaddexp(f(B, S, H) - 2.0, 0).astype(np.float32),
-            -np.exp(f(H) * 0.3).astype(np.float32),
+            -a_scale * np.exp(f(H) * 0.3).astype(np.float32),
             f(B, S, N), f(B, S, N), f(B, H, P, N),
             f(B, S, H, P), f(B, H, P, N)]
 
@@ -99,3 +112,33 @@ def test_phased_backward_keeps_the_input_dtypes():
     want = ssd_ops.ssd_bwd(*tins, states, torch.from_numpy(dy), None, 32)
     for a, w in zip(got, want):
         assert a.dtype == w.dtype and a.shape == w.shape
+
+
+# B, S, H, P, N, chunk, initial state, A's scale (1e-3: decays near one)
+FWD_CASES = [case[:7] + (1.0,) for case in CASES] + [
+    (2, 256, 9, 16, 32, 64, True, 1e-3),
+    (1, 512, 3, 16, 16, 256, True, 1.0)]     # 4 tiles a chunk, 6 below
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_phased_forward_matches_the_plain_scan_jax_and_pallas(case):
+    B, S, H, P, N, chunk, init, a_scale = case
+    x, dt, A, Bm, Cm, s0, _, _ = _inputs(B, S, H, P, N, seed=S + H,
+                                         a_scale=a_scale)
+    s0 = s0 if init else None
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    tins = [t(a) for a in (x, dt, A, Bm, Cm)]
+    got = R.ssd_fwd_phased_plain(*tins, chunk, t(s0))
+    plain = R.ssd_fwd_plain(*tins, chunk, t(s0))
+    for name, a, b in zip(("y", "final", "states"), got, plain):
+        assert a.dtype == b.dtype == torch.float32, name
+        assert a.shape == b.shape, name
+        _close(a.numpy(), b.numpy(), f"{name} vs ssd_fwd_plain")
+    jins = list(map(jnp.asarray, (x, dt, A, Bm, Cm)))
+    jy, jfin = JSSM.ssd_chunked(*jins, chunk=chunk, init_state=None
+                                if s0 is None else jnp.asarray(s0))
+    _close(got[0].numpy(), jy, "y vs ssd_chunked")
+    _close(got[1].numpy(), jfin, "final vs ssd_chunked")
+    y0 = got[0] if s0 is None else R.ssd_fwd_phased_plain(*tins, chunk)[0]
+    _close(y0.numpy(), jssd_scan(*jins, chunk=chunk, interpret=True),
+           "y vs the Pallas kernel")
