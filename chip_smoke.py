@@ -43,11 +43,14 @@ Phases, each reported on its own line:
 5. the serving path: phi4-mini-3.8b at full width and depth (bf16
    params from seeded ``torch.Generator``s) serves 6 requests on 4
    slots under a ``CheckpointSession`` with chained snapshots, is
-   killed about half way, comes back through ``restore("latest")`` and
+   killed about half way, comes back through ``restore("latest")``,
+   then that step again through ``restore(step, streaming=True)`` (the
+   KV cache the cold tier, landed by the first decode step), and each
    must finish every request token for token as the uninterrupted run
-   did — once with sparse capture on, once with ``sparse=False``. Every
-   codec kernel must have launched, and no flash kernel (serving never
-   takes the training route);
+   did — once with sparse capture on, once with ``sparse=False``; it
+   logs each restore's return time, the time to its first decoded token
+   and ``stream_timings()``. Every codec kernel must have launched, and
+   no flash kernel (serving never takes the training route);
 6. the hybrid path: recurrentgemma-9b-smoke in f32, card against CPU —
    a prefill past the attention window and greedy decode steps (logits
    and every cache leaf, the unstacked remainder blocks' too, within
@@ -64,7 +67,15 @@ Phases, each reported on its own line:
    capture, killed while the first wave is in flight, restored through
    ``restore("latest")``: every request token for token as the
    uninterrupted run, the capture kernels launched, no flash, SSD or
-   RG-LRU kernel during decode or replay;
+   RG-LRU kernel during decode or replay; then the ssm serving cell:
+   mamba2-780m at full width and depth (48 layers, 780,148,992 params
+   counted from the tensors) serves 6 requests of 16-48 tokens on 4 slots, 24 new tokens
+   each (admission by replay, timed per token), its decode profiled
+   (ms a step, device idle share), then under ``Policy(interval=4,
+   chain=4)`` with sparse capture it is killed while the first wave is
+   in flight and restored eagerly, then streamed: every request token
+   for token each time, the capture kernels launched, no flash, SSD or
+   RG-LRU kernel;
 7. the training paths, one per cell of ``TRAIN_CELLS``: one f32 step of
    the smoke model on the card matches the same step on the CPU; then
    the model at full width (and depth, unless the cell cuts it) trains
@@ -87,8 +98,13 @@ Phases, each reported on its own line:
    manifest's codec leaves must carry the blobs of the plain version's
    codes, the restored moments must be its dequantize(quantize(m)) bit
    for bit, params, step and cursor bit-identical, and each kernel must
-   have launched once per codec leaf with no plain or host codec call.
-   Every phase logs the run's running total of snapshot bytes written.
+   have launched once per codec leaf with no plain or host codec call;
+   then the same step restored streamed (``opt_state`` the cold tier,
+   fetched from the 4 virtual hosts) and 2 steps: moments, params, step,
+   cursor and both losses bit-identical to the eager restore, one
+   dequantize launch per codec leaf, no plain or host codec call.
+   Every phase logs its seconds and the run's running total of snapshot
+   bytes written.
 
 Before the last line it prints ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
@@ -775,13 +791,37 @@ def check_small_reference(torch, M, get_smoke_config):
         f"card match the CPU within 1e-4 (max abs diff {worst:.2e})")
 
 
+def time_admission(torch, eng, acc):
+    """Time each admission of ``eng`` (prefill or replay of a request's
+    history, synchronized) into ``acc``: seconds and history tokens."""
+    bind = eng._bind_slot
+
+    def timed(s, req):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        bind(s, req)
+        torch.cuda.synchronize()
+        acc["s"] += time.monotonic() - t0
+        acc["tokens"] += len(req.prompt) + len(req.out) - 1
+    eng._bind_slot = timed
+
+
+def per_token_ms(acc) -> str:
+    return (f"{acc['s'] / max(acc['tokens'], 1) * 1e3:.1f} ms a token "
+            f"({acc['tokens']} tokens in {acc['s']:.2f} s)")
+
+
 def serve(torch, ServingEngine, Request, arch, params, prompts, *,
-          n_slots, max_seq, max_new, sess=None, kill_at=None):
+          n_slots, max_seq, max_new, sess=None, kill_at=None,
+          admission=None):
     """Serve ``prompts`` on a new engine for ``arch`` (under ``sess``
-    when given) until every request is done or ``kill_at`` steps ran.
-    Returns (engine, requests, tokens, seconds)."""
+    when given) until every request is done or ``kill_at`` steps ran,
+    timing admissions into ``admission`` when given. Returns (engine,
+    requests, tokens, seconds)."""
     eng = ServingEngine.create(arch, params, n_slots=n_slots, max_seq=max_seq,
                                manager=sess.manager if sess else None)
+    if admission is not None:
+        time_admission(torch, eng, admission)
     if sess is not None:
         sess.attach(eng)
     reqs = [Request(rid=i, prompt=p.copy(), max_new=max_new)
@@ -797,6 +837,65 @@ def serve(torch, ServingEngine, Request, arch, params, prompts, *,
             sess.maybe_snapshot()
     torch.cuda.synchronize()
     return eng, reqs, tokens, time.monotonic() - t0
+
+
+def restore_and_finish(torch, store, policy, params, step, done, ref, *,
+                       streaming, label):
+    """Restore the serving checkpoint ``step`` of ``store`` (eagerly, or
+    streamed with the KV cache as the cold tier) and finish every
+    request; raises unless each one's tokens equal ``ref`` (the
+    uninterrupted run's), with ``done`` the requests that finished
+    before the kill. Returns what the restore took: ``restore()``'s
+    return time, the time to the first decoded token (the first engine
+    step, admission and the deferred cache merge included), the
+    incarnation's timings, ``stream_timings()`` and the admissions'."""
+    from repro_torch.api import CheckpointSession
+    admission = {"s": 0.0, "tokens": 0}
+    t0 = time.monotonic()
+    sess = CheckpointSession(f"localfs:{store}", policy)
+    eng = sess.restore(step, params=params, streaming=streaming)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    time_admission(torch, eng, admission)
+    back, live = eng.steps, eng.live_requests()
+    live_slots = sum(1 for r in eng.slot_req if r is not None)
+    eng.step()
+    torch.cuda.synchronize()
+    first_s = time.monotonic() - t0
+    eng.run_until_drained()
+    torch.cuda.synchronize()
+    got = dict(done)
+    got.update({r.rid: list(r.out) for r in live})
+    if got != ref:
+        bad = sorted(k for k in ref if got.get(k) != ref[k])
+        raise AssertionError(f"{label} ({'streamed' if streaming else 'eager'}"
+                             f" restore): restored run diverged from the "
+                             f"uninterrupted run on {bad}")
+    out = dict(step=back, restore_s=restore_s, first_token_s=first_s,
+               live_slots=live_slots, timings=dict(eng.incarnation.timings),
+               stream=eng.incarnation.stream_timings(), admission=admission)
+    sess.close()
+    del eng, sess
+    torch.cuda.empty_cache()
+    return out
+
+
+def describe_restore(r) -> str:
+    t = r["timings"]
+    msg = (f"restore() returned in {r['restore_s']:.2f} s (materialize "
+           f"{t.get('materialize_s', 0):.2f} s, replay "
+           f"{t.get('replay_s', 0):.2f} s), first token "
+           f"{r['first_token_s']:.2f} s after it began")
+    st = r["stream"]
+    if st is not None:
+        msg += (f"; stream: hot tier {st.get('hot_ready_s', 0):.2f} s, "
+                f"fetch {st['fetch_s']:.2f} s, bytes per source "
+                f"{st['fetch_bytes_per_source']}, decode busy "
+                f"{st['decode_busy_s']:.2f} s ({st['decode_overlap_pct']:.0f}%"
+                f" overlapping fetch), hot/cold leaves {st['hot_leaves']}/"
+                f"{st['cold_leaves']}, lazy faults {st['lazy_faults']}, "
+                f"hedges {st['hedges']} (won {st['hedge_wins']})")
+    return msg
 
 
 def profile_decode(torch, np, eng, Request, prompts) -> None:
@@ -895,24 +994,14 @@ def main_path(torch, np, ops, fa):
             sess.close()
             del eng, sess                       # the kill
             torch.cuda.empty_cache()
-            t0 = time.monotonic()
-            sess2 = CheckpointSession(f"localfs:{store}", policy)
-            eng2 = sess2.restore("latest", params=params)
-            torch.cuda.synchronize()
-            restore_s = time.monotonic() - t0
-            step_restored = eng2.steps
-            live = eng2.live_requests()
-            eng2.run_until_drained()
-            torch.cuda.synchronize()
-            got = dict(done)
-            got.update({r.rid: list(r.out) for r in live})
-            if got != ref:
-                bad = sorted(k for k in ref if got.get(k) != ref[k])
-                raise AssertionError(f"{label}: restored run diverged from "
-                                     f"the uninterrupted run on {bad}")
-            timings = eng2.incarnation.timings
-            sess2.close()
-            del eng2
+            # the same step restored twice: eagerly, then streamed (the
+            # KV cache the cold tier, landed by the first decode step)
+            eager = restore_and_finish(torch, store, policy, params,
+                                       "latest", done, ref, streaming=False,
+                                       label=label)
+            streamed = restore_and_finish(torch, store, policy, params,
+                                          eager["step"], done, ref,
+                                          streaming=True, label=label)
         finally:
             shutil.rmtree(store, ignore_errors=True)
         after = ops.counts("cuda")
@@ -921,9 +1010,10 @@ def main_path(torch, np, ops, fa):
                     for k, v in ops.fused_outcomes().items()}
         saves = max(st["saves"], 1)
         log(f"{label}: killed at step {total_steps // 2}, restored step "
-            f"{step_restored} in {restore_s:.2f} s (materialize "
-            f"{timings.get('materialize_s', 0):.2f} s, replay "
-            f"{timings.get('replay_s', 0):.2f} s); all {N_REQ} requests "
+            f"{eager['step']}; eager: {describe_restore(eager)}; all "
+            f"{N_REQ} requests token-identical to the uninterrupted run")
+        log(f"{label}: streamed restore of step {streamed['step']}: "
+            f"{describe_restore(streamed)}; all {N_REQ} requests "
             f"token-identical to the uninterrupted run")
         log(f"{label}: {st['saves']} snapshots ({st['chain_links']} chain "
             f"links), decode {toks / dt:.1f} tokens/s with snapshots, "
@@ -1125,6 +1215,86 @@ def prefill_vs_replay(torch, M, ServingEngine, rg, cfg, params, prompts):
     return out, logits
 
 
+def serving_cell(torch, mods, arch, params, prompts, *, serve_kw, policy_kw,
+                 label, streamed, profile=None):
+    """A serving cell under C/R: ``prompts`` served uninterrupted (then
+    ``profile(engine)`` when given), then again under a
+    ``CheckpointSession`` with ``policy_kw``, killed two steps before
+    half way so the last snapshot falls while the first wave of
+    requests is in flight, restored through ``restore("latest")`` and,
+    with ``streamed``, that step again streamed: every request token for
+    token as the uninterrupted run. Every kernel count is set to 0 just
+    before the uninterrupted run and read after the last restore; raises
+    unless the capture kernels launched and no flash, SSD or RG-LRU
+    kernel ran (decode and replay admission take none). Returns the
+    counts."""
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.serving.engine import Request, ServingEngine
+    _reset_all(mods)
+    admission = {"s": 0.0, "tokens": 0}
+    eng, reqs, toks_n, dt = serve(torch, ServingEngine, Request, arch,
+                                  params, prompts, **serve_kw,
+                                  admission=admission)
+    ref = {r.rid: list(r.out) for r in reqs}
+    total_steps = eng.steps
+    if not all(len(v) == serve_kw["max_new"] for v in ref.values()):
+        raise AssertionError(f"{label}: the uninterrupted run did not finish")
+    log(f"{label} uninterrupted: {total_steps} engine steps, {toks_n} tokens "
+        f"in {dt:.2f} s = {toks_n / dt:.1f} tokens/s (admission included); "
+        f"admission {per_token_ms(admission)}")
+    if profile is not None:
+        profile(eng)
+    del eng
+    kill_at = total_steps // 2 - 2
+    policy = Policy(**policy_kw)
+    store = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        sess = CheckpointSession(f"localfs:{store}", policy)
+        eng, reqs, toks_n, dt = serve(torch, ServingEngine, Request, arch,
+                                      params, prompts, **serve_kw, sess=sess,
+                                      kill_at=kill_at)
+        sess.wait()
+        st = dict(sess.stats)
+        done = {r.rid: list(r.out) for r in reqs if r.done}
+        in_flight = sum(1 for r in eng.slot_req if r is not None)
+        sess.close()
+        del eng, sess                                    # the kill
+        torch.cuda.empty_cache()
+        restores = [restore_and_finish(torch, store, policy, params,
+                                       "latest", done, ref, streaming=False,
+                                       label=label)]
+        if streamed:
+            restores.append(restore_and_finish(
+                torch, store, policy, params, restores[0]["step"], done, ref,
+                streaming=True, label=label))
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    counts = _all_counts(mods)
+    log(f"{label}: {count_written(st)}")
+    saves = max(st["saves"], 1)
+    log(f"{label}: killed at step {kill_at} ({in_flight} requests in flight),"
+        f" {st['saves']} snapshots ({st['chain_links']} chain links), capture "
+        f"stall {st['capture_seconds'] / saves * 1e3:.1f} ms per snapshot, "
+        f"encode+commit {st['encode_commit_seconds'] / saves:.2f} s, "
+        f"dirty/clean chunks {st['dirty_chunks']}/{st['clean_chunks']}, "
+        f"bytes written {st['bytes_written']}")
+    for r in restores:
+        log(f"{label}: {'streamed' if r['stream'] else 'eager'} restore of "
+            f"step {r['step']} ({r['live_slots']} slots live): "
+            f"{describe_restore(r)}; admission after it "
+            f"{per_token_ms(r['admission'])}; all {len(ref)} requests "
+            f"token-identical to the uninterrupted run")
+    log(f"{label}: kernel launches {counts}")
+    if not all(counts["codec"][k] for k in ("fingerprint", "fused_capture")):
+        raise AssertionError(f"{label} missed a capture kernel: "
+                             f"{counts['codec']}")
+    ran = {k: v for name in ("flash", "ssd", "rg_lru")
+           for k, v in counts[name].items() if v}
+    if ran:
+        raise AssertionError(f"{label}: decode or replay launched {ran}")
+    return counts
+
+
 def hybrid_path(torch, np, mods):
     """The hybrid family's path (see the module docstring): the smoke
     model card against CPU; recurrentgemma-9b at full width and depth
@@ -1133,7 +1303,6 @@ def hybrid_path(torch, np, mods):
     held against the engine's replay admission, and it serves under C/R
     through kill -> restore("latest"). Every kernel count is set to 0
     just before each run of the path and read just after it."""
-    from repro_torch.api import CheckpointSession, Policy
     from repro_torch.configs import get_smoke_config, resolve_config
     from repro_torch.configs.registry import get_shape
     from repro_torch.core.split_state import LowerHalf
@@ -1235,75 +1404,60 @@ def hybrid_path(torch, np, mods):
                              f"{worst[0]:.2e} > {F32_REL}")
 
     # --- serving under C/R
-    _reset_all(mods)
-    eng, reqs, toks_n, dt = serve(torch, ServingEngine, Request, HYBRID_ARCH,
-                                  params, prompts, **HYBRID_SERVE)
-    ref = {r.rid: list(r.out) for r in reqs}
-    total_steps = eng.steps
-    if not all(len(v) == HYBRID_SERVE["max_new"] for v in ref.values()):
-        raise AssertionError("uninterrupted hybrid run did not finish")
-    log(f"hybrid uninterrupted: {total_steps} engine steps, {toks_n} tokens "
-        f"in {dt:.2f} s = {toks_n / dt:.1f} tokens/s (replay admission "
-        f"included)")
-    del eng
-    # the last snapshot before the kill falls while the first wave of
-    # requests is in flight, so the restore rebinds live slot state
-    kill_at = total_steps // 2 - 2
-    policy = Policy(**HYBRID_POLICY)
-    store = tempfile.mkdtemp(prefix="chip_smoke_hybrid_")
-    try:
-        sess = CheckpointSession(f"localfs:{store}", policy)
-        eng, reqs, toks_n, dt = serve(torch, ServingEngine, Request,
-                                      HYBRID_ARCH, params, prompts,
-                                      **HYBRID_SERVE, sess=sess,
-                                      kill_at=kill_at)
-        sess.wait()
-        st = dict(sess.stats)
-        done = {r.rid: list(r.out) for r in reqs if r.done}
-        in_flight = sum(1 for r in eng.slot_req if r is not None)
-        sess.close()
-        del eng, sess                                    # the kill
-        torch.cuda.empty_cache()
-        t0 = time.monotonic()
-        sess2 = CheckpointSession(f"localfs:{store}", policy)
-        eng2 = sess2.restore("latest", params=params)
-        torch.cuda.synchronize()
-        restore_s = time.monotonic() - t0
-        back, live = eng2.steps, eng2.live_requests()
-        live_slots = sum(1 for r in eng2.slot_req if r is not None)
-        eng2.run_until_drained()
-        torch.cuda.synchronize()
-        got = dict(done)
-        got.update({r.rid: list(r.out) for r in live})
-        sess2.close()
-        del eng2
-    finally:
-        shutil.rmtree(store, ignore_errors=True)
-    counts = _all_counts(mods)
-    log(f"hybrid serving: {count_written(st)}")
-    if got != ref:
-        bad = sorted(k for k in ref if got.get(k) != ref[k])
-        raise AssertionError(f"hybrid restored run diverged on {bad}")
-    saves = max(st["saves"], 1)
-    log(f"hybrid serving: killed at step {kill_at} ({in_flight} requests in "
-        f"flight), restored step {back} ({live_slots} slots live) in "
-        f"{restore_s:.2f} s; all {HYBRID_N_REQ} requests token-identical to "
-        f"the uninterrupted run; {st['saves']} snapshots ({st['chain_links']}"
-        f" chain links), capture stall {st['capture_seconds'] / saves * 1e3:.1f}"
-        f" ms per snapshot, encode+commit {st['encode_commit_seconds'] / saves:.2f}"
-        f" s, dirty/clean chunks {st['dirty_chunks']}/{st['clean_chunks']}, "
-        f"bytes written {st['bytes_written']}; kernel launches {counts}")
-    if not all(counts["codec"][k] for k in ("fingerprint", "fused_capture")):
-        raise AssertionError(f"hybrid serving missed a capture kernel: "
-                             f"{counts['codec']}")
-    ran = {k: v for name in ("flash", "ssd", "rg_lru")
-           for k, v in counts[name].items() if v}
-    if ran:
-        raise AssertionError(f"decode or replay launched {ran}")
+    serving_cell(torch, mods, HYBRID_ARCH, params, prompts,
+                 serve_kw=HYBRID_SERVE, policy_kw=HYBRID_POLICY,
+                 label="hybrid serving", streamed=False)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return {"rg_lru_fwd": launches}
+
+
+SSM_SERVE_ARCH = "mamba2-780m"
+# replay admission costs ~0.1 s a token at full depth, so the prompts
+# are short: 6 requests of 16-48 tokens on 4 slots, 24 new tokens each
+SSM_SERVE = dict(n_slots=4, max_seq=1024, max_new=24)
+SSM_N_REQ, SSM_PROMPT_LENS = 6, (16, 49)
+SSM_POLICY = dict(interval=4, chain=4)
+
+
+def ssm_serving_path(torch, np, mods):
+    """The ssm family's serving cell: mamba2-780m at full width and depth
+    (48 layers, params from seeded generators) serves 6 requests on
+    4 slots (admission by replay), its decode profiled, then under
+    ``Policy(interval=4, chain=4)`` with sparse capture it is killed
+    while the first wave is in flight and restored eagerly, then
+    streamed (``serving_cell``)."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request
+    from repro_torch.tree import flatten_with_paths
+
+    cfg = resolve_config(SSM_SERVE_ARCH)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for _, v in flatten_with_paths(params))
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.randint(*SSM_PROMPT_LENS, size=SSM_N_REQ)]
+    log(f"ssm serving: {SSM_SERVE_ARCH} full width and depth ({cfg.n_layers} "
+        f"layers, d_model {cfg.d_model}), {n_params} params counted from the "
+        f"tensors (ModelConfig.n_params() says {cfg.n_params()}), made in "
+        f"{time.monotonic() - t0:.1f} s; {SSM_N_REQ} requests, prompts "
+        f"{[len(p) for p in prompts]} tokens, max_new {SSM_SERVE['max_new']}, "
+        f"{SSM_SERVE['n_slots']} slots, max_seq {SSM_SERVE['max_seq']}")
+    # the decode profile admits 4 more requests: 4-token prompts keep
+    # their replay short
+    short = [p[:4] for p in prompts]
+    counts = serving_cell(
+        torch, mods, SSM_SERVE_ARCH, params, prompts, serve_kw=SSM_SERVE,
+        policy_kw=SSM_POLICY, label="ssm serving", streamed=True,
+        profile=lambda eng: profile_decode(torch, np, eng, Request, short))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
 
 
 def check_train_reference(torch, np, kern, arch, shape_key, mode):
@@ -1637,7 +1791,10 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
     uncoded steps'; the codec is lossy), (f) the SSD kernels launched
     once per layer and step (the forward twice, under remat). Every
     kernel count is set to 0 just before the snapshot and read after
-    the last step."""
+    the last step. Then the same step is restored streamed and takes 2
+    steps, its counts set to 0 just before: it must be the eager
+    restore's bits (moments, params, step, cursor, losses) with one
+    dequantize launch per codec leaf and no plain or host codec call."""
     from repro_torch.api import CheckpointSession, Policy
     from repro_torch.core import delta as D
     from repro_torch.kernels.ckpt_codec import ref as R
@@ -1662,6 +1819,20 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
         f"{(2 * n_params + 4 * n_mom) / 1e9:.2f} GB")
     host_calls = {"quantize_ref": 0, "dequantize_ref": 0}
     originals = {k: getattr(R, k) for k in host_calls}
+
+    def off_plain(trainer):
+        """The codec leaves of ``trainer``'s moments that are not the
+        plain dequantize(quantize(clone)) bit for bit."""
+        bad = []
+        for p, v in flatten_with_paths(trainer.upper.get("opt_state")):
+            if p in clone:
+                q, sc = ops.quantize_plain(clone[p])
+                want = ops.dequantize_plain(q, sc)[:v.numel()].view(v.shape)
+                if not torch.equal(v.view(torch.int32),
+                                   want.view(torch.int32)):
+                    bad.append(p)
+                del q, sc, want
+        return bad
 
     def counting(name):
         def call(*a, **kw):
@@ -1718,16 +1889,7 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
         timings = tr.incarnation.timings
         codec_counts = ops.counts("cuda")
         plain_counts = ops.counts("cpu")
-        worst = []
-        for p, v in flatten_with_paths(tr.upper.get("opt_state")):
-            if p in clone:
-                q, sc = ops.quantize_plain(clone.pop(p))
-                want = ops.dequantize_plain(q, sc)[:v.numel()].view(v.shape)
-                if not torch.equal(v.view(torch.int32),
-                                   want.view(torch.int32)):
-                    worst.append(p)
-                del q, sc, want
-        del clone
+        worst = off_plain(tr)
         back = (tr.params_digest(), tr.checkpoint_step(),
                 int(tr.upper.get("data_cursor")))
         coded = [tr.train_steps(1)["loss"] for _ in range(2)]
@@ -1735,6 +1897,30 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
         peak = torch.cuda.max_memory_allocated()
         sess2.close()
         del tr, sess2
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = _all_counts(kernel_mods)
+        # the same step again, streamed: opt_state is the cold tier,
+        # fetched from the 4 virtual hosts while params bind; counts set
+        # to 0 just before this restore, read after its 2 steps
+        _reset_all(kernel_mods)
+        t0 = time.monotonic()
+        sess3 = CheckpointSession(spec, policy)
+        tr = sess3.restore(step, expect_kind="train", streaming=True)
+        torch.cuda.synchronize()
+        stream_restore_s = time.monotonic() - t0
+        s_timings = dict(tr.incarnation.timings)
+        stream = tr.incarnation.stream_timings()
+        s_codec, s_plain = ops.counts("cuda"), ops.counts("cpu")
+        s_worst = off_plain(tr)
+        del clone
+        s_back = (tr.params_digest(), tr.checkpoint_step(),
+                  int(tr.upper.get("data_cursor")))
+        s_coded = [tr.train_steps(1)["loss"] for _ in range(2)]
+        torch.cuda.synchronize()
+        sess3.close()
+        del tr, sess3
+        s_counts = _all_counts(kernel_mods)
     finally:
         for k, fn in originals.items():
             setattr(R, k, fn)
@@ -1742,7 +1928,6 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
         shutil.rmtree(store, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    counts = _all_counts(kernel_mods)
     saves = max(st["saves"], 1)
     log(f"codec path: snapshot of step {step} into {spec}: capture stall "
         f"{st['capture_seconds'] / saves:.2f} s, capture_bytes "
@@ -1782,6 +1967,43 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
         f"plain version's blobs, restored bit for bit as its dequantize("
         f"quantize(m)) on the card, params/step/cursor bit-identical; all "
         f"counts {counts}")
+    log(f"codec path: streamed restore of step {s_back[1]} in "
+        f"{stream_restore_s:.1f} s (eager {restore_s:.1f} s; materialize "
+        f"{s_timings.get('materialize_s', 0):.1f} s to the hot tier, replay "
+        f"{s_timings.get('replay_s', 0):.2f} s, rebind "
+        f"{s_timings.get('rebind_s', 0):.1f} s); stream: fetch "
+        f"{stream['fetch_s']:.1f} s, bytes per source "
+        f"{stream['fetch_bytes_per_source']}, MB/s per source "
+        f"{ {k: round(v, 1) for k, v in stream.get('fetch_mb_s_per_source', {}).items()} }, "
+        f"decode busy {stream['decode_busy_s']:.1f} s "
+        f"({stream['decode_overlap_pct']:.0f}% overlapping fetch), hot/cold "
+        f"leaves {stream['hot_leaves']}/{stream['cold_leaves']}, lazy faults "
+        f"{stream['lazy_faults']}, hedges {stream['hedges']}; losses after "
+        f"it {s_coded}; codec launches {s_codec}, plain calls {s_plain}, "
+        f"host reference calls {host_calls}; all counts {s_counts}")
+    if s_codec["dequantize"] != n_leaves or s_codec["quantize"] \
+            or any(s_plain.values()) or any(host_calls.values()):
+        raise AssertionError(f"streamed restore's codec route: {s_codec} for "
+                             f"{n_leaves} leaves, plain {s_plain}, host "
+                             f"{host_calls}")
+    if s_worst:
+        raise AssertionError(f"streamed restore: moments differ from the "
+                             f"plain dequantize(quantize(m)): {s_worst[:4]}")
+    if s_back != back or s_coded != coded:
+        raise AssertionError(f"streamed restore: params/step/cursor {s_back} "
+                             f"and losses {s_coded} != the eager restore's "
+                             f"{back}, {coded}")
+    if len(stream["fetch_bytes_per_source"]) != CODEC_STORE_HOSTS:
+        raise AssertionError(f"streamed fetch did not fan out over the "
+                             f"{CODEC_STORE_HOSTS} hosts: "
+                             f"{stream['fetch_bytes_per_source']}")
+    expect_ssd = {"ssd_fwd": 2 * cfg.n_layers * 2, "ssd_bwd": cfg.n_layers * 2}
+    if s_counts["ssd"] != expect_ssd:
+        raise AssertionError(f"streamed: SSD launches {s_counts['ssd']}, "
+                             f"expected {expect_ssd}")
+    log(f"codec path: the streamed restore is bit-identical to the eager one "
+        f"(moments, params, step, cursor, the 2 losses), with "
+        f"{s_codec['dequantize']} dequantize launches")
     return {k: codec_counts[k] for k in ("quantize", "dequantize")}
 
 
@@ -1843,16 +2065,25 @@ def main() -> int:
             f"{info['seconds']:.1f} s; ptxas: "
             + "; ".join(ptxas_summary(info.get("ptxas", ""))))
 
-    kernels = check_kernels(torch, ops, ref)
-    kernels.update(check_codec(torch, ops, ref))
-    kernels.update(check_flash(torch, fa))
-    kernels.update(check_ssd(torch, ssd, ssd_ref))
-    kernels.update(check_rglru(torch, rg, rg_ref, ssd_ref.within))
-    launches = main_path(torch, np, ops, fa)
+    def phase(name, fn, *args):
+        t = time.monotonic()
+        out = fn(*args)
+        log(f"phase {name}: {time.monotonic() - t:.1f} s")
+        return out
+
+    kernels = phase("check_kernels", check_kernels, torch, ops, ref)
+    kernels.update(phase("check_codec", check_codec, torch, ops, ref))
+    kernels.update(phase("check_flash", check_flash, torch, fa))
+    kernels.update(phase("check_ssd", check_ssd, torch, ssd, ssd_ref))
+    kernels.update(phase("check_rglru", check_rglru, torch, rg, rg_ref,
+                         ssd_ref.within))
+    launches = phase("main_path", main_path, torch, np, ops, fa)
     mods = {"codec": ops, "flash": fa, "ssd": ssd, "rg_lru": rg}
-    launches.update(hybrid_path(torch, np, mods))
+    launches.update(phase("hybrid_path", hybrid_path, torch, np, mods))
+    phase("ssm_serving_path", ssm_serving_path, torch, np, mods)
     for cell in TRAIN_CELLS:
-        launches.update(train_path(torch, np, mods, cell))
+        launches.update(phase(f"train_path {cell['arch']}", train_path,
+                              torch, np, mods, cell))
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -89,13 +89,17 @@ class RestoreContext:
     def __init__(self, manager, step: int, job: Dict[str, Any], *,
                  mesh_factory: Optional[Callable] = None,
                  rewrite_op: Optional[Callable] = None,
-                 decode_workers: Optional[int] = None) -> None:
+                 decode_workers: Optional[int] = None,
+                 streaming: bool = False,
+                 lazy_kinds=None) -> None:
         self.manager = manager
         self.step = step
         self.job = dict(job)
         self.mesh_factory = mesh_factory
         self.rewrite_op = rewrite_op
         self.decode_workers = decode_workers
+        self.streaming = streaming
+        self.lazy_kinds = lazy_kinds
         self._inc = None
 
     # --- advanced surface (binders) ------------------------------------
@@ -113,7 +117,9 @@ class RestoreContext:
                 mesh_factory=mesh_factory or self.mesh_factory,
                 rewrite_op=rewrite_op or self.rewrite_op,
                 decode_workers=self.decode_workers,
-                skip_entries=skip_entries)
+                skip_entries=skip_entries,
+                streaming=self.streaming,
+                lazy_kinds=self.lazy_kinds)
         return self._inc
 
     def _ready(self):

@@ -49,8 +49,8 @@ class Policy:
     ``streaming_restore`` restore-side default: stream the payload
                    (return at hot-tier-decoded, cold entries page in on
                    first touch) instead of materializing it as one
-                   barrier. The port has no streaming restore yet
-                   (ROADMAP A4): True is refused.
+                   barrier. Bit-identical either way; an explicit
+                   ``streaming=`` at the restore call wins.
     ``lazy_kinds`` entry kinds the streaming restore defers to the cold
                    tier (None = the streaming default: optimizer
                    moments + KV cache).
@@ -118,10 +118,6 @@ class Policy:
                 f"{'/'.join(sparse_knobs)} set with sparse=False: the "
                 "dirty-chunk knobs have no effect — enable sparse or "
                 "drop them")
-        if self.streaming_restore:
-            raise PolicyError(
-                "streaming_restore=True: the port's streaming restore "
-                "waits for ROADMAP A4 (core/streaming.py)")
         if self.lazy_kinds is not None:
             if isinstance(self.lazy_kinds, str) \
                     or not all(isinstance(k, str) for k in self.lazy_kinds):

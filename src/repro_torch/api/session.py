@@ -172,17 +172,18 @@ class CheckpointSession:
         ``workers`` sizes the restore's fetch/decode pools, threaded
         through the incarnation to ``CheckpointManager.restore``
         (``decode_workers`` is the older spelling of the same knob).
-        ``streaming=True`` is refused: the port's streaming restore
-        waits for ROADMAP A4."""
+        ``streaming`` streams the payload — the app comes back once the
+        hot tier is decoded and cold entries page in on first touch —
+        with None deferring to ``policy.streaming_restore``. Streaming
+        and eager restores are bit-identical."""
         if workers is not None and decode_workers is not None \
                 and workers != decode_workers:
             raise PolicyError(
                 f"workers={workers} and decode_workers={decode_workers} "
                 "are the same knob spelled twice; pass one")
         workers = workers if workers is not None else decode_workers
-        if streaming:
-            raise PolicyError("streaming restore waits for ROADMAP A4 "
-                              "(core/streaming.py); restore eagerly")
+        if streaming is None:
+            streaming = self.policy.streaming_restore
         if step in (None, "latest"):
             resolved = self.manager.resolve_step(None)
         else:
@@ -195,7 +196,9 @@ class CheckpointSession:
         ctx = RestoreContext(self.manager, resolved, job,
                              mesh_factory=mesh_factory,
                              rewrite_op=rewrite_op,
-                             decode_workers=workers)
+                             decode_workers=workers,
+                             streaming=bool(streaming),
+                             lazy_kinds=self.policy.lazy_kinds)
         return self.attach(binder(ctx, **app_kwargs))
 
     # --- not ported yet ------------------------------------------------

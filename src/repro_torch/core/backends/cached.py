@@ -22,8 +22,7 @@ Division of labor:
   restore's fetch fan-out gets both tiers as independent hedgeable
   sources from ``blob_sources`` below — a fetch served by the remote
   store still warms the cache, which is how a streaming restore doubles
-  as a cache-priming pass. (The port's streaming restore waits for
-  ROADMAP A4; ``blob_sources`` is kept for it.)
+  as a cache-priming pass.
 """
 from __future__ import annotations
 

@@ -46,9 +46,16 @@ class RestoredState:
     step: int
     manifest: Dict[str, Any]
     # entry -> leaf path -> np.ndarray (bfloat16 as its uint16 bit view;
-    # an int8 codec leaf as a delta.Int8Leaf that reads as one)
+    # an int8 codec leaf as a delta.Int8Leaf that reads as one). Under a
+    # streaming restore, cold entries are LazyLeaves (Mapping) still
+    # decoding in the background; every consumer below this dataclass
+    # speaks Mapping, so the distinction is invisible except to whoever
+    # reads `streamer`.
     entries: Dict[str, Dict[str, np.ndarray]]
     oplog: OpLog
+    # the StreamingMaterializer that owns in-flight cold entries (None
+    # for an eager restore) — per-source/overlap stats and bulk waits
+    streamer: Any = None
 
 
 class CheckpointManager:
@@ -153,20 +160,38 @@ class CheckpointManager:
 
     def restore(self, step: Optional[int] = None,
                 workers: Optional[int] = None,
-                skip_entries=()) -> RestoredState:
+                skip_entries=(), *, streaming: bool = False,
+                lazy_kinds=None) -> RestoredState:
         """Materialize a committed checkpoint's delta chain into host
         arrays. ``workers`` sizes the leaf-decode pool (restore latency
         matters as much as checkpoint overhead — CRIUgpu's point);
         ``skip_entries`` names entries the caller will rebuild instead
-        of rebind, left undecoded. (A streaming restore waits for
-        ROADMAP A4.) The full restart lifecycle on top of this is
-        ``core.incarnation``."""
+        of rebind, left undecoded.
+
+        ``streaming=True`` returns as soon as the hot tier (op-log,
+        session state, params) is decoded: entries of the cold kinds
+        (``lazy_kinds``, default optimizer moments + KV cache) are
+        ``LazyLeaves`` placeholders that keep fetching/decoding in the
+        background and block their first toucher — bit-identical to the
+        eager path, earlier by the cold tier's fetch+decode time. The
+        full restart lifecycle on top of this is ``core.incarnation``."""
         step = self.resolve_step(step)
-        manifest, entries = materialize_manifest_chain(
-            self.backend, step, workers=workers, skip_entries=skip_entries)
+        streamer = None
+        if streaming:
+            from repro_torch.core.streaming import (DEFAULT_LAZY_KINDS,
+                                                    materialize_streaming)
+            manifest, entries, streamer = materialize_streaming(
+                self.backend, step, workers=workers,
+                skip_entries=skip_entries,
+                lazy_kinds=(DEFAULT_LAZY_KINDS if lazy_kinds is None
+                            else lazy_kinds))
+        else:
+            manifest, entries = materialize_manifest_chain(
+                self.backend, step, workers=workers,
+                skip_entries=skip_entries)
         oplog = OpLog.from_json(manifest["oplog"])
         return RestoredState(step=step, manifest=manifest, entries=entries,
-                             oplog=oplog)
+                             oplog=oplog, streamer=streamer)
 
     # retention GC lives in the pipeline (AsyncSnapshotter.gc) and runs
     # on the encode thread after each commit when keep_last is set — do

@@ -53,7 +53,9 @@ class Incarnation:
                  mesh_factory: Optional[Callable] = None,
                  rewrite_op: Optional[Callable[[Op], Op]] = None,
                  decode_workers: Optional[int] = None,
-                 skip_entries: Optional[List[str]] = None) -> None:
+                 skip_entries: Optional[List[str]] = None,
+                 streaming: bool = False,
+                 lazy_kinds=None) -> None:
         self.manager = manager
         self.step = step
         self.mesh_factory = mesh_factory
@@ -63,6 +65,12 @@ class Incarnation:
         # KV cache on a re-slot restore) — skipped at decode, so their
         # chains never inflate materialize latency
         self.skip_entries = tuple(skip_entries or ())
+        # streaming: materialize() returns at hot-tier-decoded instead
+        # of everything-decoded; cold entries (lazy_kinds) page in on
+        # first touch while replay/rebind proceed (core.streaming)
+        self.streaming = streaming
+        self.lazy_kinds = lazy_kinds
+        self.streamer = None
         self.restored: Optional[RestoredState] = None
         self.lower: Optional[LowerHalf] = None
         self.released = False
@@ -80,13 +88,26 @@ class Incarnation:
         chain length x state size. Unknown newer manifest formats are
         rejected up front rather than misread. The result is plain host
         arrays + the pruned op-log — everything restore needs, on any
-        topology."""
+        topology.
+
+        With ``streaming=True`` this returns once the *hot* tier is
+        decoded (``materialize_s`` then measures time-to-hot, the
+        latency the resumed app actually waits); the cold tier keeps
+        streaming behind replay and rebind, and ``stream_timings()``
+        reports the per-phase fetch/decode/fault counters."""
         if self.restored is not None:
             raise LifecycleError("materialize() already ran")
         t0 = time.monotonic()
+        kw: Dict[str, Any] = {}
+        if self.streaming:
+            kw["streaming"] = True
+            if self.lazy_kinds is not None:
+                kw["lazy_kinds"] = self.lazy_kinds
         self.restored = self.manager.restore(self.step,
                                              workers=self.decode_workers,
-                                             skip_entries=self.skip_entries)
+                                             skip_entries=self.skip_entries,
+                                             **kw)
+        self.streamer = self.restored.streamer
         self.step = self.restored.step
         self.timings["materialize_s"] = time.monotonic() - t0
         return self.restored
@@ -222,3 +243,16 @@ class Incarnation:
             return self.lower.mesh if self.lower is not None else None
         except Exception:
             return None
+
+    def stream_timings(self) -> Optional[Dict[str, Any]]:
+        """Per-phase streaming-restore counters (fetch bytes/s per
+        source, decode overlap %, lazy faults served, hedges won), or
+        None on an eager restore. Safe to call at any point after
+        materialize(); counters reflect progress so far, and the
+        snapshot is also folded into ``timings['stream']`` so a later
+        reader of the plain timings dict sees it."""
+        if self.streamer is None:
+            return None
+        t = self.streamer.timings()
+        self.timings["stream"] = t
+        return t

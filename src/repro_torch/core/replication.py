@@ -150,8 +150,8 @@ def blob_sources(backend, name: str) -> List[Tuple[str, Callable[[], bytes]]]:
     """Every place one blob can be read from, as ordered
     ``(label, read_callable)`` pairs — the preferred source first.
 
-    This is the streaming restore's fetch fan-out (the port's streaming
-    restore waits for ROADMAP A4): a ``ShardedBackend``
+    This is the streaming restore's fetch fan-out
+    (``core.streaming``): a ``ShardedBackend``
     exposes the primary copy on the owner host and the ``replica_`` copy
     on its (h+1)%N ring successor as *independent* sources, so the
     fetcher can hedge a slow or dead primary with its peer instead of

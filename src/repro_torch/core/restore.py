@@ -47,8 +47,16 @@ def materialize_entry(restored: RestoredState, name: str, template,
                       device: Optional[torch.device]):
     """Step 3 for one entry: path-matched host leaves -> tensors on
     ``device`` with the dtypes of ``template`` (a tree of tensors; a
-    bfloat16 leaf's host bytes arrive as their uint16 bit view)."""
-    host_tree = fill_like(template, restored.entries[name])
+    bfloat16 leaf's host bytes arrive as their uint16 bit view; an
+    ``int8`` codec leaf is dequantized on ``device`` as it lands)."""
+    by_path = restored.entries[name]
+    # a streaming restore hands us a LazyLeaves Mapping: binding a whole
+    # entry is a bulk page-in, so wait for it as one promoted batch
+    # instead of faulting leaf-by-leaf through fill_like
+    waiter = getattr(by_path, "wait", None)
+    if callable(waiter):
+        waiter()
+    host_tree = fill_like(template, by_path)
     return tree_map(lambda t, v: to_tensor(v, t.dtype, device),
                     template, host_tree)
 

@@ -154,6 +154,11 @@ class ServingEngine:
         self.slot_tok = np.zeros((n_slots, 1), np.int32)
         self.queue: List[Request] = []
         self.steps = 0
+        # streaming restore: the checkpointed KV cache still decoding in
+        # the background (LazyLeaves), and the slots admission filled
+        # while it was in flight — see _ensure_cache()
+        self._pending_cache = None
+        self._touched_slots: set = set()
         self._prefill_admission = (cfg.family not in ("ssm", "hybrid")
                                    and not cfg.is_encoder_decoder)
         # the axis of each cache leaf that holds the slot index
@@ -195,6 +200,7 @@ class ServingEngine:
         contents, slot bookkeeping (positions + pending tokens), every
         in-flight request (prompt, generated tokens, budget, identity)
         and the waiting queue. Params are the trainer's job, not ours."""
+        self._ensure_cache()   # never snapshot a half-paged-in cache
         up = UpperHalf()
         up.register("kv_cache", "cache", self.cache)
         up.register("sessions", "sessions", {
@@ -263,9 +269,21 @@ class ServingEngine:
                       for _, v in sorted(sched.get("queue", {}).items())]
 
         if not reslot:
-            host = fill_like(self.cache, inc.entry_paths("kv_cache"))
-            tree_map(lambda t, v: t.copy_(to_tensor(v, t.dtype, t.device)),
-                     self.cache, host)
+            kv = inc.entry_paths("kv_cache")
+            if callable(getattr(kv, "wait", None)):
+                # streaming restore: the KV cache is the cold tier.
+                # Keep serving on the fresh cache — admission can fill
+                # free slots while the checkpointed contents stream in —
+                # and land the restored bytes just before the next
+                # full-batch decode (_ensure_cache), the first moment
+                # anything reads other slots' columns.
+                self._pending_cache = kv
+                self._touched_slots = set()
+            else:
+                host = fill_like(self.cache, kv)
+                tree_map(lambda t, v: t.copy_(to_tensor(v, t.dtype,
+                                                        t.device)),
+                         self.cache, host)
             sess = tree_from_paths(inc.entry_paths("sessions"))
             self.slot_pos = np.asarray(sess["slot_pos"], np.int32).copy()
             self.slot_tok = np.asarray(
@@ -342,6 +360,11 @@ class ServingEngine:
         self.slot_req[s] = req
         self.slot_tok[s, 0] = int(seq[-1])
         self.slot_pos[s] = len(seq) - 1
+        if self._pending_cache is not None:
+            # admitted while the checkpointed cache is still streaming:
+            # this slot's column now holds fresh admission state that
+            # the deferred merge must not overwrite
+            self._touched_slots.add(s)
 
     def _prefill_slot(self, s: int, hist: np.ndarray) -> None:
         """One batch-1 prefill call instead of O(len) full-slot decodes:
@@ -383,9 +406,34 @@ class ServingEngine:
         tree_map(lambda full, sl, ax: full.narrow(ax, s, 1).copy_(sl),
                  self.cache, one, self._batch_axes)
 
+    def _ensure_cache(self) -> None:
+        """Land the streamed KV cache (first-touch page-in of the cold
+        tier). Admission runs *before* this in ``step()`` on purpose:
+        its prefill or replay runs while the restored cache is still
+        fetching and decoding in the background. The restored bytes land
+        in place (``copy_``, on the engine's device); slot columns that
+        admission already rewrote keep their fresh state — exactly the
+        state the eager path reaches by restoring first and letting
+        admission overwrite, so the two paths stay bit-identical."""
+        if self._pending_cache is None:
+            return
+        pending, self._pending_cache = self._pending_cache, None
+        pending.wait()
+        host = fill_like(self.cache, pending)
+        touched = sorted(self._touched_slots)
+        self._touched_slots = set()
+
+        def land(cur, v, ax):
+            keep = [cur.narrow(ax, s, 1).clone() for s in touched]
+            cur.copy_(to_tensor(v, cur.dtype, cur.device))
+            for s, col in zip(touched, keep):
+                cur.narrow(ax, s, 1).copy_(col)
+        tree_map(land, self.cache, host, self._batch_axes)
+
     def step(self) -> int:
         """One engine iteration; returns #active slots."""
         self._admit()
+        self._ensure_cache()
         active = [s for s in range(self.n_slots) if self.slot_req[s]]
         if not active:
             return 0

@@ -161,7 +161,10 @@ class Trainer:
     def bind(self, restore: RestoreContext) -> None:
         """Rebind the upper half onto this incarnation's device from a
         materialized, replayed restore context (the "train" binder
-        orders the phases)."""
+        orders the phases). Under a streaming restore ``opt_state`` is
+        the cold tier: ``inc.bind`` waits for it as one promoted batch
+        after the params have bound (``core.restore.materialize_entry``),
+        and nothing reads the moments before that."""
         inc = restore.incarnation()
         ab_params = M.init_abstract(self.cfg)
         logical = M.logical_specs(self.cfg)

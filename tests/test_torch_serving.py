@@ -146,16 +146,31 @@ def test_restore_without_a_card_needs_the_cpu_asked_for(tmp_path):
 
 
 def test_unported_features_name_their_roadmap_item(tmp_path):
+    """Migration and supervision still name ROADMAP A7; the streaming
+    restore (A4) is ported: ``restore(streaming=True)`` and
+    ``Policy(streaming_restore=True)`` bring the engine back with its
+    cache as the cold tier."""
     sess = CheckpointSession(f"localfs:{tmp_path}", DENSE)
     with pytest.raises(PolicyError, match="ROADMAP A7"):
         sess.migrate(None)
     with pytest.raises(PolicyError, match="ROADMAP A7"):
         sess.supervise([0, 1])
-    with pytest.raises(PolicyError, match="ROADMAP A4"):
-        sess.restore("latest", streaming=True)
-    with pytest.raises(PolicyError, match="ROADMAP A4"):
-        Policy(streaming_restore=True)
+    eng = ServingEngine.create(ARCH, _params(), n_slots=1, max_seq=16,
+                               manager=sess.manager, device="cpu")
+    sess.attach(eng)
+    eng.submit(Request(rid=0, prompt=_prompts(1)[0][:4], max_new=3))
+    eng.step()
+    sess.snapshot(block=True)
     sess.close()
+    for sess2, kw in (
+            (CheckpointSession(f"localfs:{tmp_path}", DENSE),
+             {"streaming": True}),
+            (CheckpointSession(f"localfs:{tmp_path}",
+                               Policy(streaming_restore=True)), {})):
+        eng2 = sess2.restore("latest", params=_params(), device="cpu", **kw)
+        assert eng2.steps == 1
+        assert eng2.incarnation.stream_timings()["cold_leaves"] > 0
+        sess2.close()
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,7 @@ FNV-1a placement), the same state saved through either package leaves
 the same files, and a checkpoint written by one restores in the other.
 Then the JAX package's replication scenarios (``tests/test_replication
 .py``) and its ``cached:`` scenarios (``tests/test_streaming_restore
-.py``, eagerly: the port's streaming restore waits for ROADMAP A4) on
-the port: repair of a lost host from peer replicas, scan of degraded
+.py``, eagerly and streamed) on the port: repair of a lost host from peer replicas, scan of degraded
 and unrecoverable blobs, the commit refused on lost writes, the scan
 CLI's JSON and exit codes, read-through and write-through caching.
 """
@@ -351,6 +350,59 @@ def test_cached_warms_then_serves_locally(tmp_path):
     labels = [label for label, _ in cb2.blob_sources(name)]
     assert labels == ["cache", "store"]
     assert cb2.blob_sources(name)[0][1]() == cb.get_blob(name)
+
+
+def test_cached_warms_then_serves_locally_streamed(tmp_path):
+    """The same under the streaming restore: the first streamed restore
+    warms every blob (the cold tier too), the second is served by the
+    cache source alone, with the eager restore's bytes."""
+    remote, cache = tmp_path / "remote", tmp_path / "cache"
+    up = _mk_upper(10)
+    up.register("opt_state", "opt_state", _state(12, 20_000))
+    CheckpointManager(LocalFSBackend(str(remote)), async_save=False).save(
+        1, up, OpLog())
+    cb = resolve_backend(f"cached:{cache}?over=localfs:{remote}")
+    first = CheckpointManager(cb, async_save=False).restore(1, streaming=True)
+    first.streamer.wait_all()
+    assert cb.stats["warmed"] > 0 and cb.stats["hits"] == 0
+
+    class _Dead:
+        def get_blob(self, name):
+            raise AssertionError(f"cache miss leaked to remote: {name}")
+
+        def __getattr__(self, attr):
+            return getattr(cb.inner, attr)
+
+    cb2 = CachedBackend(str(cache), _Dead())
+    second = CheckpointManager(cb2, async_save=False).restore(
+        1, streaming=True)
+    want = CheckpointManager(LocalFSBackend(str(remote))).restore(1)
+    for got in (first, second):
+        for name, by_path in want.entries.items():
+            assert sorted(got.entries[name]) == sorted(by_path)
+            for path, v in by_path.items():
+                np.testing.assert_array_equal(
+                    np.asarray(got.entries[name][path]), np.asarray(v))
+    assert cb2.stats["hits"] > 0 and cb2.stats["misses"] == 0
+    assert set(second.streamer.timings()["fetch_bytes_per_source"]) == \
+        {"cache"}
+
+
+def test_cached_writes_through_and_streams_from_the_inner_store(tmp_path):
+    """A snapshot through the cached front restores streamed from the
+    inner store alone, read around a down host of its replicas."""
+    spec = (f"cached:{tmp_path / 'c'}?over=sharded:{tmp_path / 'r'}"
+            "?hosts=2&replicate=1")
+    cb = resolve_backend(spec)
+    CheckpointManager(cb, async_save=False).save(1, _mk_upper(11), OpLog())
+    cb.inner.fail_host(0)
+    got = CheckpointManager(cb.inner, async_save=False).restore(
+        1, streaming=True, lazy_kinds=("params",))
+    for k, v in _state(11).items():
+        np.testing.assert_array_equal(
+            np.asarray(got.entries["params"][f"[{k!r}]"]), v)
+    assert set(got.streamer.timings()["fetch_bytes_per_source"]) == \
+        {"host_001"}
 
 
 def test_cached_writes_through(tmp_path):
