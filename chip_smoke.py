@@ -24,7 +24,11 @@ Phases, each reported on its own line:
    plain PyTorch version at the training shape in bf16 and at a ragged
    shape with a window in f32 and in bf16, with its time, its bound, the
    plain version's time and ``scaled_dot_product_attention``'s (forward; its
-   autograd backward for dq and dk/dv together); then each SSD kernel
+   autograd backward for dq and dk/dv together), then non-causal with
+   Sq != Skv at whisper-base's encoder ``[8, 8, 1500, 64]`` and
+   cross-attention (4,096 queries, 1,500 keys) in bf16 (each kernel's
+   time, bound, plain time and the non-causal SDPA's logged) and at a
+   ragged f32 cross shape; then each SSD kernel
    (the chunked scan's forward and its gradient) against its plain
    version at mamba2-780m's training shape in bf16 and at a ragged f32
    shape with an initial state, with limits set from the plain version's
@@ -75,7 +79,17 @@ Phases, each reported on its own line:
    chain=4)`` with sparse capture it is killed while the first wave is
    in flight and restored eagerly, then streamed: every request token
    for token each time, the capture kernels launched, no flash, SSD or
-   RG-LRU kernel;
+   RG-LRU kernel; then the encoder-decoder (``encdec_path``):
+   whisper-base-smoke in f32 card against CPU (``prefill(frames=)`` and
+   8 greedy decode steps: logits and every cache leaf within 1e-5, the
+   same tokens); whisper-base at full width and depth in f32, a
+   ``prefill(frames=)`` (12 flash forward launches: encoder and
+   cross-attention) and 16 greedy decode steps against ``forward_train``
+   over the extended sequence within 1e-4 in the 2-norm; then its bf16
+   serving cell as mamba2-780m's (6 requests of 16-48 tokens on 4
+   slots of 448, replay admission, killed mid first wave, restored
+   eagerly then streamed), the cross cache still zero after serving as
+   the reference engine leaves it;
 7. the training paths, one per cell of ``TRAIN_CELLS``: one f32 step of
    the smoke model on the card matches the same step on the CPU; then
    the model at full width (and depth, unless the cell cuts it) trains
@@ -89,7 +103,10 @@ Phases, each reported on its own line:
    cut to 15 of 30 layers (``starcoder2-3b-layers15``), trains on 2 x
    4096 tokens a step through the flash kernels (a 15.9 GB snapshot),
    mamba2-780m at full depth on 8 x 4096 through the SSD kernels (7.8
-   GB);
+   GB), whisper-base at full width and depth on 8 x 4096 tokens (1,500
+   encoder frames a row) through the flash kernels, 36 forward, 18 dq and
+   18 dk/dv launches a step (6 encoder, 6 self- and 6 cross-attention
+   layers, the forward twice under remat);
 8. the codec phase, from mamba2-780m's restored trainer (``codec_path``):
    one snapshot under ``codecs={"opt_state": "int8"}`` into a
    ``sharded:`` store of 4 virtual hosts (quantize on the card, only the
@@ -152,6 +169,11 @@ TRAIN_CELLS = (
     dict(arch="mamba2-780m", shape="train_s4096_b8", kernels="ssd",
          reference_shape="train_s512_b2",         # 2 chunks of 256
          reference="grads", codec=True),
+    # full width and depth (6 + 6 layers); the flash kernels also run
+    # non-causal: the encoder over 1,500 frames, the cross-attention from
+    # 4,096 tokens to them
+    dict(arch="whisper-base", shape="train_s4096_b8", kernels="flash",
+         reference_shape="train_s64_b2", reference="grads"),
 )
 # one full snapshot, after step 6, with no chain (so no dirty-chunk
 # capture either): snapshots of the two training states are 15.9 and
@@ -440,7 +462,14 @@ def attended_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
 def check_flash(torch, fa):
     """Phase 4: each flash kernel against its plain version on the card,
     at the training shape (bf16) and at a ragged shape with a window in
-    f32 (the CUDA-core kernels) and in bf16 (the tensor-core ones)."""
+    f32 (the CUDA-core kernels) and in bf16 (the tensor-core ones); then
+    non-causal with Sq != Skv as whisper-base's training step takes them:
+    its encoder (bf16 [8, 8, 1500, 64], ragged against the 64-row tiles),
+    its cross-attention (bf16, 4,096 decoder queries against 1,500
+    encoder keys) and a ragged f32 cross shape. At whisper's two shapes
+    each kernel's time, bound, plain time and the non-causal
+    ``scaled_dot_product_attention``'s time are logged (not rows of the
+    kernels line: the kernels are the same)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -457,15 +486,23 @@ def check_flash(torch, fa):
     lse_tol = (0.0, 1e-4)
     parts = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
              "flash_dkv": ("dk", "dv")}
-    cases = [("training", torch.bfloat16, 2, 24, 2, 4096, 128, 0),
-             ("ragged", torch.float32, 1, 4, 2, 1000, 128, 64),
-             ("ragged bf16", torch.bfloat16, 1, 4, 2, 1000, 128, 64)]
-    for label, dt, B, H, Hkv, S, hd, window in cases:
+    # label, dtype, B, H, Hkv, Sq, Skv, hd, causal, window
+    cases = [("training", torch.bfloat16, 2, 24, 2, 4096, 4096, 128, True, 0),
+             ("ragged", torch.float32, 1, 4, 2, 1000, 1000, 128, True, 64),
+             ("ragged bf16", torch.bfloat16, 1, 4, 2, 1000, 1000, 128, True,
+              64),
+             ("whisper encoder", torch.bfloat16, 8, 8, 8, 1500, 1500, 64,
+              False, 0),
+             ("whisper cross", torch.bfloat16, 8, 8, 8, 4096, 1500, 64, False,
+              0),
+             ("ragged cross", torch.float32, 1, 8, 8, 300, 1000, 64, False,
+              0)]
+    for label, dt, B, H, Hkv, Sq, Skv, hd, causal, window in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(dt)
-        q, k, v, do = rnd(B, H, S, hd), rnd(B, Hkv, S, hd), \
-            rnd(B, Hkv, S, hd), rnd(B, H, S, hd)
-        kw = dict(causal=True, window=window)
+        q, k, v, do = rnd(B, H, Sq, hd), rnd(B, Hkv, Skv, hd), \
+            rnd(B, Hkv, Skv, hd), rnd(B, H, Sq, hd)
+        kw = dict(causal=causal, window=window)
         o, lse = fa.flash_fwd(q, k, v, **kw)
         o_p, lse_p = fa.flash_fwd_plain(q, k, v, **kw)
         delta = fa.attention_delta(o_p, do)
@@ -494,18 +531,19 @@ def check_flash(torch, fa):
                     f"atol {atol:g}, worst element {share:.2f} of its limit)")
                 if share > 1:
                     bad.append(f"{name} ({part})")
-        log(f"kernel flash ({label}): q {(B, H, S, hd)} k/v "
-            f"{(B, Hkv, S, hd)} {str(dt)[6:]} causal window {window}: fwd, "
+        log(f"kernel flash ({label}): q {(B, H, Sq, hd)} k/v "
+            f"{(B, Hkv, Skv, hd)} {str(dt)[6:]} "
+            f"{'causal' if causal else 'non-causal'} window {window}: fwd, "
             f"dq, dk/dv against the plain versions, max abs err "
             + "; ".join(readings))
         if bad:
             raise AssertionError(f"{label}: kernels disagree with their "
                                  f"plain versions past the limit: {bad}")
-        if label != "training":
+        if label not in ("training", "whisper encoder", "whisper cross"):
             continue
-        pairs = B * H * attended_pairs(S, S, True, window)
+        pairs = B * H * attended_pairs(Sq, Skv, causal, window)
         esz = q.element_size()
-        qb, kvb, st = q.numel() * esz, k.numel() * esz, B * H * S * 4
+        qb, kvb, st = q.numel() * esz, k.numel() * esz, B * H * Sq * 4
         work = {"flash_fwd": (2 * qb + 2 * kvb + st, 2 * 2 * hd * pairs),
                 "flash_dq": (3 * qb + 2 * kvb + 2 * st, 3 * 2 * hd * pairs),
                 "flash_dkv": (2 * qb + 4 * kvb + 2 * st, 4 * 2 * hd * pairs)}
@@ -519,15 +557,27 @@ def check_flash(torch, fa):
                           lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
                                                      **kw))}
         qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+        sdpa_out = F.scaled_dot_product_attention(qr, kr, vr,
+                                                  is_causal=causal,
                                                   enable_gqa=True)
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 10, flush)
+            q, k, v, is_causal=causal, enable_gqa=True), 10, flush)
         lib_bwd = time_ms(lambda: torch.autograd.grad(
             sdpa_out, (qr, kr, vr), do, retain_graph=True), 10, flush)
         for name in fa.KERNELS:
             nbytes, ops_n = work[name]
             b, o_by = bound_ms(nbytes, ops_n, BF16_OPS_PER_S)
+            if label != "training":
+                ms, plain = (time_ms(calls[name][0], 5, flush),
+                             time_ms(calls[name][1], 2, flush))
+                lib = lib_fwd if name == "flash_fwd" else lib_bwd
+                log(f"timing {name} ({label}): {ms:.4f} ms (bound {b:.4f} "
+                    f"ms by {o_by}, {ops_n / 1e9:.1f} GFLOP, "
+                    f"{100 * b / ms:.1f}% of it), plain {plain:.4f} ms, "
+                    f"scaled_dot_product_attention(is_causal=False)"
+                    f"{'' if name == 'flash_fwd' else ' backward'} "
+                    f"{lib:.4f} ms")
+                continue
             out[name] = dict(
                 name=name, route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
@@ -1460,6 +1510,169 @@ def ssm_serving_path(torch, np, mods):
     return counts
 
 
+ENCDEC_ARCH = "whisper-base"
+# whisper's published text context is 448 tokens (arXiv:2212.04356);
+# admission is by replay, as in the reference engine
+ENCDEC_SERVE = dict(n_slots=4, max_seq=448, max_new=24)
+ENCDEC_N_REQ, ENCDEC_PROMPT_LENS = 6, (16, 49)
+ENCDEC_POLICY = dict(interval=4, chain=4)
+ENCDEC_F32_REL = 1e-4          # decode after prefill vs forward_train
+
+
+def check_encdec_reference(torch, np, M, get_smoke_config):
+    """whisper-base-smoke in f32, card against CPU: ``prefill(frames=)``
+    of 2 prompts, then 8 greedy ``decode_step``s; the logits of every
+    step and every cache leaf (the cross cache too) within 1e-5, the
+    same tokens."""
+    from repro_torch.tree import flatten_with_paths, tree_map
+    cfg = get_smoke_config(ENCDEC_ARCH).replace(dtype="float32")
+    p_cpu = M.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.RandomState(4)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 12))
+                            .astype(np.int32))
+    frames = torch.from_numpy(rng.randn(2, cfg.encoder_seq, cfg.frontend_dim)
+                              .astype(np.float32))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        cache = M.init_cache(cfg, 2, 32, device=dev)
+        last, _ = M.prefill(cfg, params, toks.to(dev), cache,
+                            frames=frames.to(dev))
+        logits, tokens = [last.cpu()], []
+        for pos in range(12, 20):
+            nxt = torch.argmax(logits[-1], dim=-1).to(torch.int32)[:, None]
+            tokens.append(nxt)
+            out, _ = M.decode_step(cfg, params, cache, nxt.to(dev),
+                                   torch.full((2,), pos, dtype=torch.int32,
+                                              device=dev))
+            logits.append(out.cpu())
+        runs[dev] = (logits, tokens,
+                     {p: t.to("cpu", copy=True)
+                      for p, t in flatten_with_paths(cache)})
+    worst = 0.0
+    for a, b in zip(runs["cpu"][0], runs["cuda"][0]):
+        worst = max(worst, float((a - b).abs().max()))
+    for path, a in runs["cpu"][2].items():
+        worst = max(worst, float((a.float()
+                                  - runs["cuda"][2][path].float()).abs().max()))
+    same = all(torch.equal(a, b) for a, b in zip(runs["cpu"][1],
+                                                 runs["cuda"][1]))
+    cross = float(runs["cuda"][2]["['cross'][0]"].abs().max())
+    log(f"encdec small reference: {ENCDEC_ARCH}-smoke f32 prefill(frames=) "
+        f"+ 8 greedy decode steps on the card against the CPU: max abs "
+        f"diff {worst:.2e} over the logits and every cache leaf (limit "
+        f"1e-5; the cross cache's max |k| {cross:.3f}), same tokens: {same}")
+    if not cross > 0:
+        raise AssertionError("prefill(frames=) left the cross cache empty")
+    if worst > 1e-5 or not same:
+        raise AssertionError("whisper-base-smoke: card and CPU disagree")
+
+
+def encdec_path(torch, np, mods):
+    """The encoder-decoder's path: the smoke model card against CPU
+    (``check_encdec_reference``); whisper-base at full size in f32, a
+    ``prefill(frames=)`` of 2 prompts (the flash kernels: encoder and
+    cross-attention, 12 launches) and 16 greedy decode steps held
+    against ``forward_train`` over the extended sequence with the same
+    frames (the no-cache path: encoder, decoder and cross-attention
+    through the flash kernels) in the 2-norm; then whisper-base in bf16
+    serves 6 requests of 16-48 tokens on 4 slots (replay admission, the
+    cross cache left at its zero init as the reference engine leaves
+    it), its decode profiled, killed mid first wave and restored eagerly,
+    then streamed (``serving_cell``)."""
+    from repro_torch.configs import get_smoke_config, resolve_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request
+    from repro_torch.tree import flatten_with_paths, tree_map
+    fa = mods["flash"]
+
+    check_encdec_reference(torch, np, M, get_smoke_config)
+    cfg = resolve_config(ENCDEC_ARCH)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for _, v in flatten_with_paths(params))
+    log(f"encdec path: {ENCDEC_ARCH} full width and depth "
+        f"({cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+        f"d_model {cfg.d_model}, {cfg.encoder_seq} encoder frames), "
+        f"{n_params} params counted from the tensors (ModelConfig.n_params()"
+        f" says {cfg.n_params()}), made in {time.monotonic() - t0:.1f} s")
+
+    # --- the cache path against the no-cache path, f32, full size
+    c32 = cfg.replace(dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    rng = np.random.RandomState(5)
+    n_prompt, n_dec = 32, 16
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, n_prompt))
+                            .astype(np.int32)).cuda()
+    frames = torch.from_numpy(rng.randn(2, cfg.encoder_seq, cfg.frontend_dim)
+                              .astype(np.float32)).cuda()
+    cache = M.init_cache(c32, 2, ENCDEC_SERVE["max_seq"], "cuda")
+    _reset_all(mods)
+    t0 = time.monotonic()
+    last, _ = M.prefill(c32, p32, toks, cache, frames=frames)
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    pre_counts = fa.counts("cuda")
+    want = {"flash_fwd": cfg.n_encoder_layers + cfg.n_layers, "flash_dq": 0,
+            "flash_dkv": 0}
+    if pre_counts != want:
+        raise AssertionError(f"prefill(frames=) flash launches {pre_counts},"
+                             f" expected {want}")
+    seq, steps = toks, [last]
+    for pos in range(n_prompt, n_prompt + n_dec):
+        nxt = torch.argmax(steps[-1], dim=-1).to(torch.int32)[:, None]
+        seq = torch.cat([seq, nxt], dim=1)
+        out, _ = M.decode_step(c32, p32, cache, nxt,
+                               torch.full((2,), pos, dtype=torch.int32,
+                                          device="cuda"))
+        steps.append(out)
+    if fa.counts("cuda") != pre_counts:
+        raise AssertionError("decode_step launched a flash kernel")
+    with torch.no_grad():
+        full, _ = M.forward_train(c32, p32, {"tokens": seq,
+                                             "frames": frames})
+    rels = [_rel(got, full[:, n_prompt - 1 + i])
+            for i, got in enumerate(steps[:-1])]
+    cross_max = float(cache["cross"][0].abs().max())
+    log(f"encdec cache vs no-cache: {ENCDEC_ARCH} f32, prefill(frames=) of "
+        f"2 x {n_prompt} tokens in {prefill_ms:.1f} ms ({pre_counts}), then "
+        f"{n_dec} greedy decode steps, against forward_train over the "
+        f"extended {seq.shape[1]} tokens with the same frames: logits worst "
+        f"{max(rels):.2e} in the 2-norm (limit {ENCDEC_F32_REL:g}); cross "
+        f"cache filled (max |k| {cross_max:.3f})")
+    if not max(rels) <= ENCDEC_F32_REL or not cross_max > 0:
+        raise AssertionError(f"whisper-base: decode after prefill is "
+                             f"{max(rels):.2e} from forward_train")
+    del p32, cache, full, steps, seq, frames
+    torch.cuda.empty_cache()
+
+    # --- serving under C/R
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.randint(*ENCDEC_PROMPT_LENS, size=ENCDEC_N_REQ)]
+    log(f"encdec serving: {ENCDEC_N_REQ} requests, prompts "
+        f"{[len(p) for p in prompts]} tokens, max_new "
+        f"{ENCDEC_SERVE['max_new']}, {ENCDEC_SERVE['n_slots']} slots, "
+        f"max_seq {ENCDEC_SERVE['max_seq']}")
+
+    def profile(eng):
+        profile_decode(torch, np, eng, Request, [p[:4] for p in prompts])
+        if any(bool(c.any()) for c in eng.cache["cross"]):
+            raise AssertionError("serving wrote the cross cache")
+        log("encdec serving: the cross cache is still zero after serving, "
+            "as the reference engine leaves it (ROADMAP C21)")
+
+    counts = serving_cell(
+        torch, mods, ENCDEC_ARCH, params, prompts, serve_kw=ENCDEC_SERVE,
+        policy_kw=ENCDEC_POLICY, label="encdec serving", streamed=True,
+        profile=profile)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def check_train_reference(torch, np, kern, arch, shape_key, mode):
     """One f32 train step of ``arch``'s smoke model on the card (its
     kernels: ``kern``'s counts must move) against the same step on the
@@ -1480,7 +1693,12 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
     AdamW's first step moves a param by lr * g / (|g| + eps), so a
     gradient element of ~1e-9 that reblocking the plain scan alone moves
     by a few percent moves its param by more than 1e-6; the log counts
-    such params for the CPU against itself and for the card."""
+    such params for the CPU against itself and for the card. The
+    encoder-decoder takes ``mode`` "grads" too, with the spread between
+    the CPU step under ``exp_f32`` and under ``torch.exp``: AdamW's
+    first step moves its encoder's key projection by up to 2.4e-5 on an
+    H100 against the CPU (whisper-base-smoke, seq 64), past "state"'s
+    1e-6, from gradient elements near zero."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.registry import get_shape
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
@@ -1497,9 +1715,11 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
     plan = make_plan(cfg, shape)
     step_fn = make_train_step(cfg, plan, AdamWConfig(), ScheduleConfig())
     loss_fn = make_loss_fn(cfg, M.CallOptions(remat=plan.remat))
-    batch = TokenPipeline(DataConfig(seed=7, vocab_size=cfg.vocab_size,
-                                     seq_len=shape.seq_len, global_batch=2,
-                                     n_shards=2)).batch_at(0)
+    batch = TokenPipeline(DataConfig(
+        seed=7, vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
+        global_batch=2, n_shards=2,
+        frames=cfg.encoder_seq if cfg.is_encoder_decoder else 0,
+        frame_dim=cfg.frontend_dim)).batch_at(0)
     p_cpu = M.init_params(cfg, seed=3, device="cpu")
 
     def run(dev):
@@ -1549,12 +1769,22 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
         log(f"{head}, max abs state diff {worst:.2e} against the CPU step "
             f"under torch.exp ({own:.2e} against it under exp_f32)")
         return
-    chunk = SSM.CHUNK
-    SSM.CHUNK = chunk // 4
-    try:
-        alt = run("cpu")
-    finally:
-        SSM.CHUNK = chunk
+    if cfg.family == "ssm":
+        chunk = SSM.CHUNK
+        SSM.CHUNK = chunk // 4
+        try:
+            alt = run("cpu")
+        finally:
+            SSM.CHUNK = chunk
+        alt_label = f"the CPU at chunk {chunk // 4}"
+        spread_of = f"the CPU's chunk {chunk} vs {chunk // 4} spread"
+    else:
+        from unittest import mock
+        from repro_torch.models import layers as L
+        with mock.patch.object(L, "exp_stable", torch.exp):
+            alt = run("cpu")
+        alt_label = "the CPU under torch.exp"
+        spread_of = "the CPU's exp_f32 vs torch.exp spread"
     rel = lambda a, b: float((a - b).norm() / b.norm().clamp_min(1e-30))
     readings, bad = [], []
     for path, g in res["cpu"][3].items():
@@ -1569,12 +1799,11 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
 
     off = {"cpu": moved(alt), "card": moved(res["cuda"])}
     share, path, err, spread = max(readings)
-    log(f"{head}; gradients per leaf within 4 x the CPU's chunk {chunk} vs "
-        f"{chunk // 4} spread (at least 1e-4) in the 2-norm, worst {path} "
-        f"{err:.2e} (spread {spread:.2e}, {share:.2f} of its limit); params "
-        f"off by more than 1e-6 after the step: CPU at chunk {chunk // 4} "
-        f"{off['cpu']}, card {off['card']} of "
-        f"{sum(t.numel() for t in res['cpu'][1].values())}")
+    log(f"{head}; gradients per leaf within 4 x {spread_of} (at least "
+        f"1e-4) in the 2-norm, worst {path} {err:.2e} (spread "
+        f"{spread:.2e}, {share:.2f} of its limit); params off by more than "
+        f"1e-6 after the step: {alt_label} {off['cpu']}, card "
+        f"{off['card']} of {sum(t.numel() for t in res['cpu'][1].values())}")
     if bad:
         raise AssertionError(f"train step gradients past the limit: {bad}")
 
@@ -1639,6 +1868,8 @@ def train_path(torch, np, kernel_mods, cell):
     depth = (f"depth cut to {cfg.n_layers} of "
              f"{resolve_config(arch).n_layers} layers" if "layers" in cell
              else f"full depth, {cfg.n_layers} layers")
+    if cfg.is_encoder_decoder:
+        depth += f" + {cfg.n_encoder_layers} encoder layers"
     log(f"train path: {job_arch} at full width, {depth} (d_model "
         f"{cfg.d_model}, {n} params), {shape_key}; a snapshot is "
         f"{snap / 1e9:.1f} GB; free disk {disk / 1e9:.1f} GB, MemAvailable "
@@ -1731,7 +1962,13 @@ def train_path(torch, np, kernel_mods, cell):
         raise AssertionError(f"state digest after restore {got} != "
                              f"uninterrupted {want}")
     launched = counts[cell["kernels"]]
-    layer_steps = cfg.n_layers * (steps + steps - back)
+    # kernel calls per step: one per layer, and for the encoder-decoder's
+    # flash kernels one per encoder layer and two per decoder layer
+    # (self- and cross-attention)
+    per_step = cfg.n_layers
+    if cfg.is_encoder_decoder and cell["kernels"] == "flash":
+        per_step = cfg.n_encoder_layers + 2 * cfg.n_layers
+    layer_steps = per_step * (steps + steps - back)
     expect = {k: (2 if i == 0 else 1) * layer_steps
               for i, k in enumerate(kern.KERNELS)}
     if launched != expect:
@@ -1739,9 +1976,11 @@ def train_path(torch, np, kernel_mods, cell):
                              f"{expect} (forward twice per layer and step "
                              f"under remat, the rest once)")
     log(f"train path: losses and state digest {got} bit-identical to the "
-        f"uninterrupted run; kernel launches {launched} ({cfg.n_layers} "
-        f"layers x {steps + steps - back} steps; the forward twice per layer "
-        f"under remat); all counts {counts}")
+        f"uninterrupted run; kernel launches {launched} ({per_step} kernel "
+        f"calls a step x {steps + steps - back} steps; the forward twice "
+        f"under remat: per step "
+        f"{ {k: n // (steps + steps - back) for k, n in launched.items()} }"
+        f"); all counts {counts}")
     if box:
         launched = dict(launched, **codec_path(torch, kernel_mods, box, cfg,
                                                losses[back:]))
@@ -2077,13 +2316,22 @@ def main() -> int:
     kernels.update(phase("check_ssd", check_ssd, torch, ssd, ssd_ref))
     kernels.update(phase("check_rglru", check_rglru, torch, rg, rg_ref,
                          ssd_ref.within))
-    launches = phase("main_path", main_path, torch, np, ops, fa)
+    # each kernel's launches summed over the paths' runs (every path
+    # sets the counts to 0 before it runs and reads them after)
+    launches = dict.fromkeys(kernels, 0)
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    add(phase("main_path", main_path, torch, np, ops, fa))
     mods = {"codec": ops, "flash": fa, "ssd": ssd, "rg_lru": rg}
-    launches.update(phase("hybrid_path", hybrid_path, torch, np, mods))
+    add(phase("hybrid_path", hybrid_path, torch, np, mods))
     phase("ssm_serving_path", ssm_serving_path, torch, np, mods)
+    phase("encdec_path", encdec_path, torch, np, mods)
     for cell in TRAIN_CELLS:
-        launches.update(phase(f"train_path {cell['arch']}", train_path,
-                              torch, np, mods, cell))
+        add(phase(f"train_path {cell['arch']}", train_path, torch, np, mods,
+                  cell))
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -39,9 +39,10 @@ def params_from_numpy(tree, device=None):
 def cache_from_numpy(tree, device=None):
     """The decode-state twin of :func:`params_from_numpy`: KV caches (k/v
     in the model dtype, ``pos`` int32 with -1 marking an empty slot), the
-    ssm family's conv and scan states, and the hybrid's tree — ``groups``
+    ssm family's conv and scan states, the hybrid's tree — ``groups``
     stacked over block groups, ``rem{i}_{kind}`` blocks unstacked — with
-    its f32 RG-LRU states."""
+    its f32 RG-LRU states, and the encoder-decoder's ``self`` KV cache
+    beside its ``cross`` tuple (k, v)."""
     return params_from_numpy(tree, device)
 
 

@@ -3,10 +3,12 @@ cache, and the MLP — the port of ``repro.models.layers`` for the dense
 decoder.
 
 Attention without a cache (the training forward, positions
-``arange(S)``) goes through the flash-attention kernels on a CUDA
-tensor: there the kernels' index masks equal the position masks. On the
-CPU, and on every cache path (prefill, decode), it stays the plain
-dense/chunked attention below.
+``arange(S)``; the whisper encoder) goes through the flash-attention
+kernels on a CUDA tensor: there the kernels' index masks equal the
+position masks. So does cross-attention over given encoder k/v with more
+than one query (non-causal, keys ``arange(Skv)``). On the CPU, on every
+cache path (prefill, decode) and for a single cross-attention query, it
+stays the plain dense/chunked attention below.
 
 The arithmetic follows the JAX functions step for step (float32 norms,
 RoPE and softmax; ``-1e30`` instead of ``-inf`` for masked scores), so
@@ -22,7 +24,7 @@ and cannot assume an unchanged object holds unchanged bytes.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -204,6 +206,7 @@ def attention_forward(
     window: int = 0,
     causal: bool = True,
     cache: Optional[Dict[str, torch.Tensor]] = None,
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     use_rope: bool = True,
     attn_chunk: int = 1024,
 ) -> torch.Tensor:
@@ -212,24 +215,44 @@ def attention_forward(
 
     cache layout (serving.kv_cache): {"k": [B,Smax,Hkv,hd], "v": ...,
     "pos": [B,Smax] int32}; with a window, Smax == window and the cache
-    is a ring buffer indexed by position."""
+    is a ring buffer indexed by position. ``cross_kv``: the encoder's
+    (k, v) [B,Skv,Hkv,hd] for cross-attention, taken as given (no
+    norm, no RoPE); the cache is then unused."""
     B, S, D = x.shape
     h = cfg.resolved_head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     g = nh // nkv
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
-        k, v = k + p["bk"], v + p["bv"]
+    if cross_kv is None:
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+    else:
+        k, v = cross_kv
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        if cross_kv is None:
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     if use_rope:
         q = rope_apply(q, positions, cfg.rope_theta)
-        k = rope_apply(k, positions, cfg.rope_theta)
+        if cross_kv is None:
+            k = rope_apply(k, positions, cfg.rope_theta)
+
+    if cross_kv is not None:
+        if q.is_cuda and S > 1:
+            out = _flash_no_cache(q, k, v, causal=False, window=0)
+            return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        skv = k.shape[1]
+        kv_pos = torch.arange(skv, dtype=torch.int32,
+                              device=k.device)[None].expand(B, skv)
+        out = dense_attention(q.reshape(B, S, k.shape[2], -1, h), k, v,
+                              positions, kv_pos, causal=False)
+        return torch.einsum("bshk,hkd->bsd", out.reshape(B, S, nh, h),
+                            p["wo"])
 
     qg = q.reshape(B, S, nkv, g, h)
     softcap = cfg.attn_logit_softcap
@@ -272,9 +295,10 @@ def attention_forward(
 
 def _flash_no_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int) -> torch.Tensor:
-    """q [B,S,H,hd], k/v [B,S,Hkv,hd] (positions arange(S)) through the
-    flash kernels' [B,H,S,hd] layout; returns [B,S,H,hd]. Head h reads kv
-    head h // (H/Hkv), the model's [B,S,Hkv,G,hd] grouping."""
+    """q [B,Sq,H,hd], k/v [B,Skv,Hkv,hd] (query positions arange(Sq),
+    key positions arange(Skv)) through the flash kernels' [B,H,S,hd]
+    layout; returns [B,Sq,H,hd]. Head h reads kv head h // (H/Hkv), the
+    model's [B,S,Hkv,G,hd] grouping."""
     out = flash_attention(q.transpose(1, 2).contiguous(),
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),

@@ -1,6 +1,6 @@
-"""Model assembly for the dense decoder, the ssm family (Mamba-2) and the
-hybrid family (Griffin/RecurrentGemma) — the port of
-``repro.models.model``: ``param_template``, ``forward_train``,
+"""Model assembly for the dense decoder, the ssm family (Mamba-2), the
+hybrid family (Griffin/RecurrentGemma) and the whisper encoder-decoder
+— the port of ``repro.models.model``: ``param_template``, ``forward_train``,
 ``cache_spec``, ``init_cache``, ``prefill``, ``decode_step``,
 ``init_params``, ``init_abstract`` and ``logical_specs``, plus
 ``batch_axes``, where each decode-state leaf keeps its batch (slot)
@@ -13,10 +13,13 @@ count is no multiple of the block pattern) are not stacked. Where the
 JAX package runs a stack under ``jax.lax.scan``, this is a Python loop
 that indexes the stacked dim (a view, no copy). Remat "full" wraps each
 layer in ``torch.utils.checkpoint`` (non-reentrant), where the JAX
-package wraps the scan body in ``jax.checkpoint``. Decode state (KV
-caches, conv windows, recurrent states) is updated in place. The moe
-family and the whisper encoder-decoder raise ``NotImplementedError``
-naming ROADMAP A8, and so does hybrid training.
+package wraps the scan body in ``jax.checkpoint`` (for whisper: each
+encoder layer and each decoder layer). Decode state (KV caches, conv
+windows, recurrent states) is updated in place; whisper's cross-attention
+cache ``cross`` = (k, v), stacked over decoder layers, is written by
+``prefill(frames=)`` and only read by ``decode_step``. The moe family
+raises ``NotImplementedError`` naming ROADMAP A8, and so does hybrid
+training.
 """
 from __future__ import annotations
 
@@ -45,12 +48,12 @@ class TensorSpec:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "ssm", "hybrid") \
-            or cfg.n_experts or cfg.is_encoder_decoder:
+    if cfg.family not in ("dense", "vlm", "ssm", "hybrid", "audio") \
+            or cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            "port runs the dense decoder, the ssm and the hybrid family "
-            "(other families: ROADMAP A8)")
+            "port runs the dense decoder, the ssm, the hybrid and the "
+            "encoder-decoder family (other families: ROADMAP A8)")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -99,6 +102,22 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
                                          for k, kind in group})
         for k, kind in tail:
             t[k] = block(kind)
+    elif cfg.is_encoder_decoder:
+        t["enc_layers"] = stacked(cfg.n_encoder_layers, {
+            "ln1": L.norm_template(cfg),
+            "attn": L.attention_template(cfg),
+            "ln2": L.norm_template(cfg),
+            "ffn": L.mlp_template(cfg),
+        })
+        t["enc_final_norm"] = L.norm_template(cfg)
+        t["layers"] = stacked(cfg.n_layers, {
+            "ln1": L.norm_template(cfg),
+            "attn": L.attention_template(cfg),
+            "ln_cross": L.norm_template(cfg),
+            "cross": L.attention_template(cfg),
+            "ln2": L.norm_template(cfg),
+            "ffn": L.mlp_template(cfg),
+        })
     else:
         t["layers"] = stacked(cfg.n_layers, {
             "ln1": L.norm_template(cfg),
@@ -211,13 +230,106 @@ def _scan_hybrid(cfg: ModelConfig, params, x: torch.Tensor,
     return x
 
 
+def _enc_layer(cfg: ModelConfig, p, x: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    h = L.apply_norm(cfg, p["ln1"], x)
+    x = x + L.attention_forward(cfg, p["attn"], h, positions, causal=False)
+    h = L.apply_norm(cfg, p["ln2"], x)
+    return x + L.mlp_forward(cfg, p["ffn"], h)
+
+
+def _whisper_encoder(cfg: ModelConfig, params, frames: torch.Tensor,
+                     opts: CallOptions = CallOptions()) -> torch.Tensor:
+    """frames [B, Senc, D] (precomputed embeddings: the audio frontend
+    is a stub) -> the encoder output [B, Senc, D] in the model dtype:
+    non-causal self-attention with RoPE at positions ``arange(Senc)``,
+    then ``enc_final_norm``."""
+    B, Se, _ = frames.shape
+    positions = torch.arange(Se, dtype=torch.int32,
+                             device=frames.device)[None].expand(B, Se)
+    x = frames.to(torch_dtype(cfg.dtype))
+    for p in _unstack(params["enc_layers"], cfg.n_encoder_layers):
+        if opts.remat == "full":
+            x = checkpoint(_enc_layer, cfg, p, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _enc_layer(cfg, p, x, positions)
+    return L.apply_norm(cfg, params["enc_final_norm"], x)
+
+
+def _cross_kv(p, enc_out: torch.Tensor):
+    """A decoder layer's cross-attention (k, v) [B, Senc, Hkv, hd] from
+    the encoder output: projections with no bias, no norm, no RoPE."""
+    return (torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wk"]),
+            torch.einsum("bsd,dhk->bshk", enc_out, p["cross"]["wv"]))
+
+
+def _dec_layer(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
+               cross_kv, cache) -> torch.Tensor:
+    h = L.apply_norm(cfg, p["ln1"], x)
+    x = x + L.attention_forward(cfg, p["attn"], h, positions, cache=cache)
+    h = L.apply_norm(cfg, p["ln_cross"], x)
+    x = x + L.attention_forward(cfg, p["cross"], h, positions,
+                                cross_kv=cross_kv, use_rope=False)
+    h = L.apply_norm(cfg, p["ln2"], x)
+    return x + L.mlp_forward(cfg, p["ffn"], h)
+
+
+def _dec_layer_train(cfg: ModelConfig, p, x: torch.Tensor,
+                     positions: torch.Tensor,
+                     enc_out: torch.Tensor) -> torch.Tensor:
+    return _dec_layer(cfg, p, x, positions, _cross_kv(p, enc_out), None)
+
+
+def _whisper_decoder(cfg: ModelConfig, params, x: torch.Tensor,
+                     positions: torch.Tensor, cache,
+                     enc_out: Optional[torch.Tensor],
+                     opts: CallOptions = CallOptions()) -> torch.Tensor:
+    """The decoder stack. Without a cache (training) each layer takes its
+    cross k/v from ``enc_out``; with one, prefill (``enc_out`` given)
+    computes them and writes them into ``cache["cross"]``, and decode
+    (``enc_out`` None) reads them from there. The self-attention cache
+    ``cache["self"]`` is written in place."""
+    for i, p in enumerate(_unstack(params["layers"], cfg.n_layers)):
+        if cache is None:
+            if opts.remat == "full":
+                x = checkpoint(_dec_layer_train, cfg, p, x, positions,
+                               enc_out, use_reentrant=False)
+            else:
+                x = _dec_layer_train(cfg, p, x, positions, enc_out)
+            continue
+        ck, cv = (c[i] for c in cache["cross"])
+        if enc_out is not None:
+            kv = _cross_kv(p, enc_out)
+            ck.copy_(kv[0])
+            cv.copy_(kv[1])
+        x = _dec_layer(cfg, p, x, positions, (ck, cv),
+                       _layer(cache["self"], i))
+    return x
+
+
+def _need_frames(cfg: ModelConfig, cache, frames) -> None:
+    if frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder needs frames "
+                         "[B, Senc, D] for its encoder")
+    senc = cache["cross"][0].shape[2] if cache is not None else None
+    if senc is not None and frames.shape[1] != senc:
+        raise ValueError(f"{cfg.name}: frames hold {frames.shape[1]} "
+                         f"encoder positions, the cache {senc}")
+
+
 def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
               positions: torch.Tensor, cache,
-              opts: CallOptions = CallOptions()) -> torch.Tensor:
+              opts: CallOptions = CallOptions(),
+              frames: Optional[torch.Tensor] = None) -> torch.Tensor:
     if cfg.family == "ssm":
         return _scan_ssm(cfg, params["layers"], x, cache, opts)
     if cfg.family == "hybrid":
         return _scan_hybrid(cfg, params, x, positions, cache)
+    if cfg.is_encoder_decoder:
+        enc = None if frames is None \
+            else _whisper_encoder(cfg, params, frames, opts)
+        return _whisper_decoder(cfg, params, x, positions, cache, enc, opts)
     return _decoder(cfg, params["layers"], x, positions, cache, opts)
 
 
@@ -234,18 +346,24 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
                   opts: CallOptions = CallOptions()):
-    """Full-sequence forward. batch: tokens [B,S] int32.
+    """Full-sequence forward. batch: tokens [B,S] int32 (+ frames
+    [B,Senc,D] float for the encoder-decoder).
 
     Returns (logits [B,S,V], aux: dict). Positions are ``arange(S)``, so
-    attention takes its no-cache branch (the flash kernels on the card);
-    the ssm family's scan runs the SSD kernels on the card. The hybrid
-    family is not trainable yet (``check_trainable``)."""
+    attention takes its no-cache branch (the flash kernels on the card;
+    whisper's encoder and cross-attention too, non-causal); the ssm
+    family's scan runs the SSD kernels on the card. The hybrid family is
+    not trainable yet (``check_trainable``)."""
     check_trainable(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
+    frames = batch.get("frames")
+    if cfg.is_encoder_decoder:
+        _need_frames(cfg, None, frames)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    x = _backbone(cfg, params, _embed(params, tokens), positions, None, opts)
+    x = _backbone(cfg, params, _embed(params, tokens), positions, None, opts,
+                  frames)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32,
                                   device=tokens.device)}
     return _logits(cfg, params, x), aux
@@ -285,6 +403,11 @@ def _cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
                                           for k, kind in group}}
         out.update({k: block(one(kind), None) for k, kind in tail})
         return out
+    if cfg.is_encoder_decoder:
+        cross = ((batch, cfg.encoder_seq, cfg.n_kv_heads,
+                  cfg.resolved_head_dim), torch_dtype(cfg.dtype))
+        return {"self": block(_kv_spec(cfg, batch, max_seq), cfg.n_layers),
+                "cross": tuple(leaf(*cross, cfg.n_layers) for _ in "kv")}
     return block(_kv_spec(cfg, batch, max_seq), cfg.n_layers)
 
 
@@ -295,7 +418,8 @@ def cache_spec(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     the scan state [L, B, H, P, N] float32; for the hybrid, per block of
     the pattern under ``groups`` (stacked over groups) and per remainder
     block (unstacked) the KV cache, or the conv window [B, 3, W] and the
-    f32 state [B, W]."""
+    f32 state [B, W]; for the encoder-decoder the decoder's KV cache
+    under ``self`` and ``cross`` = (k, v), each [L, B, Senc, Hkv, hd]."""
     _check_family(cfg)
     return _cache_tree(cfg, batch, max_seq, lambda shape, dt, n: TensorSpec(
         shape if n is None else (n,) + shape, dt))
@@ -327,14 +451,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 # --- prefill / decode --------------------------------------------------------
 
 @torch.no_grad()
-def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache):
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
+            frames: Optional[torch.Tensor] = None):
     """Run the full prompt, filling ``cache`` in place. Returns
-    (last_logits [B, V], cache)."""
+    (last_logits [B, V], cache). The encoder-decoder needs ``frames``
+    [B, Senc, D]: the encoder runs over them and each decoder layer's
+    cross k/v land in ``cache["cross"]``."""
     _check_family(cfg)
+    if cfg.is_encoder_decoder:
+        _need_frames(cfg, cache, frames)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    x = _backbone(cfg, params, _embed(params, tokens), positions, cache)
+    x = _backbone(cfg, params, _embed(params, tokens), positions, cache,
+                  frames=frames)
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
@@ -342,7 +472,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache):
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
                 pos: torch.Tensor):
     """One token for every sequence. tokens: [B,1]; pos: [B] int32.
-    Returns (logits [B,V], cache), the cache updated in place."""
+    Returns (logits [B,V], cache), the cache updated in place (the
+    encoder-decoder's ``cross`` is read, not written)."""
     _check_family(cfg)
     positions = pos[:, None].to(torch.int32)
     x = _backbone(cfg, params, _embed(params, tokens), positions, cache)

@@ -14,9 +14,11 @@ Restore is *elastic* in the serving dimension: a checkpoint taken on an
 N-slot engine lands on an M-slot engine (re-slotting). Each live
 session's decode state is rebuilt by replaying its full token history
 (prompt + tokens generated so far) into its new slot: through a
-batch-1 prefill for the attention families, through batch-1 decode
-steps for the recurrent ones (ssm, hybrid), whose state padding would
-corrupt.
+batch-1 prefill for the decoder-only attention families, through
+batch-1 decode steps for the recurrent ones (ssm, hybrid), whose state
+padding would corrupt, and for the encoder-decoder, as the JAX engine
+does: it never runs the encoder, so its cross-attention cache stays at
+its zero init (ROADMAP C21).
 
 The engine runs on one device: the CUDA card unless the caller passes
 ``device="cpu"``. Its KV cache is updated in place by every decode step
@@ -119,9 +121,10 @@ class ServingEngine:
     state from the request's full token history — prompt plus any tokens
     already generated, so a request resumed from a checkpoint re-enters
     mid-generation — through a batch-1 prefill of the history,
-    right-padded into a power-of-two bucket (attention families), or a
-    batch-1 decode replay of it (recurrent families, where the pad
-    tokens would advance the state).
+    right-padded into a power-of-two bucket (decoder-only attention
+    families), or a batch-1 decode replay of it (recurrent families,
+    where the pad tokens would advance the state, and the
+    encoder-decoder).
     """
 
     def __init__(self, cfg: ModelConfig, params, device, n_slots: int,
@@ -388,7 +391,9 @@ class ServingEngine:
     def replay(self, hist: np.ndarray):
         """Recurrent families (ssm, hybrid): the state is order-sensitive,
         so no padding — replay the history through batch-1 decode steps
-        into a fresh single-slot cache (no other slot's state moves).
+        into a fresh single-slot cache (no other slot's state moves). The
+        encoder-decoder is admitted the same way, as the JAX engine
+        admits it: its cross cache keeps the fresh cache's zeros.
         Returns (the last step's logits [1, V], the single-slot cache)."""
         one = M.init_cache(self.cfg, 1, self.max_seq, self.device)
         logits = None

@@ -2,11 +2,13 @@
 
 ``tests/conformance`` holds the JAX package to five modes through its
 public API; this file runs the same sequences (the reference's function
-for each in parentheses) through ``repro_torch.api`` alone, for the attention and ssm families (their
-``Trainer`` at ``-smoke``) and the rglru family (its serving engine at
-``-smoke``: the port serves the hybrid family but does not train it,
-ROADMAP A8), plus the ssm family's serving engine, whose admission
-replays:
+for each in parentheses) through ``repro_torch.api`` alone, for the
+attention, ssm and encoder-decoder families (their ``Trainer`` at
+``-smoke``; whisper's batches carry encoder frames) and the rglru family
+(its serving engine at ``-smoke``: the port serves the hybrid family but
+does not train it, ROADMAP A8), plus the serving engines of the ssm
+family and of the encoder-decoder (whose cache holds the cross-attention
+tuple ``['cross'][0]``/``[1]``), whose admissions replay:
 
   kill      snapshot cadence -> drop the app -> restore latest ->
             continue -> the uninterrupted run's digest; then the same
@@ -139,6 +141,8 @@ DRIVES = {
     "ssm": _trainer_drive("ssm", "mamba2-780m-smoke"),
     "rglru": _engine_drive("rglru", "recurrentgemma-9b-smoke"),
     "ssm-serving": _engine_drive("ssm-serving", "mamba2-780m-smoke"),
+    "encdec": _trainer_drive("encdec", "whisper-base-smoke"),
+    "encdec-serving": _engine_drive("encdec-serving", "whisper-base-smoke"),
 }
 
 

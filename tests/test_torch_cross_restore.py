@@ -4,6 +4,11 @@ by the JAX package's ``CheckpointManager`` into the same host bytes as
 the port's own restore (and the engine's live state at the snapshot),
 and a chain written by the JAX engine restores under ``repro_torch`` to
 identical bytes — same manifest format 3, leaf paths and dtype strings.
+The same holds for whisper-base-smoke, the encoder-decoder: its trainer
+chains (params and moments of the encoder and of the cross-attention)
+and its engine chains (the cache's tuple leaves ``['cross'][0]``/``[1]``
+beside ``['self']``), written by either package and restored by the
+other.
 """
 import ml_dtypes
 import numpy as np
@@ -11,20 +16,33 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from repro.configs import get_smoke_config
+from repro.configs import registry as jreg
+from repro.core import LowerHalf as JLower
+from repro.core import UpperHalf as JUpper
 from repro.core import delta as jdelta
 from repro.core.backends.localfs import LocalFSBackend as JBackend
 from repro.core.checkpoint import CheckpointManager as JManager
 from repro.models import model as JM
+from repro.data.pipeline import DataConfig as JData
+from repro.data.pipeline import TokenPipeline as JPipeline
+from repro.optim import AdamWConfig as JAdamW
+from repro.optim import ScheduleConfig as JSchedule
+from repro.optim import init_opt_state as jinit_opt
+from repro.parallel.planner import make_plan as jmake_plan
 from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
+from repro.train import step as jstep
 from repro_torch import convert
 from repro_torch.api import CheckpointSession, Policy
 from repro_torch.core.backends.localfs import LocalFSBackend
 from repro_torch.core import delta as tdelta
 from repro_torch.core.checkpoint import CheckpointManager
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.train.loop import Trainer, TrainJob
+from repro_torch.tree import flatten_with_paths
 
 ARCH = "phi4-mini-3.8b-smoke"
 CHUNK, MIN = 1024, 2048      # small sparse chunks: the smoke cache is tiny
@@ -129,6 +147,186 @@ def test_jax_chain_restores_bit_identically_under_the_port(tmp_path):
     np.testing.assert_array_equal(eng.slot_tok, jeng.slot_tok)
     assert [(r.rid, r.out) for r in eng.live_requests()] == \
         [(r.rid, r.out) for r in jeng.live_requests()]
+    for m in (jm, tm):
+        m.close()
+
+
+# --- whisper-base-smoke: the encoder-decoder's trainer and engine ------------
+
+WHISPER = "whisper-base-smoke"
+WHISPER_SHAPE = "train_s16_b4"
+MESH = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
+                         ("data", "model"))
+
+
+def _whisper_jax_params():
+    return JM.init_params(get_smoke_config("whisper-base"),
+                          jax.random.PRNGKey(0))
+
+
+def test_port_whisper_training_chain_restores_under_jax(tmp_path):
+    sess = CheckpointSession(f"localfs:{tmp_path}",
+                             Policy(interval=2, chain=2,
+                                    sparse_chunk_bytes=CHUNK,
+                                    sparse_min_bytes=MIN))
+    t = Trainer(TrainJob(WHISPER, WHISPER_SHAPE), manager=sess.manager,
+                device="cpu")
+    t.init_state()
+    sess.attach(t)
+    live = {}
+    for _ in range(4):
+        t.train_steps(1)
+        if sess.maybe_snapshot() is not None:
+            live[t.checkpoint_step()] = {
+                e: dict(flatten_with_paths(
+                    convert.tree_to_numpy(t.upper.get(e))))
+                for e in ("params", "opt_state")}
+    sess.close()
+    jm = JManager(JBackend(str(tmp_path)))
+    tm = CheckpointManager(LocalFSBackend(str(tmp_path)))
+    assert jm.backend.list_steps() == [2, 4]
+    assert jm.backend.get_manifest(4)["base_step"] == 2
+    for step in (2, 4):
+        jr, tr = jm.restore(step), tm.restore(step)
+        _assert_same_entries(jr.entries, tr.entries)
+        assert jr.manifest == tr.manifest
+        for e, leaves in live[step].items():
+            for path, want in leaves.items():
+                assert _bytes(jr.entries[e][path]) == _bytes(want)
+        assert "['enc_layers']['attn']['wq']" in jr.entries["params"]
+        assert "['layers']['cross']['wk']" in jr.entries["params"]
+    for m in (jm, tm):
+        m.close()
+
+
+def test_jax_whisper_training_chain_restores_under_the_port(tmp_path):
+    """A chain written by the JAX package's CheckpointManager from its
+    pure step on batches with frames (its Trainer fails on jax 0.9's
+    Explicit-axis meshes, ROADMAP C4) comes back in the port with the
+    same bytes, and the port's trainer steps on from it."""
+    cfg = jreg.resolve_config(WHISPER)
+    shape = jreg.get_shape(WHISPER_SHAPE)
+    jfn = jax.jit(jstep.make_train_step(
+        cfg, jmake_plan(cfg, shape, MESH), JAdamW(), JSchedule(), mesh=None))
+    params = _whisper_jax_params()
+    opt = jinit_opt(params, JAdamW())
+    lower = JLower(mesh_factory=lambda: MESH)
+    lower.mesh_create((1, 1), ("data", "model"))
+    lower.compile_step("train_step", WHISPER, WHISPER_SHAPE, "")
+    jm = JManager(JBackend(str(tmp_path)), async_save=False,
+                  delta_base_interval=2)
+    pipe = JPipeline(JData(seed=1234, vocab_size=cfg.vocab_size, seq_len=16,
+                           global_batch=4, n_shards=4,
+                           frames=cfg.encoder_seq,
+                           frame_dim=cfg.frontend_dim))
+    meta = {"kind": "train", "arch": WHISPER, "shape_key": WHISPER_SHAPE,
+            "plan_key": "", "init_seed": 0, "data_seed": 1234}
+    for step in range(4):
+        batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(step).items()}
+        params, opt, _ = jfn(params, opt, batch, jnp.int32(step),
+                             jnp.float32(1.0))
+        lower.data_advance(1)
+        if (step + 1) % 2 == 0:
+            up = JUpper()
+            up.register("params", "params", params, JM.logical_specs(cfg))
+            up.register("opt_state", "opt_state", opt)
+            up.register("step", "step", np.int64(step + 1))
+            up.register("data_cursor", "data_cursor", np.int64(step + 1))
+            up.register("rng_seed", "rng", np.int64(0))
+            jm.save(step + 1, up, lower.oplog, job_meta=meta)
+    jm.wait()
+    tm = CheckpointManager(LocalFSBackend(str(tmp_path)))
+    for step in (2, 4):
+        _assert_same_entries(tm.restore(step).entries,
+                             jm.restore(step).entries)
+    t = CheckpointSession(f"localfs:{tmp_path}").restore(
+        "latest", expect_kind="train", device="cpu")
+    want = jm.restore(4).entries
+    for e in ("params", "opt_state"):
+        got = dict(flatten_with_paths(convert.tree_to_numpy(t.upper.get(e))))
+        assert sorted(got) == sorted(want[e])
+        for path, v in got.items():
+            assert _bytes(v) == _bytes(want[e][path]), (e, path)
+    assert t.checkpoint_step() == 4
+    loss = t.train_steps(1)["loss"]
+    batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(4).items()}
+    _, _, jmet = jfn(params, opt, batch, jnp.int32(4), jnp.float32(1.0))
+    assert abs(loss - float(jmet["loss"])) < 2e-2 * abs(float(jmet["loss"]))
+    for m in (jm, tm):
+        m.close()
+
+
+def test_port_whisper_engine_chain_restores_under_jax(tmp_path):
+    params = convert.params_from_numpy(
+        jax.tree.map(np.asarray, _whisper_jax_params()), "cpu")
+    sess = CheckpointSession(f"localfs:{tmp_path}",
+                             Policy(interval=3, chain=4,
+                                    sparse_chunk_bytes=CHUNK,
+                                    sparse_min_bytes=MIN))
+    eng = ServingEngine.create(WHISPER, params, n_slots=2, max_seq=48,
+                               manager=sess.manager, device="cpu")
+    sess.attach(eng)
+    for i, p in enumerate(_prompts()):
+        eng.submit(Request(rid=i, prompt=p, max_new=8))
+    live = {}
+    for _ in range(12):
+        eng.step()
+        if sess.maybe_snapshot() is not None:
+            live[eng.steps] = dict(flatten_with_paths(
+                convert.tree_to_numpy(eng.cache)))
+    sess.close()
+    jm = JManager(JBackend(str(tmp_path)))
+    tm = CheckpointManager(LocalFSBackend(str(tmp_path)))
+    assert jm.backend.list_steps() == [3, 6, 9, 12]
+    for step in (3, 6, 9, 12):
+        jr, tr = jm.restore(step), tm.restore(step)
+        _assert_same_entries(jr.entries, tr.entries)
+        assert jr.manifest == tr.manifest
+        assert sorted(live[step]) == sorted(jr.entries["kv_cache"])
+        for path, want in live[step].items():
+            assert _bytes(jr.entries["kv_cache"][path]) == _bytes(want)
+    assert "['cross'][1]" in live[12]
+    for m in (jm, tm):
+        m.close()
+
+
+def test_jax_whisper_engine_chain_restores_under_the_port(tmp_path):
+    jparams = _whisper_jax_params()
+    jm = JManager(JBackend(str(tmp_path)), async_save=False,
+                  delta_base_interval=4, sparse_chunk_bytes=CHUNK,
+                  sparse_min_bytes=MIN)
+    jeng = JEngine(get_smoke_config("whisper-base"), jparams, MESH,
+                   n_slots=2, max_seq=48, manager=jm, arch=WHISPER)
+    for i, p in enumerate(_prompts()):
+        jeng.submit(JRequest(rid=i, prompt=p, max_new=8))
+    for _ in range(12):
+        jeng.step()
+        if jeng.steps % 3 == 0:
+            jeng.snapshot()
+    jm.wait()
+    assert jm.backend.list_steps() == [3, 6, 9, 12]
+    tm = CheckpointManager(LocalFSBackend(str(tmp_path)))
+    for step in (3, 6, 9, 12):
+        _assert_same_entries(tm.restore(step).entries,
+                             jm.restore(step).entries)
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       "cpu")
+    eng = CheckpointSession(f"localfs:{tmp_path}").restore(
+        "latest", params=params, device="cpu")
+    want = jm.restore(12).entries["kv_cache"]
+    got = dict(flatten_with_paths(convert.tree_to_numpy(eng.cache)))
+    assert sorted(got) == sorted(want)
+    for path, v in got.items():
+        assert _bytes(v) == _bytes(want[path]), path
+    assert eng.steps == jeng.steps
+    np.testing.assert_array_equal(eng.slot_pos, jeng.slot_pos)
+    np.testing.assert_array_equal(eng.slot_tok, jeng.slot_tok)
+    assert [(r.rid, r.out) for r in eng.live_requests()] == \
+        [(r.rid, r.out) for r in jeng.live_requests()]
+    # both finish the restored sessions with the same tokens
+    jeng.run_until_drained(max_steps=100)
+    eng.run_until_drained(max_steps=100)
+    assert [(r.rid, r.out) for r in eng.live_requests()] == []
     for m in (jm, tm):
         m.close()
 

@@ -319,6 +319,11 @@ FLASH_CASES = [   # B, H, Hkv, Sq, Skv, hd, causal, window
     (1, 6, 3, 130, 130, 32, True, 40),     # head dim 32, ragged, window
     (1, 4, 2, 300, 100, 64, True, 0),      # cross-length, Sq > Skv
     (1, 3, 1, 100, 300, 32, False, 0),     # cross-length, bidirectional
+    # non-causal with Sq != Skv, as whisper's encoder and cross-attention
+    # take them (MHA: a group of 1, so dk/dv is not split)
+    (1, 8, 8, 300, 1000, 64, False, 0),    # ragged cross, Sq < Skv
+    (2, 8, 8, 256, 150, 64, False, 0),     # cross, Sq > Skv, ragged keys
+    (1, 4, 4, 150, 150, 64, False, 0),     # ragged encoder
 ]
 
 
@@ -435,6 +440,62 @@ def test_trainer_kill_restore_on_the_card(cuda_device, tmp_path):
     launched = fa.counts("cuda")
     assert launched["flash_fwd"] == 2 * 2 * 6     # 2 layers, remat, 6 steps
     assert launched["flash_dq"] == launched["flash_dkv"] == 2 * 6
+
+
+def test_whisper_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One f32 train step of whisper-base-smoke on the card (the flash
+    kernels: the encoder and the cross-attention non-causal with Sq !=
+    Skv) against the same step on the CPU (the plain versions), TF32
+    off: loss and grad norm within 1e-5 relative, each leaf's gradient
+    within 1e-4 in the relative 2-norm (``chip_smoke.py``'s floor for a
+    gradient). The params after the step are not held elementwise:
+    AdamW's first step moves a param by ~lr * g / (|g| + eps), so
+    gradient elements near zero move the encoder's key projection by up
+    to 2.4e-5 (an H100 against the CPU)."""
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.optim import AdamWConfig, ScheduleConfig, init_opt_state
+    from repro_torch.parallel.planner import make_plan
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.train.step import (make_loss_fn, make_train_step,
+                                        value_and_grad)
+    from repro_torch.tree import flatten_with_paths, tree_map
+    cfg = get_smoke_config("whisper-base").replace(dtype="float32")
+    plan = make_plan(cfg, get_shape("train_s64_b2"))
+    step_fn = make_train_step(cfg, plan, AdamWConfig(), ScheduleConfig())
+    loss_fn = make_loss_fn(cfg, M.CallOptions(remat=plan.remat))
+    batch = TokenPipeline(DataConfig(
+        seed=7, vocab_size=cfg.vocab_size, seq_len=64, global_batch=2,
+        n_shards=2, frames=cfg.encoder_seq,
+        frame_dim=cfg.frontend_dim)).batch_at(0)
+    p_cpu = M.init_params(cfg, seed=3, device="cpu")
+
+    def run(dev):
+        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        _, g = value_and_grad(loss_fn, params, b)
+        opt = init_opt_state(params, AdamWConfig())
+        _, _, met = step_fn(params, opt, b, 150, torch.tensor(1.0))
+        return met, {p: t.cpu() for p, t in flatten_with_paths(g)}
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fa.reset_counts()
+        met, got = run(cuda_device)
+        launched = fa.counts("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    want_met, want = run("cpu")
+    n = cfg.n_encoder_layers + 2 * cfg.n_layers   # attention calls a pass
+    # value_and_grad: fwd twice (remat), dq, dk/dv; then the step again
+    assert launched == {"flash_fwd": 4 * n, "flash_dq": 2 * n,
+                        "flash_dkv": 2 * n}
+    for key in ("loss", "grad_norm"):
+        a, b = float(want_met[key]), float(met[key])
+        assert abs(a - b) <= 1e-5 * abs(a), key
+    for path, g in want.items():
+        err = float((got[path] - g).norm() / g.norm().clamp_min(1e-30))
+        assert err <= 1e-4, (path, err)
 
 
 # --- the SSD scan ----------------------------------------------------------------

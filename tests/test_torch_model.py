@@ -110,10 +110,10 @@ def test_cache_spec_and_empty_cache_match():
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "llama4-scout-17b-a16e",
-                                  "whisper-base", "recurrentgemma-9b"])
+                                  "recurrentgemma-9b"])
 def test_other_families_wait_for_roadmap_a8(arch):
-    """moe and enc-dec have no template yet; the hybrid family has one
-    and serves, but does not train (ROADMAP A8, hybrid training)."""
+    """moe has no template yet; the hybrid family has one and serves,
+    but does not train (ROADMAP A8, hybrid training)."""
     cfg = t_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         TM.forward_train(cfg, TM.init_params(cfg, 0, "cpu"),
