@@ -89,7 +89,16 @@ Phases, each reported on its own line:
    serving cell as mamba2-780m's (6 requests of 16-48 tokens on 4
    slots of 448, replay admission, killed mid first wave, restored
    eagerly then streamed), the cross cache still zero after serving as
-   the reference engine leaves it;
+   the reference engine leaves it; then the moe family
+   (``moe_serving_path``): llama4-scout-17b-a16e at full width, its
+   depth cut from 48 to 8 layers by the card's memory (19,685,790,720
+   bf16 params), serves as phi4-mini-3.8b does (6 prompts on 4 slots,
+   48 new tokens each, prefill admission) through kill -> eager,
+   streamed and re-slotted (onto 3 slots) restores, token for token,
+   no decode call dropping a choice; then kimi-k2-1t-a32b at full width
+   with 1 of its 61 layers (top-8 of 384 experts, ``moe_topk_path``)
+   serves 4 requests twice with the same tokens and KV cache bits, then
+   through kill -> restore; no flash kernel runs in either;
 7. the training paths, one per cell of ``TRAIN_CELLS``: one f32 step of
    the smoke model on the card matches the same step on the CPU; then
    the model at full width (and depth, unless the cell cuts it) trains
@@ -119,7 +128,14 @@ Phases, each reported on its own line:
    then the same step restored streamed (``opt_state`` the cold tier,
    fetched from the 4 virtual hosts) and 2 steps: moments, params, step,
    cursor and both losses bit-identical to the eager restore, one
-   dequantize launch per codec leaf, no plain or host codec call.
+   dequantize launch per codec leaf, no plain or host codec call;
+9. the moe family's training at ``-smoke`` (``moe_train_smoke``):
+   llama4-scout-17b-a16e and kimi-k2-1t-a32b, each an f32 step held
+   against the CPU (gradients, and each layer's expert ids off near
+   ties), its gradients the same bits twice under deterministic
+   algorithms, then 8 steps, a snapshot after step 6, a drop,
+   ``restore("latest")`` and 2 steps, bit-identical, through the flash
+   kernels at head dim 16.
    Every phase logs its seconds and the run's running total of snapshot
    bytes written.
 
@@ -843,16 +859,20 @@ def check_small_reference(torch, M, get_smoke_config):
 
 def time_admission(torch, eng, acc):
     """Time each admission of ``eng`` (prefill or replay of a request's
-    history, synchronized) into ``acc``: seconds and history tokens."""
+    history, synchronized) into ``acc``: seconds and history tokens (none
+    for a re-slotted session, whose checkpointed cache column lands
+    instead)."""
     bind = eng._bind_slot
 
     def timed(s, req):
+        carried = req.rid in eng._carried
         torch.cuda.synchronize()
         t0 = time.monotonic()
         bind(s, req)
         torch.cuda.synchronize()
         acc["s"] += time.monotonic() - t0
-        acc["tokens"] += len(req.prompt) + len(req.out) - 1
+        if not carried:
+            acc["tokens"] += len(req.prompt) + len(req.out) - 1
     eng._bind_slot = timed
 
 
@@ -890,20 +910,23 @@ def serve(torch, ServingEngine, Request, arch, params, prompts, *,
 
 
 def restore_and_finish(torch, store, policy, params, step, done, ref, *,
-                       streaming, label):
+                       streaming, label, n_slots=None):
     """Restore the serving checkpoint ``step`` of ``store`` (eagerly, or
-    streamed with the KV cache as the cold tier) and finish every
-    request; raises unless each one's tokens equal ``ref`` (the
-    uninterrupted run's), with ``done`` the requests that finished
-    before the kill. Returns what the restore took: ``restore()``'s
-    return time, the time to the first decoded token (the first engine
-    step, admission and the deferred cache merge included), the
-    incarnation's timings, ``stream_timings()`` and the admissions'."""
+    streamed with the KV cache as the cold tier; onto ``n_slots`` slots
+    when given, a re-slot: each live session's cache column lands in its
+    new slot) and finish every request; raises unless each one's tokens
+    equal ``ref`` (the uninterrupted run's), with ``done`` the requests
+    that finished before the kill. Returns what the restore took:
+    ``restore()``'s return time, the time to the first decoded token
+    (the first engine step, admission and the deferred cache merge
+    included), the incarnation's timings, ``stream_timings()`` and the
+    admissions'."""
     from repro_torch.api import CheckpointSession
     admission = {"s": 0.0, "tokens": 0}
     t0 = time.monotonic()
     sess = CheckpointSession(f"localfs:{store}", policy)
-    eng = sess.restore(step, params=params, streaming=streaming)
+    eng = sess.restore(step, params=params, streaming=streaming,
+                       n_slots=n_slots)
     torch.cuda.synchronize()
     restore_s = time.monotonic() - t0
     time_admission(torch, eng, admission)
@@ -916,13 +939,15 @@ def restore_and_finish(torch, store, policy, params, step, done, ref, *,
     torch.cuda.synchronize()
     got = dict(done)
     got.update({r.rid: list(r.out) for r in live})
+    kind = ("streamed" if streaming else "eager") + (
+        f", re-slotted onto {n_slots} slots" if n_slots else "")
     if got != ref:
         bad = sorted(k for k in ref if got.get(k) != ref[k])
-        raise AssertionError(f"{label} ({'streamed' if streaming else 'eager'}"
-                             f" restore): restored run diverged from the "
-                             f"uninterrupted run on {bad}")
+        raise AssertionError(f"{label} ({kind} restore): restored run "
+                             f"diverged from the uninterrupted run on {bad}")
     out = dict(step=back, restore_s=restore_s, first_token_s=first_s,
-               live_slots=live_slots, timings=dict(eng.incarnation.timings),
+               live_slots=live_slots, kind=kind, n_live=len(live),
+               timings=dict(eng.incarnation.timings),
                stream=eng.incarnation.stream_timings(), admission=admission)
     sess.close()
     del eng, sess
@@ -1266,13 +1291,14 @@ def prefill_vs_replay(torch, M, ServingEngine, rg, cfg, params, prompts):
 
 
 def serving_cell(torch, mods, arch, params, prompts, *, serve_kw, policy_kw,
-                 label, streamed, profile=None):
+                 label, streamed, profile=None, reslot=None):
     """A serving cell under C/R: ``prompts`` served uninterrupted (then
     ``profile(engine)`` when given), then again under a
     ``CheckpointSession`` with ``policy_kw``, killed two steps before
     half way so the last snapshot falls while the first wave of
     requests is in flight, restored through ``restore("latest")`` and,
-    with ``streamed``, that step again streamed: every request token for
+    with ``streamed``, that step again streamed, and with ``reslot``
+    that step again onto ``reslot`` slots: every request token for
     token as the uninterrupted run. Every kernel count is set to 0 just
     before the uninterrupted run and read after the last restore; raises
     unless the capture kernels launched and no flash, SSD or RG-LRU
@@ -1317,6 +1343,10 @@ def serving_cell(torch, mods, arch, params, prompts, *, serve_kw, policy_kw,
             restores.append(restore_and_finish(
                 torch, store, policy, params, restores[0]["step"], done, ref,
                 streaming=True, label=label))
+        if reslot:
+            restores.append(restore_and_finish(
+                torch, store, policy, params, restores[0]["step"], done, ref,
+                streaming=False, label=label, n_slots=reslot))
     finally:
         shutil.rmtree(store, ignore_errors=True)
     counts = _all_counts(mods)
@@ -1329,8 +1359,8 @@ def serving_cell(torch, mods, arch, params, prompts, *, serve_kw, policy_kw,
         f"dirty/clean chunks {st['dirty_chunks']}/{st['clean_chunks']}, "
         f"bytes written {st['bytes_written']}")
     for r in restores:
-        log(f"{label}: {'streamed' if r['stream'] else 'eager'} restore of "
-            f"step {r['step']} ({r['live_slots']} slots live): "
+        log(f"{label}: {r['kind']} restore of step {r['step']} "
+            f"({r['live_slots']} slots live, {r['n_live']} requests live): "
             f"{describe_restore(r)}; admission after it "
             f"{per_token_ms(r['admission'])}; all {len(ref)} requests "
             f"token-identical to the uninterrupted run")
@@ -1673,6 +1703,204 @@ def encdec_path(torch, np, mods):
     return counts
 
 
+# the moe family's serving cell: llama4-scout-17b-a16e at full width
+# (d_model 5,120, 16 experts of 8,192 and a shared one, vocab 202,048), its
+# depth cut from 48 to 8 layers by the card's memory (19.7e9 bf16 params,
+# 39.4 GB; init draws each stacked leaf in f32, the [8, 16, 5120, 8192]
+# experts' twice over), served as phi4-mini-3.8b is: 6 prompts of 64-512
+# tokens on 4 slots of 1,024, 48 new tokens each, admission by prefill
+MOE_ARCH, MOE_LAYERS = "llama4-scout-17b-a16e", 8
+MOE_SERVE = dict(n_slots=N_SLOTS, max_seq=MAX_SEQ, max_new=MAX_NEW)
+MOE_POLICY = dict(interval=4, chain=4)
+MOE_RESLOT = 3
+# kimi-k2-1t-a32b at full width (d_model 7,168, 384 experts of 2,048,
+# top-8, a shared expert, vocab 163,840), one of its 61 layers (19.4e9
+# params, 38.8 GB bf16): 4 prompts of 16-48 tokens on 4 slots of 256, 8
+# new tokens each, served twice, then killed and restored; a snapshot
+# every step, so the two before the kill (at step 2 of ~8) make a chain
+# link, which the capture kernels write
+TOPK_ARCH, TOPK_LAYERS = "kimi-k2-1t-a32b", 1
+TOPK_SERVE = dict(n_slots=4, max_seq=256, max_new=8)
+TOPK_N_REQ, TOPK_PROMPT_LENS = 4, (16, 49)
+TOPK_POLICY = dict(interval=1, chain=4)
+# the moe family's training, at smoke size on the card (full width does
+# not fit the run: one llama4-scout layer's snapshot is 42.7 GB)
+MOE_TRAIN_CELLS = tuple(
+    dict(arch=a, job=a + "-smoke", shape="train_s256_b8", kernels="flash",
+         reference_shape="train_s64_b2", reference="grads")
+    for a in (MOE_ARCH, TOPK_ARCH))
+
+
+class MoeDrops:
+    """Counts the (token, choice) pairs the moe dispatch sends to its
+    drop slot (``models.moe._slots`` wrapped), apart for decode calls
+    (fewer than 8 tokens: prefill buckets hold at least 8) and prefill
+    calls; the sums stay on the card until ``read``."""
+
+    def __init__(self, MOE):
+        self.MOE, self.plain = MOE, MOE._slots
+        self.sums = {"decode": [], "prefill": []}
+
+    def __enter__(self):
+        def counted(idx, n_experts, capacity):
+            slots = self.plain(idx, n_experts, capacity)
+            kind = "decode" if idx.shape[0] < 8 else "prefill"
+            self.sums[kind].append((slots == n_experts * capacity).sum())
+            return slots
+        self.MOE._slots = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE._slots = self.plain
+
+    def read(self):
+        return {k: int(sum(int(t) for t in v)) for k, v in self.sums.items()}
+
+    def calls(self):
+        return {k: len(v) for k, v in self.sums.items()}
+
+
+def _init_logged(torch, M, cfg, label):
+    """Seeded bf16 params of ``cfg`` on the card, with their count, the
+    time they took and the peak device memory of the init."""
+    from repro_torch.tree import flatten_with_paths
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(v.numel() for _, v in flatten_with_paths(params))
+    log(f"{label}: {cfg.name} at full width, {cfg.n_layers} layers (d_model "
+        f"{cfg.d_model}, {cfg.n_experts} experts of "
+        f"{cfg.resolved_moe_d_ff}, top-{cfg.experts_per_token}, "
+        f"{cfg.n_shared_experts} shared, vocab {cfg.vocab_size}), {n} params "
+        f"counted from the tensors (ModelConfig.n_params() says "
+        f"{cfg.n_params()}), made in {time.monotonic() - t0:.1f} s; peak "
+        f"device memory of the init "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB held")
+    return params
+
+
+def _flat_counts(counts):
+    return {k: v for per in counts.values() for k, v in per.items()}
+
+
+def moe_serving_path(torch, np, mods):
+    """The moe family's serving cell (llama4-scout-17b-a16e-layers8, see
+    ``MOE_ARCH``): served uninterrupted, its decode profiled, then under
+    ``Policy(interval=4, chain=4)`` with sparse capture killed while the
+    first wave is in flight and restored eagerly, streamed and re-slotted
+    onto 3 slots (``serving_cell``), every request token for token.
+    Raises unless no decode call dropped a choice."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving.engine import Request
+    arch = f"{MOE_ARCH}-layers{MOE_LAYERS}"
+    params = _init_logged(torch, M, resolve_config(arch), "moe serving")
+    vocab = resolve_config(arch).vocab_size
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab, size=int(n)).astype(np.int32)
+               for n in rng.randint(64, 513, size=N_REQ)]
+    log(f"moe serving: {N_REQ} requests, prompts {[len(p) for p in prompts]}"
+        f" tokens, max_new {MOE_SERVE['max_new']}, {MOE_SERVE['n_slots']} "
+        f"slots, max_seq {MOE_SERVE['max_seq']}")
+    torch.cuda.reset_peak_memory_stats()
+    with MoeDrops(MOE) as drops:
+        counts = serving_cell(
+            torch, mods, arch, params, prompts, serve_kw=MOE_SERVE,
+            policy_kw=MOE_POLICY, label="moe serving", streamed=True,
+            reslot=MOE_RESLOT,
+            profile=lambda eng: profile_decode(torch, np, eng, Request,
+                                               prompts))
+    dropped = drops.read()
+    log(f"moe serving: choices sent to the drop slot over the cell: "
+        f"{dropped} in {drops.calls()} moe calls; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if dropped["decode"]:
+        raise AssertionError(f"moe decode dropped {dropped['decode']} "
+                             "choices at 4 slots (capacity 8)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _flat_counts(counts)
+
+
+def moe_topk_path(torch, np, mods):
+    """kimi-k2-1t-a32b-layers1 (see ``TOPK_ARCH``): 4 requests served
+    twice, the tokens and the final KV cache the same bits both times,
+    the decode step timed, the choices prefill dropped counted (decode
+    must drop none); then killed and restored eagerly, token for token
+    (``serving_cell``). No flash kernel runs: serving takes attention's
+    cache branch (head dim 112 has no flash kernel, ROADMAP B12)."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.tree import flatten_with_paths
+    arch = f"{TOPK_ARCH}-layers{TOPK_LAYERS}"
+    cfg = resolve_config(arch)
+    params = _init_logged(torch, M, cfg, "moe top-k")
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.randint(*TOPK_PROMPT_LENS, size=TOPK_N_REQ)]
+    log(f"moe top-k: {TOPK_N_REQ} requests, prompts "
+        f"{[len(p) for p in prompts]} tokens, max_new "
+        f"{TOPK_SERVE['max_new']}, {TOPK_SERVE['n_slots']} slots, max_seq "
+        f"{TOPK_SERVE['max_seq']}")
+    _reset_all(mods)
+    runs = []
+    for i in range(2):
+        with MoeDrops(MOE) as drops:
+            eng, reqs, toks, dt = serve(torch, ServingEngine, Request, arch,
+                                        params, prompts, **TOPK_SERVE)
+        runs.append(({r.rid: list(r.out) for r in reqs},
+                     {p: t.to("cpu", copy=True)
+                      for p, t in flatten_with_paths(eng.cache)}))
+        log(f"moe top-k run {i + 1}: {eng.steps} engine steps, {toks} "
+            f"tokens in {dt:.2f} s (admission included); choices sent to "
+            f"the drop slot {drops.read()} in {drops.calls()} moe calls")
+        if drops.read()["decode"]:
+            raise AssertionError("moe top-k decode dropped a choice")
+        del eng
+    same_cache = all(torch.equal(a, runs[1][1][p])
+                     for p, a in runs[0][1].items())
+    if runs[0][0] != runs[1][0] or not same_cache:
+        raise AssertionError(f"moe top-k: two runs differ (tokens equal: "
+                             f"{runs[0][0] == runs[1][0]}, KV cache bits "
+                             f"equal: {same_cache})")
+    log(f"moe top-k: the two runs' tokens and final KV cache "
+        f"({len(runs[0][1])} leaves) are the same bits")
+    counts = serving_cell(
+        torch, mods, arch, params, prompts, serve_kw=TOPK_SERVE,
+        policy_kw=TOPK_POLICY, label="moe top-k serving", streamed=False,
+        profile=lambda eng: profile_decode(torch, np, eng, Request, prompts))
+    log(f"moe top-k: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _flat_counts(counts)
+
+
+def moe_train_smoke(torch, np, mods):
+    """The moe family's training on the card, at smoke size, under
+    deterministic algorithms (``train_path`` per ``MOE_TRAIN_CELLS``):
+    one f32 step against the CPU's (``check_train_reference``: the
+    gradients, and each layer's routing where the k-th and (k+1)-th
+    probabilities lie more than 1e-5 apart), then 8 steps, a snapshot
+    after step 6, a drop, ``restore("latest")`` and 2 steps: losses and
+    state digest bit-identical. Returns the flash launches summed."""
+    total = {}
+    for cell in MOE_TRAIN_CELLS:
+        for k, n in train_path(torch, np, mods, cell).items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def check_train_reference(torch, np, kern, arch, shape_key, mode):
     """One f32 train step of ``arch``'s smoke model on the card (its
     kernels: ``kern``'s counts must move) against the same step on the
@@ -1704,6 +1932,7 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels.ssd_scan import ref as R
     from repro_torch.models import model as M
+    from repro_torch.models import moe as MOE
     from repro_torch.models import ssm as SSM
     from repro_torch.optim import AdamWConfig, ScheduleConfig, init_opt_state
     from repro_torch.parallel.planner import make_plan
@@ -1725,14 +1954,17 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
     def run(dev):
         params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        grads = {}
+        grads, routes = {}, []
         if mode == "grads":
-            _, g = value_and_grad(loss_fn, params, b)
+            with RouteLog(torch, MOE) as rl:
+                _, g = value_and_grad(loss_fn, params, b)
+            routes = rl.calls[:cfg.n_layers]    # the forward's, not remat's
             grads = {p: t.cpu() for p, t in flatten_with_paths(g)}
         opt = init_opt_state(params, AdamWConfig())
         params, opt, met = step_fn(params, opt, b, 150, torch.tensor(1.0))
         return (met, {p: t.cpu() for p, t in flatten_with_paths(params)},
-                {p: t.cpu() for p, t in flatten_with_paths(opt)}, grads)
+                {p: t.cpu() for p, t in flatten_with_paths(opt)}, grads,
+                routes)
 
     res = {}
     for dev in ("cpu", "cuda"):
@@ -1781,7 +2013,8 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
     else:
         from unittest import mock
         from repro_torch.models import layers as L
-        with mock.patch.object(L, "exp_stable", torch.exp):
+        with mock.patch.object(L, "exp_stable", torch.exp), \
+                mock.patch.object(MOE, "exp_stable", torch.exp):
             alt = run("cpu")
         alt_label = "the CPU under torch.exp"
         spread_of = "the CPU's exp_f32 vs torch.exp spread"
@@ -1806,6 +2039,79 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
         f"{off['card']} of {sum(t.numel() for t in res['cpu'][1].values())}")
     if bad:
         raise AssertionError(f"train step gradients past the limit: {bad}")
+    if cfg.n_experts:
+        check_routes(torch, cfg, res["cpu"][4], res["cuda"][4])
+        check_grads_repeat(torch, cfg, loss_fn, value_and_grad, p_cpu,
+                           batch)
+
+
+class RouteLog:
+    """Records each ``models.moe.route`` call's expert ids and router
+    probabilities (on the host) while it is entered."""
+
+    def __init__(self, torch, MOE):
+        self.torch, self.MOE = torch, MOE
+        self.plain, self.calls = MOE.route, []
+
+    def __enter__(self):
+        def logged(cfg, w, x):
+            out = self.plain(cfg, w, x)
+            with self.torch.no_grad():
+                probs = (x.float() @ w).softmax(-1)
+            self.calls.append((out[1].cpu(), probs.cpu()))
+            return out
+        self.MOE.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE.route = self.plain
+
+
+def check_routes(torch, cfg, cpu, card):
+    """Each layer's expert ids on the card equal the CPU's for every
+    token whose k-th and (k+1)-th router probabilities (the CPU's) lie
+    more than 1e-5 apart; the near ties are counted and logged."""
+    k, near, tokens = cfg.experts_per_token, 0, 0
+    for layer, ((ci, cp), (gi, _)) in enumerate(zip(cpu, card)):
+        top = torch.sort(cp, dim=-1, descending=True).values
+        gap = top[..., k - 1] - top[..., k]
+        ok = gap > 1e-5
+        near += int((~ok).sum())
+        tokens += ok.numel()
+        if not torch.equal(ci[ok], gi[ok]):
+            raise AssertionError(f"layer {layer}: the card routed "
+                                 f"{int((ci[ok] != gi[ok]).any(-1).sum())} "
+                                 "tokens apart from the CPU")
+        flips = int((ci[~ok] != gi[~ok]).any(-1).sum())
+        if flips:
+            log(f"routing: layer {layer}: {flips} near-tied tokens routed "
+                "apart on the card")
+    log(f"routing: {len(cpu)} layers x {tokens // max(len(cpu), 1)} tokens,"
+        f" top-{k} of {cfg.n_experts}: the card's expert ids are the CPU's "
+        f"wherever the k-th and (k+1)-th probabilities lie more than 1e-5 "
+        f"apart ({near} near ties left out)")
+
+
+def check_grads_repeat(torch, cfg, loss_fn, value_and_grad, p_cpu, batch):
+    """Under ``torch.use_deterministic_algorithms(True)`` the card's
+    gradients (the dispatch's masked write and the combine's gather
+    backward among them) come out the same bits twice."""
+    from repro_torch.tree import flatten_with_paths, tree_map
+    params = tree_map(lambda t: t.to("cuda", copy=True), p_cpu)
+    b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = [dict(flatten_with_paths(value_and_grad(loss_fn, params,
+                                                       b)[1]))
+                for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = [p for p, g in runs[0].items() if torch.equal(g, runs[1][p])]
+    if len(same) != len(runs[0]):
+        raise AssertionError(f"{cfg.name}: gradients differ between two "
+                             f"runs on {sorted(set(runs[0]) - set(same))}")
+    log(f"{cfg.name}: under deterministic algorithms the card's gradients "
+        f"are the same bits twice ({len(same)} leaves)")
 
 
 def _mem_available() -> int:
@@ -1856,8 +2162,8 @@ def train_path(torch, np, kernel_mods, cell):
     kern = kernel_mods[cell["kernels"]]
     check_train_reference(torch, np, kern, arch, cell["reference_shape"],
                           cell["reference"])
-    job_arch = arch + (f"-layers{cell['layers']}" if "layers" in cell
-                       else "")
+    job_arch = cell.get("job") or arch + (
+        f"-layers{cell['layers']}" if "layers" in cell else "")
     cfg = resolve_config(job_arch)
     shape = get_shape(shape_key)
     tokens = shape.global_batch * shape.seq_len
@@ -1870,7 +2176,9 @@ def train_path(torch, np, kernel_mods, cell):
              else f"full depth, {cfg.n_layers} layers")
     if cfg.is_encoder_decoder:
         depth += f" + {cfg.n_encoder_layers} encoder layers"
-    log(f"train path: {job_arch} at full width, {depth} (d_model "
+    size = (f"{cfg.n_layers} layers" if "job" in cell
+            else f"at full width, {depth}")
+    log(f"train path: {job_arch} {size} (d_model "
         f"{cfg.d_model}, {n} params), {shape_key}; a snapshot is "
         f"{snap / 1e9:.1f} GB; free disk {disk / 1e9:.1f} GB, MemAvailable "
         f"{mem / 1e9:.1f} GB")
@@ -2329,9 +2637,12 @@ def main() -> int:
     add(phase("hybrid_path", hybrid_path, torch, np, mods))
     phase("ssm_serving_path", ssm_serving_path, torch, np, mods)
     phase("encdec_path", encdec_path, torch, np, mods)
+    add(phase("moe_serving_path", moe_serving_path, torch, np, mods))
+    add(phase("moe_topk_path", moe_topk_path, torch, np, mods))
     for cell in TRAIN_CELLS:
         add(phase(f"train_path {cell['arch']}", train_path, torch, np, mods,
                   cell))
+    add(phase("moe_train_smoke", moe_train_smoke, torch, np, mods))
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

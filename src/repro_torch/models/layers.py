@@ -181,16 +181,27 @@ def dense_attention(
     as chunked_attention."""
     hd = q.shape[-1]
     scale = 1.0 / math.sqrt(hd)
-    s = torch.einsum("bqkgd,bckd->bqkgc", q.float() * scale, k.float())
+    s = _per_row("bqkgd,bckd->bqkgc", q.float() * scale, k.float())
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     valid = _mask(q_pos, kv_pos, causal, window)
     s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = exp_stable(s - m)
-    out = torch.einsum("bqkgc,bckd->bqkgd", p, v.float())
+    out = _per_row("bqkgc,bckd->bqkgd", p, v.float())
     out = out / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
     return out.to(q.dtype)
+
+
+def _per_row(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` over a leading batch axis, one batch row
+    a call. A batched GEMM picks its kernel by the batch count, so a
+    row's bits would otherwise depend on how many rows share the call
+    (on an H100 the decode step's probabilities-times-values product
+    differed at 3 rows against 4), and a session re-slotted onto another
+    slot count would decode other bits than the run it left."""
+    return torch.cat([torch.einsum(eq, a[i:i + 1], b[i:i + 1])
+                      for i in range(a.shape[0])])
 
 
 # ---------------------------------------------------------------------------

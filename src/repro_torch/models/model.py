@@ -1,6 +1,8 @@
-"""Model assembly for the dense decoder, the ssm family (Mamba-2), the
-hybrid family (Griffin/RecurrentGemma) and the whisper encoder-decoder
-— the port of ``repro.models.model``: ``param_template``, ``forward_train``,
+"""Model assembly for the dense decoder, the moe family (its decoder
+blocks' FFN a routed mixture of experts, ``models.moe``), the ssm family
+(Mamba-2), the hybrid family (Griffin/RecurrentGemma) and the whisper
+encoder-decoder — the port of ``repro.models.model``:
+``param_template``, ``forward_train``,
 ``cache_spec``, ``init_cache``, ``prefill``, ``decode_step``,
 ``init_params``, ``init_abstract`` and ``logical_specs``, plus
 ``batch_axes``, where each decode-state leaf keeps its batch (slot)
@@ -17,9 +19,11 @@ package wraps the scan body in ``jax.checkpoint`` (for whisper: each
 encoder layer and each decoder layer). Decode state (KV caches, conv
 windows, recurrent states) is updated in place; whisper's cross-attention
 cache ``cross`` = (k, v), stacked over decoder layers, is written by
-``prefill(frames=)`` and only read by ``decode_step``. The moe family
-raises ``NotImplementedError`` naming ROADMAP A8, and so does hybrid
-training.
+``prefill(frames=)`` and only read by ``decode_step``. The moe
+family's blocks return their router's load-balance loss, summed over the
+layers in order into ``forward_train``'s ``moe_aux``; prefill and decode
+drop it, as the JAX package does. Hybrid training raises
+``NotImplementedError`` naming ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.host import resolve_device, torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models import hybrid as HY
+from repro_torch.models import moe as MOE
 from repro_torch.models import params as PM
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import P, stacked
@@ -48,12 +53,11 @@ class TensorSpec:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "ssm", "hybrid", "audio") \
-            or cfg.n_experts:
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            "port runs the dense decoder, the ssm, the hybrid and the "
-            "encoder-decoder family (other families: ROADMAP A8)")
+            f"{cfg.name}: the {cfg.family!r} family is not ported; the "
+            "port runs the dense decoder, the moe, the ssm, the hybrid and "
+            "the encoder-decoder family")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -118,12 +122,13 @@ def param_template(cfg: ModelConfig) -> Dict[str, Any]:
             "ln2": L.norm_template(cfg),
             "ffn": L.mlp_template(cfg),
         })
-    else:
+    else:       # the dense and moe decoder
         t["layers"] = stacked(cfg.n_layers, {
             "ln1": L.norm_template(cfg),
             "attn": L.attention_template(cfg),
             "ln2": L.norm_template(cfg),
-            "ffn": L.mlp_template(cfg),
+            "ffn": MOE.moe_template(cfg) if cfg.n_experts
+            else L.mlp_template(cfg),
         })
     return t
 
@@ -153,28 +158,38 @@ class CallOptions:
 
 
 def _block(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
-           cache) -> torch.Tensor:
+           cache) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One decoder block: (x, its moe aux loss; None for a dense FFN)."""
     h = L.apply_norm(cfg, p["ln1"], x)
     x = x + L.attention_forward(
         cfg, p["attn"], h, positions, window=cfg.attn_window, cache=cache)
     h = L.apply_norm(cfg, p["ln2"], x)
-    return x + L.mlp_forward(cfg, p["ffn"], h)
+    if cfg.n_experts:
+        f, aux = MOE.moe_forward(cfg, p["ffn"], h)
+    else:
+        f, aux = L.mlp_forward(cfg, p["ffn"], h), None
+    return x + f, aux
 
 
 def _decoder(cfg: ModelConfig, stacked_params, x: torch.Tensor,
              positions: torch.Tensor, cache,
-             opts: CallOptions = CallOptions()) -> torch.Tensor:
-    """The layer stack; ``cache`` (stacked over layers) is written in
-    place. Remat "full" recomputes each layer in the backward pass."""
+             opts: CallOptions = CallOptions()
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack: (x, the blocks' aux losses summed in layer
+    order from an f32 zero); ``cache`` (stacked over layers) is written
+    in place. Remat "full" recomputes each layer in the backward pass."""
     layers = _unstack(stacked_params, cfg.n_layers)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(layers):
         c = _layer(cache, i) if cache is not None else None
         if opts.remat == "full" and cache is None:
-            x = checkpoint(_block, cfg, p, x, positions, None,
-                           use_reentrant=False)
+            x, a = checkpoint(_block, cfg, p, x, positions, None,
+                              use_reentrant=False)
         else:
-            x = _block(cfg, p, x, positions, c)
-    return x
+            x, a = _block(cfg, p, x, positions, c)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _ssm_layer(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -321,15 +336,20 @@ def _need_frames(cfg: ModelConfig, cache, frames) -> None:
 def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
               positions: torch.Tensor, cache,
               opts: CallOptions = CallOptions(),
-              frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+              frames: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, the summed moe aux loss: an f32 zero outside the moe
+    family)."""
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        return _scan_ssm(cfg, params["layers"], x, cache, opts)
+        return _scan_ssm(cfg, params["layers"], x, cache, opts), zero()
     if cfg.family == "hybrid":
-        return _scan_hybrid(cfg, params, x, positions, cache)
+        return _scan_hybrid(cfg, params, x, positions, cache), zero()
     if cfg.is_encoder_decoder:
         enc = None if frames is None \
             else _whisper_encoder(cfg, params, frames, opts)
-        return _whisper_decoder(cfg, params, x, positions, cache, enc, opts)
+        return (_whisper_decoder(cfg, params, x, positions, cache, enc,
+                                 opts), zero())
     return _decoder(cfg, params["layers"], x, positions, cache, opts)
 
 
@@ -349,7 +369,9 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     """Full-sequence forward. batch: tokens [B,S] int32 (+ frames
     [B,Senc,D] float for the encoder-decoder).
 
-    Returns (logits [B,S,V], aux: dict). Positions are ``arange(S)``, so
+    Returns (logits [B,S,V], aux: dict), ``aux["moe_aux"]`` the moe
+    family's router losses summed over the layers (an f32 zero for the
+    other families). Positions are ``arange(S)``, so
     attention takes its no-cache branch (the flash kernels on the card;
     whisper's encoder and cross-attention too, non-causal); the ssm
     family's scan runs the SSD kernels on the card. The hybrid family is
@@ -362,11 +384,9 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
         _need_frames(cfg, None, frames)
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    x = _backbone(cfg, params, _embed(params, tokens), positions, None, opts,
-                  frames)
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32,
-                                  device=tokens.device)}
-    return _logits(cfg, params, x), aux
+    x, moe_aux = _backbone(cfg, params, _embed(params, tokens), positions,
+                           None, opts, frames)
+    return _logits(cfg, params, x), {"moe_aux": moe_aux}
 
 
 # --- caches -----------------------------------------------------------------
@@ -463,8 +483,8 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    x = _backbone(cfg, params, _embed(params, tokens), positions, cache,
-                  frames=frames)
+    x, _ = _backbone(cfg, params, _embed(params, tokens), positions, cache,
+                     frames=frames)
     return _logits(cfg, params, x[:, -1:])[:, 0], cache
 
 
@@ -476,7 +496,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     encoder-decoder's ``cross`` is read, not written)."""
     _check_family(cfg)
     positions = pos[:, None].to(torch.int32)
-    x = _backbone(cfg, params, _embed(params, tokens), positions, cache)
+    x, _ = _backbone(cfg, params, _embed(params, tokens), positions, cache)
     return _logits(cfg, params, x)[:, 0], cache
 
 

@@ -11,14 +11,21 @@ tokens, budget), slot positions and pending tokens. This is the paper's
 inference sessions.
 
 Restore is *elastic* in the serving dimension: a checkpoint taken on an
-N-slot engine lands on an M-slot engine (re-slotting). Each live
-session's decode state is rebuilt by replaying its full token history
-(prompt + tokens generated so far) into its new slot: through a
-batch-1 prefill for the decoder-only attention families, through
-batch-1 decode steps for the recurrent ones (ssm, hybrid), whose state
-padding would corrupt, and for the encoder-decoder, as the JAX engine
-does: it never runs the encoder, so its cross-attention cache stays at
-its zero init (ROADMAP C21).
+N-slot engine lands on an M-slot engine (re-slotting). Each former
+in-flight session keeps its checkpointed decode state — its column of
+the cache — which lands in whichever new slot admits it, so it decodes
+on from the bits it stopped at; a column still waiting for a slot is
+part of the session state a snapshot takes. (The JAX engine instead
+rebuilds it by prefilling the full token history, which comes close to
+the column the decode steps wrote but not always to its bits, ROADMAP
+C23.) The carried session then decodes the uninterrupted run's tokens
+wherever a decode row's bits do not depend on how many rows share the
+step: on an H100 that was shown at 2 to 4 slots, not at 1 (C23). A
+request that never held a slot is admitted from its prompt: through a batch-1 prefill for the decoder-only
+attention families, through batch-1 decode steps for the recurrent ones
+(ssm, hybrid), whose state padding would corrupt, and for the
+encoder-decoder, as the JAX engine does: it never runs the encoder, so
+its cross-attention cache stays at its zero init (ROADMAP C21).
 
 The engine runs on one device: the CUDA card unless the caller passes
 ``device="cpu"``. Its KV cache is updated in place by every decode step
@@ -117,10 +124,11 @@ class ServingEngine:
     """Slot-based continuous batching over fixed-shape decode steps.
 
     Decode always runs the full slot batch; finished slots are refilled
-    from the queue between steps. Admission rebuilds the slot's decode
-    state from the request's full token history — prompt plus any tokens
-    already generated, so a request resumed from a checkpoint re-enters
-    mid-generation — through a batch-1 prefill of the history,
+    from the queue between steps. Admission lands a re-slotted session's
+    carried cache column in its slot; any other request has its slot's
+    decode state rebuilt from its full token history — prompt plus any
+    tokens already generated, so a request resumed from a checkpoint
+    re-enters mid-generation — through a batch-1 prefill of the history,
     right-padded into a power-of-two bucket (decoder-only attention
     families), or a batch-1 decode replay of it (recurrent families,
     where the pad tokens would advance the state, and the
@@ -162,6 +170,10 @@ class ServingEngine:
         # while it was in flight — see _ensure_cache()
         self._pending_cache = None
         self._touched_slots: set = set()
+        # re-slot restore: each former in-flight request's checkpointed
+        # cache column (batch 1, on the engine's device), by rid, until a
+        # slot admits it; snapshotted as the "carried" entry
+        self._carried: Dict[int, Any] = {}
         self._prefill_admission = (cfg.family not in ("ssm", "hybrid")
                                    and not cfg.is_encoder_decoder)
         # the axis of each cache leaf that holds the slot index
@@ -201,8 +213,10 @@ class ServingEngine:
     def session_state(self) -> UpperHalf:
         """The engine's *complete* semantic (upper-half) state: cache
         contents, slot bookkeeping (positions + pending tokens), every
-        in-flight request (prompt, generated tokens, budget, identity)
-        and the waiting queue. Params are the trainer's job, not ours."""
+        in-flight request (prompt, generated tokens, budget, identity),
+        the waiting queue and the cache columns that re-slotted sessions
+        in it carry (an entry only while one waits). Params are the
+        trainer's job, not ours."""
         self._ensure_cache()   # never snapshot a half-paged-in cache
         up = UpperHalf()
         up.register("kv_cache", "cache", self.cache)
@@ -218,6 +232,9 @@ class ServingEngine:
                 sched["slots"][f"{s:06d}"] = _request_tree(r)
         up.register("sched", "sched", sched)
         up.register("steps", "step", np.int64(self.steps))
+        if self._carried:
+            up.register("carried", "cache",
+                        {str(rid): col for rid, col in self._carried.items()})
         return up
 
     def job_meta(self) -> Dict[str, Any]:
@@ -254,11 +271,11 @@ class ServingEngine:
     def bind(self, restore: RestoreContext) -> None:
         """CheckpointableApp.bind: rebind the *complete* session state —
         cache contents, slot bookkeeping, in-flight requests, waiting
-        queue — from a materialized restore context. On a re-slot
-        restore (this engine's slot count differs from the checkpoint's)
-        the skipped cache/slot entries are rebuilt instead: every former
-        in-flight session re-enters through admission, which replays its
-        prompt + generated tokens into its new slot."""
+        queue, carried columns — from a materialized restore context. On
+        a re-slot restore (this engine's slot count differs from the
+        checkpoint's) every former in-flight session re-enters through
+        admission with its checkpointed cache column, which lands in its
+        new slot; the slot bookkeeping is rebuilt from the requests."""
         inc = restore.incarnation()
         reslot = self.n_slots != int(restore.job["n_slots"])
         self.steps = int(inc.scalar("steps")) if inc.has_entry("steps") \
@@ -270,6 +287,8 @@ class ServingEngine:
                      for k, v in sorted(sched.get("slots", {}).items())]
         queue_reqs = [_request_from_tree(v)
                       for _, v in sorted(sched.get("queue", {}).items())]
+        self._carried = (self._columns_from(inc.entry_paths("carried"))
+                         if inc.has_entry("carried") else {})
 
         if not reslot:
             kv = inc.entry_paths("kv_cache")
@@ -296,13 +315,41 @@ class ServingEngine:
             self.queue = queue_reqs
         else:
             # elastic re-slot: former in-flight sessions (slot order)
-            # lead the queue, then the waiting requests; admission
-            # replays each one's history into its new slot. Sessions
+            # lead the queue, then the waiting requests; admission lands
+            # each one's checkpointed column in its new slot. Sessions
             # beyond the new slot count wait their turn — nothing drops.
+            # A streamed restore waits for the whole cache here.
+            kv = inc.entry_paths("kv_cache")
+            if callable(getattr(kv, "wait", None)):
+                kv.wait()
+            host = fill_like(self.cache, kv)
+            for s, r in slot_reqs:
+                self._carried[r.rid] = tree_map(
+                    lambda v, t, ax, s=s: to_tensor(
+                        np.take(np.asarray(v), [s], axis=ax), t.dtype,
+                        t.device),
+                    host, self.cache, self._batch_axes)
             self.queue = [r for _, r in slot_reqs] + queue_reqs
             self._admit()
         inc.release()   # every entry is rebound or rebuilt; drop the
         self.incarnation = inc  # host payload, keep timings + manifest
+
+    def _columns_from(self, by_path) -> Dict[int, Any]:
+        """The "carried" entry back as {rid: cache column on the engine's
+        device}; its paths are the column's cache paths under ``[rid]``."""
+        if callable(getattr(by_path, "wait", None)):
+            by_path.wait()
+        out: Dict[int, Any] = {}
+        rids = {re.match(r"\['(-?\d+)'\]", p).group(1) for p in by_path}
+        for rid in rids:
+            pre = f"[{rid!r}]"
+            col = fill_like(self.cache, {p[len(pre):]: v
+                                         for p, v in by_path.items()
+                                         if p.startswith(pre)})
+            out[int(rid)] = tree_map(
+                lambda v, t: to_tensor(np.asarray(v), t.dtype, t.device),
+                col, self.cache)
+        return out
 
     def live_requests(self) -> List[Request]:
         """In-flight requests (slot order) + the waiting queue."""
@@ -316,9 +363,10 @@ class ServingEngine:
         requests; each request carries its complete history (prompt +
         generated tokens + budget), which is all a target engine needs
         to rebuild the session's KV state through admission replay — KV
-        bytes never travel. The freed slots zero their bookkeeping and
-        refill from the queue on the next step. ``include_queue`` also
-        drains the waiting queue (a full drain of this engine)."""
+        bytes never travel, and a queued request's carried column stays
+        behind and is dropped. The freed slots zero their bookkeeping
+        and refill from the queue on the next step. ``include_queue``
+        also drains the waiting queue (a full drain of this engine)."""
         chosen = range(self.n_slots) if slots is None else slots
         out: List[Request] = []
         for s in chosen:
@@ -333,6 +381,8 @@ class ServingEngine:
             self.slot_pos[s] = 0
             self.slot_tok[s, 0] = 0
         if include_queue:
+            for r in self.queue:
+                self._carried.pop(r.rid, None)
             out.extend(self.queue)
             self.queue = []
         return out
@@ -348,14 +398,18 @@ class ServingEngine:
                 self._bind_slot(s, self.queue.pop(0))
 
     def _bind_slot(self, s: int, req: Request) -> None:
-        """Admit ``req`` into slot ``s``, rebuilding the slot's decode
-        state from the request's full token history. The last history
-        token becomes the slot's pending token, so the next engine step
+        """Admit ``req`` into slot ``s``: its carried cache column lands
+        there if it has one, else the slot's decode state is rebuilt
+        from the request's full token history. The last history token
+        becomes the slot's pending token, so the next engine step
         produces the request's next output token."""
         seq = np.concatenate([np.asarray(req.prompt).ravel(),
                               np.asarray(req.out).ravel()]).astype(np.int32)
         hist = seq[:-1]
-        if len(hist):
+        carried = self._carried.pop(req.rid, None)
+        if carried is not None:
+            self._merge_slot(s, carried)
+        elif len(hist):
             if self._prefill_admission:
                 self._prefill_slot(s, hist)
             else:
@@ -476,11 +530,11 @@ def _restore_engine(restore: RestoreContext, params,
                     device=None) -> ServingEngine:
     """The "serving" restore binder: the Incarnation lifecycle, serving
     flavor. ``device`` is where the engine comes back (default: the
-    card). On a re-slot restore the checkpoint's KV cache and slot
-    bookkeeping are rebuilt from scratch, so their delta chains — the
-    bulk of the payload — are skipped at decode, not decoded and
-    dropped; the op-log replays with CacheAlloc/Compile rewritten to
-    the new slot count (composed with any session-level rewrite)."""
+    card). On a re-slot restore the slot bookkeeping is rebuilt from the
+    requests, so its entry is skipped at decode, and the KV cache's
+    columns travel with their requests; the op-log replays with
+    CacheAlloc/Compile rewritten to the new slot count (composed with
+    any session-level rewrite)."""
     job = restore.job
     arch = job.get("arch")
     if arch is None:
@@ -502,7 +556,7 @@ def _restore_engine(restore: RestoreContext, params,
     mesh_factory = restore.mesh_factory or (lambda: dev)
 
     inc = restore.incarnation(
-        skip_entries=("kv_cache", "sessions") if reslot else None,
+        skip_entries=("sessions",) if reslot else None,
         rewrite_op=rewrite, mesh_factory=mesh_factory)
     inc.materialize()
     lower = inc.build_lower()

@@ -3,12 +3,14 @@
 ``tests/conformance`` holds the JAX package to five modes through its
 public API; this file runs the same sequences (the reference's function
 for each in parentheses) through ``repro_torch.api`` alone, for the
-attention, ssm and encoder-decoder families (their ``Trainer`` at
-``-smoke``; whisper's batches carry encoder frames) and the rglru family
-(its serving engine at ``-smoke``: the port serves the hybrid family but
-does not train it, ROADMAP A8), plus the serving engines of the ssm
-family and of the encoder-decoder (whose cache holds the cross-attention
-tuple ``['cross'][0]``/``[1]``), whose admissions replay:
+attention, moe (top-1 with a shared expert, and top-k), ssm and
+encoder-decoder families (their ``Trainer`` at ``-smoke``; whisper's
+batches carry encoder frames) and the rglru family (its serving engine
+at ``-smoke``: the port serves the hybrid family but does not train it,
+ROADMAP A8), plus the serving engines of the moe family (prefill
+admission, whose bucket sets the experts' capacity), of the ssm family
+and of the encoder-decoder (whose cache holds the cross-attention tuple
+``['cross'][0]``/``[1]``), whose admissions replay:
 
   kill      snapshot cadence -> drop the app -> restore latest ->
             continue -> the uninterrupted run's digest; then the same
@@ -27,9 +29,16 @@ tuple ``['cross'][0]``/``[1]``), whose admissions replay:
   midchain  an app whose state grows mid-run, so an entry first appears
             in a delta link, restores eager and streamed
             (``run_midchain``)
+  reslot    an engine snapshotted with work in flight, hard-killed and
+            restored onto 3 slots from 2 (each former in-flight session
+            lands its checkpointed cache column in its new slot, a
+            waiting request is admitted from its prompt) -> every
+            request's tokens as the uninterrupted run's
+            (``run_reslot``), for every engine drive
 
 The JAX families (``tests/conformance/families.py``) build JAX apps, so
-the port builds its own specs here; shrink waits for ROADMAP A7/A9.
+the port builds its own specs here; shrink waits for ROADMAP A7/A9, and
+the reslot mode's third-party twin for ROADMAP A10.
 Every digest covers the complete semantic state: a trainer's params,
 moments, step and data cursor; an engine's cache bytes, slot
 bookkeeping, every request's tokens and its step count.
@@ -138,6 +147,10 @@ def _engine_drive(family: str, arch: str) -> Drive:
 
 DRIVES = {
     "attention": _trainer_drive("attention", "starcoder2-3b-smoke"),
+    "moe": _trainer_drive("moe", "llama4-scout-17b-a16e-smoke"),
+    "moe-topk": _trainer_drive("moe-topk", "kimi-k2-1t-a32b-smoke"),
+    "moe-serving": _engine_drive("moe-serving",
+                                 "llama4-scout-17b-a16e-smoke"),
     "ssm": _trainer_drive("ssm", "mamba2-780m-smoke"),
     "rglru": _engine_drive("rglru", "recurrentgemma-9b-smoke"),
     "ssm-serving": _engine_drive("ssm-serving", "mamba2-780m-smoke"),
@@ -273,7 +286,39 @@ def run_commit(dr: Drive, store: str) -> None:
         assert sess.latest_step() == dr.total  # store still commits
 
 
+def run_reslot(dr: Drive, store: str) -> None:
+    """Snapshot with work in flight -> hard kill -> restore onto 3 slots
+    from 2 -> every request finishes with the uninterrupted run's
+    tokens."""
+    want = reference_outcome(dr.family)
+    with CheckpointSession(store, Policy(async_save=False)) as sess:
+        app = sess.attach(dr.fresh())
+        dr.advance(app, 3)                   # 3 of 6 tokens: mid-flight
+        assert app.queue and all(app.slot_req)
+        sess.snapshot(block=True)
+        del app                              # hard kill mid-flight
+        app2 = sess.restore("latest", n_slots=3, **dr.restore_kwargs())
+        assert app2.n_slots == 3
+        live = app2.live_requests()
+        assert len(live) == _N_REQS, "re-slot dropped sessions"
+        app2.run_until_drained(max_steps=500)
+        got = {r.rid: tuple(r.out) for r in live}
+    assert got == want, f"{dr.family}: re-slotted {got} != {want}"
+
+
+@functools.lru_cache(maxsize=None)
+def reference_outcome(family: str):
+    """Each request's tokens in the uninterrupted run of an engine
+    drive."""
+    eng = DRIVES[family].fresh()
+    reqs = eng.live_requests()
+    eng.run_until_drained(max_steps=500)
+    return {r.rid: tuple(r.out) for r in reqs}
+
+
 FAMILIES = sorted(DRIVES)
+ENGINES = sorted(f for f, dr in DRIVES.items()
+                 if dr.digest is _digest_engine)
 
 
 @pytest.mark.parametrize("backend", ["localfs", "sharded"])
@@ -301,6 +346,12 @@ def test_swap(family, tmp_path):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_degraded(family, tmp_path):
     run_degraded(DRIVES[family], _store("replicated", tmp_path, "d"))
+
+
+@pytest.mark.parametrize("backend", ["localfs", "sharded"])
+@pytest.mark.parametrize("family", ENGINES)
+def test_reslot(family, backend, tmp_path):
+    run_reslot(DRIVES[family], _store(backend, tmp_path))
 
 
 # --- an entry introduced mid-chain ------------------------------------------------

@@ -8,8 +8,15 @@ The same holds for whisper-base-smoke, the encoder-decoder: its trainer
 chains (params and moments of the encoder and of the cross-attention)
 and its engine chains (the cache's tuple leaves ``['cross'][0]``/``[1]``
 beside ``['self']``), written by either package and restored by the
-other.
+other; and for the moe family's trainer chains (llama4-scout-17b-a16e
+and kimi-k2-1t-a32b at ``-smoke``: the f32 router, the experts stacked
+``[L, E, ...]``, the shared expert). A JAX engine's checkpoint re-slotted
+by either package finishes with the uninterrupted run's tokens, though
+the JAX engine rebuilds each session's cache column by prefill and the
+port lands the checkpointed one (ROADMAP C23).
 """
+import functools
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -18,6 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro.api import CheckpointSession as JSession
 from repro.configs import get_smoke_config
 from repro.configs import registry as jreg
 from repro.core import LowerHalf as JLower
@@ -37,6 +45,7 @@ from repro.serving.engine import ServingEngine as JEngine
 from repro.train import step as jstep
 from repro_torch import convert
 from repro_torch.api import CheckpointSession, Policy
+from repro_torch.configs import registry as treg
 from repro_torch.core.backends.localfs import LocalFSBackend
 from repro_torch.core import delta as tdelta
 from repro_torch.core.checkpoint import CheckpointManager
@@ -159,17 +168,24 @@ MESH = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
                          ("data", "model"))
 
 
+def _jax_params_of(arch):
+    return JM.init_params(jreg.resolve_config(arch), jax.random.PRNGKey(0))
+
+
 def _whisper_jax_params():
-    return JM.init_params(get_smoke_config("whisper-base"),
-                          jax.random.PRNGKey(0))
+    return _jax_params_of(WHISPER)
 
 
-def test_port_whisper_training_chain_restores_under_jax(tmp_path):
+def _port_training_chain(tmp_path, arch, shape_key, paths):
+    """A chain of the port's trainer (a base at step 2, a link at 4)
+    materializes under the JAX package to the port's own restore and to
+    the trainer's live params and moments; ``paths`` must be among the
+    params."""
     sess = CheckpointSession(f"localfs:{tmp_path}",
                              Policy(interval=2, chain=2,
                                     sparse_chunk_bytes=CHUNK,
                                     sparse_min_bytes=MIN))
-    t = Trainer(TrainJob(WHISPER, WHISPER_SHAPE), manager=sess.manager,
+    t = Trainer(TrainJob(arch, shape_key), manager=sess.manager,
                 device="cpu")
     t.init_state()
     sess.attach(t)
@@ -193,33 +209,36 @@ def test_port_whisper_training_chain_restores_under_jax(tmp_path):
         for e, leaves in live[step].items():
             for path, want in leaves.items():
                 assert _bytes(jr.entries[e][path]) == _bytes(want)
-        assert "['enc_layers']['attn']['wq']" in jr.entries["params"]
-        assert "['layers']['cross']['wk']" in jr.entries["params"]
+        for path in paths:
+            assert path in jr.entries["params"]
     for m in (jm, tm):
         m.close()
 
 
-def test_jax_whisper_training_chain_restores_under_the_port(tmp_path):
+def _jax_training_chain(tmp_path, arch, shape_key):
     """A chain written by the JAX package's CheckpointManager from its
-    pure step on batches with frames (its Trainer fails on jax 0.9's
-    Explicit-axis meshes, ROADMAP C4) comes back in the port with the
-    same bytes, and the port's trainer steps on from it."""
-    cfg = jreg.resolve_config(WHISPER)
-    shape = jreg.get_shape(WHISPER_SHAPE)
+    pure step (its Trainer fails on jax 0.9's Explicit-axis meshes,
+    ROADMAP C4) comes back in the port with the same bytes, and the
+    port's trainer steps on from it to the JAX step's loss within 2e-2
+    (bf16 params)."""
+    cfg = jreg.resolve_config(arch)
+    shape = jreg.get_shape(shape_key)
     jfn = jax.jit(jstep.make_train_step(
         cfg, jmake_plan(cfg, shape, MESH), JAdamW(), JSchedule(), mesh=None))
-    params = _whisper_jax_params()
+    params = _jax_params_of(arch)
     opt = jinit_opt(params, JAdamW())
     lower = JLower(mesh_factory=lambda: MESH)
     lower.mesh_create((1, 1), ("data", "model"))
-    lower.compile_step("train_step", WHISPER, WHISPER_SHAPE, "")
+    lower.compile_step("train_step", arch, shape_key, "")
     jm = JManager(JBackend(str(tmp_path)), async_save=False,
                   delta_base_interval=2)
-    pipe = JPipeline(JData(seed=1234, vocab_size=cfg.vocab_size, seq_len=16,
-                           global_batch=4, n_shards=4,
+    pipe = JPipeline(JData(seed=1234, vocab_size=cfg.vocab_size,
+                           seq_len=shape.seq_len,
+                           global_batch=shape.global_batch,
+                           n_shards=shape.global_batch,
                            frames=cfg.encoder_seq,
                            frame_dim=cfg.frontend_dim))
-    meta = {"kind": "train", "arch": WHISPER, "shape_key": WHISPER_SHAPE,
+    meta = {"kind": "train", "arch": arch, "shape_key": shape_key,
             "plan_key": "", "init_seed": 0, "data_seed": 1234}
     for step in range(4):
         batch = {k: jnp.asarray(v) for k, v in pipe.batch_at(step).items()}
@@ -254,6 +273,33 @@ def test_jax_whisper_training_chain_restores_under_the_port(tmp_path):
     assert abs(loss - float(jmet["loss"])) < 2e-2 * abs(float(jmet["loss"]))
     for m in (jm, tm):
         m.close()
+
+
+def test_port_whisper_training_chain_restores_under_jax(tmp_path):
+    _port_training_chain(tmp_path, WHISPER, WHISPER_SHAPE,
+                         ["['enc_layers']['attn']['wq']",
+                          "['layers']['cross']['wk']"])
+
+
+def test_jax_whisper_training_chain_restores_under_the_port(tmp_path):
+    _jax_training_chain(tmp_path, WHISPER, WHISPER_SHAPE)
+
+
+MOE_ARCHS = ["llama4-scout-17b-a16e-smoke", "kimi-k2-1t-a32b-smoke"]
+MOE_PATHS = ["['layers']['ffn']['router']", "['layers']['ffn']['w_gate']",
+             "['layers']['ffn']['shared']['w_up']"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_port_moe_training_chain_restores_under_jax(tmp_path, arch):
+    """The moe trainers' chains: the f32 router, the bf16 experts
+    stacked [L, E, ...] and the shared expert, with their moments."""
+    _port_training_chain(tmp_path, arch, "train_s16_b4", MOE_PATHS)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_jax_moe_training_chain_restores_under_the_port(tmp_path, arch):
+    _jax_training_chain(tmp_path, arch, "train_s16_b4")
 
 
 def test_port_whisper_engine_chain_restores_under_jax(tmp_path):
@@ -329,6 +375,83 @@ def test_jax_whisper_engine_chain_restores_under_the_port(tmp_path):
     assert [(r.rid, r.out) for r in eng.live_requests()] == []
     for m in (jm, tm):
         m.close()
+
+
+def _column(cache, s, upto):
+    """Slot ``s``'s column of a phi4-smoke cache ``[L, B, S, ...]`` (host
+    arrays), positions below ``upto``: the ones its history wrote."""
+    return {name: np.asarray(cache[name])[:, s, :upto]
+            for name in ("k", "v")}
+
+
+@pytest.mark.parametrize("new_slots", [1, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_jax_engine_checkpoint_reslots_to_the_same_tokens_in_both(
+        tmp_path, monkeypatch, dtype, new_slots):
+    """A JAX engine's checkpoint, taken with two sessions in flight and
+    three waiting, re-slotted onto ``new_slots`` by each package: both
+    finish every request with the uninterrupted run's tokens. The port
+    lands each former in-flight session's checkpointed cache column bit
+    for bit; the JAX engine rebuilds it by prefilling the history, which
+    comes close to the decode steps' column and, in f32, not to its bits
+    (ROADMAP C23)."""
+    for reg in (jreg, treg):
+        monkeypatch.setattr(reg, "resolve_config", functools.partial(
+            lambda orig, arch: orig(arch).replace(dtype=dtype),
+            reg.resolve_config))
+    cfg = jreg.resolve_config(ARCH)
+    jparams = JM.init_params(cfg, jax.random.PRNGKey(0))
+    jm = JManager(JBackend(str(tmp_path)), async_save=False)
+    jeng = JEngine(cfg, jparams, MESH, n_slots=2, max_seq=48, manager=jm,
+                   arch=ARCH)
+    for i, p in enumerate(_prompts()):
+        jeng.submit(JRequest(rid=i, prompt=p, max_new=8))
+    for _ in range(5):
+        jeng.step()
+    jeng.snapshot()
+    jm.wait()
+    seated = {r.rid: (s, int(jeng.slot_pos[s]))
+              for s, r in enumerate(jeng.slot_req) if r is not None}
+    cols = {rid: _column(jeng.cache, s, pos)
+            for rid, (s, pos) in seated.items()}
+    reqs = jeng.live_requests()
+    assert len(seated) == 2 and len(reqs) == 5
+    jeng.run_until_drained(max_steps=200)
+    want = {r.rid: list(r.out) for r in reqs}
+
+    j2 = JSession(f"localfs:{tmp_path}").restore(
+        "latest", params=jparams, n_slots=new_slots, mesh=MESH)
+    t2 = CheckpointSession(f"localfs:{tmp_path}").restore(
+        "latest", params=convert.params_from_numpy(
+            jax.tree.map(np.asarray, jparams), "cpu"),
+        device="cpu", n_slots=new_slots)
+    landed = {"jax": {}, "port": {}}
+    for name, eng in (("jax", j2), ("port", t2)):
+        for s, r in enumerate(eng.slot_req):
+            if r is not None and r.rid in cols:
+                landed[name][r.rid] = _column(
+                    convert.tree_to_numpy(eng.cache) if name == "port"
+                    else eng.cache, s, seated[r.rid][1])
+    assert sorted(landed["jax"]) == sorted(landed["port"])
+    assert len(landed["port"]) == min(new_slots, 2)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for rid, col in landed["port"].items():
+        for name in ("k", "v"):
+            assert _bytes(col[name]) == _bytes(cols[rid][name])
+            rebuilt = np.asarray(landed["jax"][rid][name], np.float32)
+            want_col = np.asarray(cols[rid][name], np.float32)
+            assert np.linalg.norm(rebuilt - want_col) <= \
+                tol * np.linalg.norm(want_col), (rid, name)
+            if dtype == "float32":
+                assert _bytes(rebuilt) != _bytes(want_col), (rid, name)
+    got = {}
+    for name, eng in (("jax", j2), ("port", t2)):
+        live = eng.live_requests()
+        assert len(live) == 5
+        eng.run_until_drained(max_steps=200)
+        got[name] = {r.rid: list(r.out) for r in live}
+    assert got["jax"] == got["port"] == want
+    jm.close()
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int32",

@@ -788,3 +788,47 @@ def test_hybrid_prefill_decode_and_engine_on_the_card(cuda_device):
         out[dev] = [q.out for q in reqs]
     assert out["cuda"] == out["cpu"]
     assert rg.counts("cuda") == {"rg_lru_fwd": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_rows_do_not_depend_on_the_batch(cuda_device,
+                                                          dtype):
+    """A decode row's attention output is the same bits at 2, 3 and 4
+    rows, at llama4-scout's decode shape (8 kv heads of 5 queries, hd
+    128, 1,024 cached positions): cuBLAS's batched p·v product gave a
+    row other bits at 3 rows than at 4, so a session re-slotted onto
+    another slot count decoded other tokens (ROADMAP C23)."""
+    from repro_torch.models import layers as L
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(4, 1, 8, 5, 128, device=cuda_device, generator=g)
+    k = torch.randn(4, 1024, 8, 128, device=cuda_device, generator=g)
+    v = torch.randn(4, 1024, 8, 128, device=cuda_device, generator=g)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    q_pos = torch.full((4, 1), 700, dtype=torch.int32, device=cuda_device)
+    kv_pos = torch.arange(1024, dtype=torch.int32,
+                          device=cuda_device)[None].repeat(4, 1)
+    kv_pos[:, 701:] = -1
+    full = L.dense_attention(q, k, v, q_pos, kv_pos)
+    for n in (2, 3):
+        part = L.dense_attention(q[:n], k[:n], v[:n], q_pos[:n], kv_pos[:n])
+        assert torch.equal(part, full[:n]), n
+
+
+def test_router_rows_do_not_depend_on_the_batch(cuda_device):
+    """llama4-scout's router (f32 logits, d_model 5,120 onto 16 experts)
+    gives a decode row the same gates and experts at 2, 3 and 4 rows,
+    the slot counts its card cell decodes and re-slots at. One row is
+    not claimed: the f32 product gave other bits at 1 row than at 8
+    (ROADMAP C23)."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import moe as MOE
+    cfg = resolve_config("llama4-scout-17b-a16e-layers1")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(4, 1, cfg.d_model, device=cuda_device,
+                    generator=g).to(torch.bfloat16)
+    w = torch.randn(cfg.d_model, cfg.n_experts, device=cuda_device,
+                    generator=g) * cfg.d_model ** -0.5
+    full = MOE.route(cfg, w, x)[:2]
+    for n in (2, 3):
+        for part, whole in zip(MOE.route(cfg, w, x[:n])[:2], full):
+            assert torch.equal(part, whole[:n]), n

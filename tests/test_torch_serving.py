@@ -15,6 +15,7 @@ Small sparse chunks (1 KiB, leaves from 2 KiB) make the smoke model's
 KV cache take the dirty-chunk path it takes at full size.
 """
 import functools
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -33,6 +34,7 @@ from repro_torch.configs import get_smoke_config as t_smoke_config
 from repro_torch.kernels.ckpt_codec import ops
 from repro_torch.models import model as TM
 from repro_torch.serving.engine import Request, ServingEngine
+from repro_torch.tree import flatten_with_paths
 
 ARCH = "phi4-mini-3.8b-smoke"
 SPARSE = Policy(interval=4, chain=4, sparse_chunk_bytes=1024,
@@ -128,6 +130,141 @@ def test_kill_restore_continues_token_identically(tmp_path, policy,
     got.update({r.rid: list(r.out) for r in live})
     assert got == ref
     sess2.close()
+
+
+@pytest.mark.parametrize("new_slots", [1, 3])
+def test_reslot_carries_each_sessions_cache_column(tmp_path, new_slots):
+    """A re-slot restore lands each former in-flight session's
+    checkpointed cache column in its new slot (no prefill of its
+    history: a prefill's rounding differs from the decode steps' that
+    wrote the cache, ROADMAP C23); only a request that never held a slot
+    is admitted by prefill."""
+    params = _params()
+    sess = CheckpointSession(f"localfs:{tmp_path}", DENSE)
+    eng = ServingEngine.create(ARCH, params, n_slots=2, max_seq=48,
+                               manager=sess.manager, device="cpu")
+    sess.attach(eng)
+    for i, p in enumerate(_prompts()):
+        eng.submit(Request(rid=i, prompt=p.copy(), max_new=6))
+    for _ in range(3):
+        eng.step()
+    sess.snapshot(block=True)
+    axes = dict(flatten_with_paths(TM.batch_axes(eng.cfg)))
+    cols = {r.rid: {p: t.narrow(axes[p], s, 1).clone()
+                    for p, t in flatten_with_paths(eng.cache)}
+            for s, r in enumerate(eng.slot_req) if r is not None}
+    queued = {r.rid for r in eng.queue}
+    sess.close()
+    del eng, sess
+    prefills = []
+    real = ServingEngine._prefill_slot
+
+    def counted(self, s, hist):
+        prefills.append(len(hist))
+        return real(self, s, hist)
+    sess2 = CheckpointSession(f"localfs:{tmp_path}", DENSE)
+    with mock.patch.object(ServingEngine, "_prefill_slot", counted):
+        eng2 = sess2.restore("latest", params=params, device="cpu",
+                             n_slots=new_slots)
+    seated = {r.rid: s for s, r in enumerate(eng2.slot_req) if r is not None}
+    carried = {rid: s for rid, s in seated.items() if rid in cols}
+    assert len(cols) == 2 and len(carried) == min(new_slots, 2)
+    assert len(prefills) == len(set(seated) & queued) == max(new_slots - 2, 0)
+    for rid, s in carried.items():
+        for p, t in flatten_with_paths(eng2.cache):
+            assert torch.equal(t.narrow(axes[p], s, 1),
+                               cols[rid][p]), (rid, p)
+    sess2.close()
+
+
+def _reslot_onto_one(store):
+    """Five requests on 2 slots, snapshotted at step 3 with both slots
+    in flight, killed, and restored onto 1 slot: one former in-flight
+    session is seated, the other waits in the queue with its carried
+    cache column. Returns (the restored engine, its session)."""
+    params = _params()
+    sess = CheckpointSession(store, SPARSE)
+    eng = ServingEngine.create(ARCH, params, n_slots=2, max_seq=48,
+                               manager=sess.manager, device="cpu")
+    sess.attach(eng)
+    for i, p in enumerate(_prompts()):
+        eng.submit(Request(rid=i, prompt=p.copy(), max_new=6))
+    for _ in range(3):
+        eng.step()
+    sess.snapshot(block=True)
+    sess.close()
+    del eng, sess                                  # the kill
+    sess2 = CheckpointSession(store, SPARSE)
+    eng2 = sess2.restore("latest", params=params, device="cpu", n_slots=1)
+    assert len(eng2.live_requests()) == 5
+    assert list(eng2._carried) == [eng2.queue[0].rid]
+    return eng2, sess2
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_snapshot_after_a_reslot_keeps_the_waiting_columns(tmp_path,
+                                                           streaming):
+    """Re-slotted 2 -> 1, a former in-flight session waits with its
+    carried cache column; a snapshot then holds the column (the
+    ``carried`` entry), so after a second kill and a restore, eager or
+    streamed, the same bits land when its turn comes (no prefill of its
+    history) and every request finishes with the uninterrupted run's
+    tokens."""
+    store = f"localfs:{tmp_path}"
+    ref = _run(ServingEngine.create(ARCH, _params(), n_slots=2, max_seq=48,
+                                    device="cpu"), _prompts())
+    eng2, sess2 = _reslot_onto_one(store)
+    waiting = eng2.queue[0].rid
+    col = dict(flatten_with_paths(eng2._carried[waiting]))
+    live2 = eng2.live_requests()
+    eng2.step()
+    assert list(eng2._carried) == [waiting]
+    sess2.snapshot(block=True)
+    assert "carried" in sess2.backend.get_manifest(eng2.steps)["entries"]
+    sess2.close()
+    del eng2, sess2                                # the second kill
+    sess3 = CheckpointSession(store, SPARSE)
+    eng3 = sess3.restore("latest", params=_params(), device="cpu",
+                         streaming=streaming)
+    assert list(eng3._carried) == [waiting]
+    for p, t in flatten_with_paths(eng3._carried[waiting]):
+        assert torch.equal(t, col[p]), p
+    live3 = eng3.live_requests()
+    seen = []
+    bind = ServingEngine._bind_slot
+
+    def admitted(self, s, req):
+        seen.append((req.rid, req.rid in self._carried))
+        return bind(self, s, req)
+    with mock.patch.object(ServingEngine, "_bind_slot", admitted):
+        eng3.run_until_drained(max_steps=400)
+    assert (waiting, True) in seen and eng3._carried == {}
+    got = {r.rid: list(r.out) for r in live2 if r.done}
+    got.update({r.rid: list(r.out) for r in live3})
+    assert got == ref
+    sess3.close()
+
+
+def test_extract_sessions_drops_the_carried_columns_it_takes(tmp_path):
+    """A full drain of a re-slotted engine takes the waiting session's
+    carried column with it: a later request under the same rid is
+    admitted by prefill of its own prompt, never given that column."""
+    eng, sess = _reslot_onto_one(f"localfs:{tmp_path}")
+    waiting = eng.queue[0].rid
+    taken = eng.extract_sessions(include_queue=True)
+    assert len(taken) == 5 and eng._carried == {}
+    prefills = []
+    real = ServingEngine._prefill_slot
+
+    def counted(self, s, hist):
+        prefills.append(len(hist))
+        return real(self, s, hist)
+    prompt = np.arange(7, dtype=np.int32)
+    with mock.patch.object(ServingEngine, "_prefill_slot", counted):
+        eng.submit(Request(rid=waiting, prompt=prompt, max_new=2))
+        eng.step()
+    assert prefills == [len(prompt) - 1]
+    sess.close()
 
 
 def test_restore_without_a_card_needs_the_cpu_asked_for(tmp_path):
