@@ -59,11 +59,11 @@ Phases, each reported on its own line:
    a prefill past the attention window and greedy decode steps (logits
    and every cache leaf, the unstacked remainder blocks' too, within
    1e-5; the same tokens), then the engine's tokens on both devices;
-   recurrentgemma-9b at full width and depth (8,524,206,080 bf16 params
-   from seeded generators) prefills ``prefill_s32768_b2`` (PREFILL_32K's
+   recurrentgemma-9b at full width, its depth cut from 38 to 20 layers
+   (``HYBRID_LAYERS``; bf16 params from seeded generators) prefills ``prefill_s32768_b2`` (PREFILL_32K's
    length, batch cut from 32 to 2) through the registered
    ``prefill_step``, profiled, launching the RG-LRU kernel exactly once
-   per recurrent layer (26) and no other kernel; for each serving prompt
+   per recurrent layer (14) and no other kernel; for each serving prompt
    a batch-1 prefill (the kernel) against the engine's replay admission
    (batch-1 decode steps) in f32, logits and every RG-LRU state within
    1e-4 in the 2-norm; then 6 requests of 32-96 tokens on 4 slots, 24
@@ -72,8 +72,8 @@ Phases, each reported on its own line:
    ``restore("latest")``: every request token for token as the
    uninterrupted run, the capture kernels launched, no flash, SSD or
    RG-LRU kernel during decode or replay; then the ssm serving cell:
-   mamba2-780m at full width and depth (48 layers, 780,148,992 params
-   counted from the tensors) serves 6 requests of 16-48 tokens on 4 slots, 24 new tokens
+   mamba2-780m at full width, its depth cut from 48 to 24 layers
+   (``SSM_SERVE_LAYERS``) serves 6 requests of 16-48 tokens on 4 slots, 24 new tokens
    each (admission by replay, timed per token), its decode profiled
    (ms a step, device idle share), then under ``Policy(interval=4,
    chain=4)`` with sparse capture it is killed while the first wave is
@@ -109,10 +109,10 @@ Phases, each reported on its own line:
    state, step and data cursor must equal the uninterrupted run's bit
    for bit, and the cell's kernels must have launched once per layer
    and step (the forward twice, under remat). starcoder2-3b, its depth
-   cut to 15 of 30 layers (``starcoder2-3b-layers15``), trains on 2 x
-   4096 tokens a step through the flash kernels (a 15.9 GB snapshot),
-   mamba2-780m at full depth on 8 x 4096 through the SSD kernels (7.8
-   GB), whisper-base at full width and depth on 8 x 4096 tokens (1,500
+   cut to 12 of 30 layers (``starcoder2-3b-layers12``), trains on 2 x
+   4096 tokens a step through the flash kernels, mamba2-780m, its depth
+   cut to 16 of 48 layers, on 8 x 4096 through the SSD kernels,
+   whisper-base at full width and depth on 8 x 4096 tokens (1,500
    encoder frames a row) through the flash kernels, 36 forward, 18 dq and
    18 dk/dv launches a step (6 encoder, 6 self- and 6 cross-attention
    layers, the forward twice under remat);
@@ -135,7 +135,25 @@ Phases, each reported on its own line:
    ties), its gradients the same bits twice under deterministic
    algorithms, then 8 steps, a snapshot after step 6, a drop,
    ``restore("latest")`` and 2 steps, bit-identical, through the flash
-   kernels at head dim 16.
+   kernels at head dim 16;
+10. the failure loop (``supervise_path``), driven through the launchers'
+   own functions (``repro_torch.launch.serve._run_supervised`` and
+   ``_run_migrated``, ``repro_torch.launch.train._run_supervised``) over
+   a simulated world of 4 hosts: phi4-mini-3.8b at full width and depth
+   in bf16 (params from one init) serves 6 seeded prompts on 4 slots, 24
+   new tokens each, into ``sharded:<tmp>?hosts=4&replicate=1`` with a
+   chained snapshot every 4 engine steps, with host 2 killed at engine
+   step 8 under a hot spare (no restore), a shrink (re-slotted onto 3
+   slots) and a restart, and once moved live onto a 3-slot engine at
+   step 6 (each session's cache column carried); every request must
+   keep the uninterrupted run's tokens, and each run logs its MTTR
+   (the end of the step before the detecting tick to the end of the
+   first step after the decision) or the move's worst per-batch
+   blackout; then whisper-base at full width and depth trains 8 steps
+   with a checkpoint every 4 and host 2 of 4 killed at step 4 (a shrink
+   onto 3 virtual hosts): every step's loss, the rolled-back steps'
+   again, and the state digest bit-identical to the training cell's
+   uninterrupted run, 36 / 18 / 18 flash launches a step.
    Every phase logs its seconds and the run's running total of snapshot
    bytes written.
 
@@ -179,12 +197,16 @@ TRAIN_CELLS = (
          reference_shape="train_s192_b2",         # 3 q tiles, ragged-free
          reference="state",
          # depth cut from 30: its snapshot's one-thread encode took 337-413
-         # s of the run's 1,200 (the time limit; mamba2-780m keeps its
-         # depth, the codec phase runs on it)
-         layers=15),
+         # s of the run's 1,200 (the time limit), and to 12 from 15 to make
+         # room for the supervise path, ~10-14 s a layer
+         layers=12),
     dict(arch="mamba2-780m", shape="train_s4096_b8", kernels="ssd",
          reference_shape="train_s512_b2",         # 2 chunks of 256
-         reference="grads", codec=True),
+         reference="grads", codec=True,
+         # depth cut from 48: the snapshot's one-thread encode (95.6 s)
+         # and the codec phase's (113.9 s) at full depth put the script
+         # over its 1,200 s limit; 16 layers keep a 2.6 GB snapshot
+         layers=16),
     # full width and depth (6 + 6 layers); the flash kernels also run
     # non-causal: the encoder over 1,500 frames, the cross-attention from
     # 4,096 tokens to them
@@ -192,12 +214,16 @@ TRAIN_CELLS = (
          reference_shape="train_s64_b2", reference="grads"),
 )
 # one full snapshot, after step 6, with no chain (so no dirty-chunk
-# capture either): snapshots of the two training states are 15.9 and
-# 7.8 GB (30.3 for starcoder2-3b at full depth) and the card's machine
+# capture either): each cell logs its snapshot's size (30.3 GB for
+# starcoder2-3b at full depth, 7.8 for mamba2-780m) and the card's machine
 # accepts 45 GiB of disk writes per run (deleted files count), so a
 # chain's link at full depth cannot be written there; training links run
 # at smoke size in the tests instead
 TRAIN_POLICY = dict(interval=6, chain=1, keep_last=1)
+# (job arch, shape) -> (the losses of the uninterrupted run's steps, its
+# state digest after them), as ``train_path`` measured them; the
+# supervise path holds whisper-base's supervised run to them
+UNINTERRUPTED = {}
 
 
 _T0 = time.monotonic()
@@ -881,6 +907,14 @@ def per_token_ms(acc) -> str:
             f"({acc['tokens']} tokens in {acc['s']:.2f} s)")
 
 
+def serving_prompts(np, vocab_size):
+    """The phi4 serving cell's prompts: ``N_REQ`` seeded prompts of
+    64-512 tokens (111-387 from this seed)."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, vocab_size, size=int(n)).astype(np.int32)
+            for n in rng.randint(64, 513, size=N_REQ)]
+
+
 def serve(torch, ServingEngine, Request, arch, params, prompts, *,
           n_slots, max_seq, max_new, sess=None, kill_at=None,
           admission=None):
@@ -1029,9 +1063,7 @@ def main_path(torch, np, ops, fa):
     n_params = sum(v.numel() for _, v in flatten_with_paths(params))
     log(f"main path: {ARCH} full width and depth, {n_params} bf16 params "
         f"made in {time.monotonic() - t0:.1f} s")
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
-               for n in rng.randint(64, 513, size=N_REQ)]
+    prompts = serving_prompts(np, cfg.vocab_size)
     log(f"main path: {N_REQ} requests, prompts {[len(p) for p in prompts]} "
         f"tokens, max_new {MAX_NEW}, {N_SLOTS} slots, max_seq {MAX_SEQ}")
 
@@ -1118,12 +1150,17 @@ def main_path(torch, np, ops, fa):
 
 
 HYBRID_ARCH = "recurrentgemma-9b"
+# depth cut from 38 to 20 layers (6 groups of the rglru, rglru, attn
+# pattern and its 2 remainder blocks) to keep the script inside its
+# 1,200 s limit: replay admission and decode are host-bound per layer
+HYBRID_LAYERS = 20
+HYBRID_RUN = f"{HYBRID_ARCH}-layers{HYBRID_LAYERS}"
 # PREFILL_32K's 32,768 tokens at a global batch cut from 32 to 2
 HYBRID_PREFILL = "prefill_s32768_b2"
 HYBRID_SERVE = dict(n_slots=4, max_seq=1024, max_new=24)
 HYBRID_N_REQ, HYBRID_PROMPT_LENS = 6, (32, 97)
 HYBRID_POLICY = dict(interval=4, chain=4)
-# prefill against replay admission, f32 at full width and depth, in the
+# prefill against replay admission, f32 at full width, in the
 # 2-norm (measured ~1e-5; bf16 rounding at 38 layers leaves both bf16
 # paths ~5.5e-2 from the f32 model, beyond C8's 2e-2 set at smoke depth)
 F32_REL = 1e-4
@@ -1377,8 +1414,8 @@ def serving_cell(torch, mods, arch, params, prompts, *, serve_kw, policy_kw,
 
 def hybrid_path(torch, np, mods):
     """The hybrid family's path (see the module docstring): the smoke
-    model card against CPU; recurrentgemma-9b at full width and depth
-    prefills ``HYBRID_PREFILL`` through the registered ``prefill_step``
+    model card against CPU; recurrentgemma-9b at full width and
+    ``HYBRID_LAYERS`` deep prefills ``HYBRID_PREFILL`` through the registered ``prefill_step``
     (the RG-LRU kernel once per recurrent layer), its prefill state is
     held against the engine's replay admission, and it serves under C/R
     through kill -> restore("latest"). Every kernel count is set to 0
@@ -1393,14 +1430,15 @@ def hybrid_path(torch, np, mods):
 
     check_hybrid_reference(torch, np, M, rg, get_smoke_config,
                            ServingEngine, Request)
-    cfg = resolve_config(HYBRID_ARCH)
+    cfg = resolve_config(HYBRID_RUN)
     t0 = time.monotonic()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(v.numel() for _, v in flatten_with_paths(params))
     n_rglru = _n_rglru(cfg)
-    log(f"hybrid path: {HYBRID_ARCH} full width and depth ({cfg.n_layers} "
-        f"layers, {n_rglru} RG-LRU, d_model {cfg.d_model}, width "
+    log(f"hybrid path: {HYBRID_ARCH} at full width, depth cut to "
+        f"{cfg.n_layers} of {resolve_config(HYBRID_ARCH).n_layers} layers "
+        f"({n_rglru} RG-LRU, d_model {cfg.d_model}, width "
         f"{cfg.rglru_width}, head dim {cfg.resolved_head_dim}, window "
         f"{cfg.attn_window}), {n_params} params counted from the tensors "
         f"(ModelConfig.n_params() says {cfg.n_params()}), made in "
@@ -1412,11 +1450,11 @@ def hybrid_path(torch, np, mods):
     lower = LowerHalf(mesh_factory=lambda: torch.device("cuda"))
     lower.mesh_create((1, 1), ("data", "model"))
     prefill = lower.executable(lower.compile_step("prefill_step",
-                                                  HYBRID_ARCH, shape.name))
+                                                  HYBRID_RUN, shape.name))
     gen = torch.Generator(device="cuda").manual_seed(11)
     toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device="cuda", dtype=torch.int32)
-    cache = lower.cache(lower.cache_alloc(HYBRID_ARCH, B, S))
+    cache = lower.cache(lower.cache_alloc(HYBRID_RUN, B, S))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_all(mods)
@@ -1463,7 +1501,7 @@ def hybrid_path(torch, np, mods):
     torch.cuda.empty_cache()
     worst = max((rel, f"prompt {k} {path}") for k, r in enumerate(rels)
                 for path, rel in r.items())
-    # the bf16 model, for the record (ROADMAP C8 at full depth): its
+    # the bf16 model, for the record (ROADMAP C8 at depth): its
     # prefill against its replay, and its prefill logits against the f32
     # model's
     bf16, bf16_logits = prefill_vs_replay(torch, M, ServingEngine, rg, cfg,
@@ -1484,7 +1522,7 @@ def hybrid_path(torch, np, mods):
                              f"{worst[0]:.2e} > {F32_REL}")
 
     # --- serving under C/R
-    serving_cell(torch, mods, HYBRID_ARCH, params, prompts,
+    serving_cell(torch, mods, HYBRID_RUN, params, prompts,
                  serve_kw=HYBRID_SERVE, policy_kw=HYBRID_POLICY,
                  label="hybrid serving", streamed=False)
     del params
@@ -1494,7 +1532,11 @@ def hybrid_path(torch, np, mods):
 
 
 SSM_SERVE_ARCH = "mamba2-780m"
-# replay admission costs ~0.1 s a token at full depth, so the prompts
+# depth cut from 48 to 24 layers to keep the script inside its 1,200 s
+# limit (replay admission and the snapshot encode scale with depth)
+SSM_SERVE_LAYERS = 24
+SSM_SERVE_RUN = f"{SSM_SERVE_ARCH}-layers{SSM_SERVE_LAYERS}"
+# replay admission costs ~0.1 s a token at 48 layers, so the prompts
 # are short: 6 requests of 16-48 tokens on 4 slots, 24 new tokens each
 SSM_SERVE = dict(n_slots=4, max_seq=1024, max_new=24)
 SSM_N_REQ, SSM_PROMPT_LENS = 6, (16, 49)
@@ -1502,8 +1544,8 @@ SSM_POLICY = dict(interval=4, chain=4)
 
 
 def ssm_serving_path(torch, np, mods):
-    """The ssm family's serving cell: mamba2-780m at full width and depth
-    (48 layers, params from seeded generators) serves 6 requests on
+    """The ssm family's serving cell: mamba2-780m at full width and
+    ``SSM_SERVE_LAYERS`` deep (params from seeded generators) serves 6 requests on
     4 slots (admission by replay), its decode profiled, then under
     ``Policy(interval=4, chain=4)`` with sparse capture it is killed
     while the first wave is in flight and restored eagerly, then
@@ -1513,7 +1555,7 @@ def ssm_serving_path(torch, np, mods):
     from repro_torch.serving.engine import Request
     from repro_torch.tree import flatten_with_paths
 
-    cfg = resolve_config(SSM_SERVE_ARCH)
+    cfg = resolve_config(SSM_SERVE_RUN)
     t0 = time.monotonic()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -1521,8 +1563,9 @@ def ssm_serving_path(torch, np, mods):
     rng = np.random.RandomState(2)
     prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in rng.randint(*SSM_PROMPT_LENS, size=SSM_N_REQ)]
-    log(f"ssm serving: {SSM_SERVE_ARCH} full width and depth ({cfg.n_layers} "
-        f"layers, d_model {cfg.d_model}), {n_params} params counted from the "
+    log(f"ssm serving: {SSM_SERVE_ARCH} at full width, depth cut to "
+        f"{cfg.n_layers} of {resolve_config(SSM_SERVE_ARCH).n_layers} layers "
+        f"(d_model {cfg.d_model}), {n_params} params counted from the "
         f"tensors (ModelConfig.n_params() says {cfg.n_params()}), made in "
         f"{time.monotonic() - t0:.1f} s; {SSM_N_REQ} requests, prompts "
         f"{[len(p) for p in prompts]} tokens, max_new {SSM_SERVE['max_new']}, "
@@ -1531,7 +1574,7 @@ def ssm_serving_path(torch, np, mods):
     # their replay short
     short = [p[:4] for p in prompts]
     counts = serving_cell(
-        torch, mods, SSM_SERVE_ARCH, params, prompts, serve_kw=SSM_SERVE,
+        torch, mods, SSM_SERVE_RUN, params, prompts, serve_kw=SSM_SERVE,
         policy_kw=SSM_POLICY, label="ssm serving", streamed=True,
         profile=lambda eng: profile_decode(torch, np, eng, Request, short))
     del params
@@ -1801,9 +1844,7 @@ def moe_serving_path(torch, np, mods):
     arch = f"{MOE_ARCH}-layers{MOE_LAYERS}"
     params = _init_logged(torch, M, resolve_config(arch), "moe serving")
     vocab = resolve_config(arch).vocab_size
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, vocab, size=int(n)).astype(np.int32)
-               for n in rng.randint(64, 513, size=N_REQ)]
+    prompts = serving_prompts(np, vocab)
     log(f"moe serving: {N_REQ} requests, prompts {[len(p) for p in prompts]}"
         f" tokens, max_new {MOE_SERVE['max_new']}, {MOE_SERVE['n_slots']} "
         f"slots, max_seq {MOE_SERVE['max_seq']}")
@@ -2220,6 +2261,7 @@ def train_path(torch, np, kernel_mods, cell):
         st = dict(sess.stats)
         peak = torch.cuda.max_memory_allocated()
         want = tr.state_digest()
+        UNINTERRUPTED[(job_arch, shape_key)] = (list(losses), want)
         steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
         log(f"train path: losses {losses}; step {steady:.1f} ms (median of "
             f"steps 2-{steps}; step 1 {step_ms[0]:.1f} ms) = "
@@ -2554,6 +2596,317 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
     return {k: codec_counts[k] for k in ("quantize", "dequantize")}
 
 
+# the failure loop on the card, driven through the launchers'
+# own functions (``repro_torch.launch.serve._run_supervised`` /
+# ``_run_migrated``, ``repro_torch.launch.train._run_supervised``) over a
+# simulated 4-host world: phi4-mini-3.8b at full width and depth in bf16
+# serves 6 seeded prompts of 8-32 tokens on 4 slots of 64, 24 new tokens
+# each, into a replicated ``sharded:`` store of 4 virtual hosts with a
+# chained snapshot every 4 engine steps, under each policy below with
+# host 2 killed at engine step 8; then once more moved live onto a 3-slot
+# engine at step 6 (``--migrate-to 3@6``), each session's cache column
+# carried. The cache is cut to 64 positions so that the one-thread
+# snapshot encode keeps pace with the decode: at the phi4 serving cell's
+# shape (4 x 1024, prompts of 111-387 tokens) a run takes 49-62 s
+# against 7 s uninterrupted and the MTTRs are 6.6-8.8 s (PERF.md §5, an
+# open defect, ROADMAP C24); here they measure the failure loop without
+# that backlog
+SUPERVISE_SERVE = dict(n_slots=4, max_seq=64, max_new=24)
+SUPERVISE_N_REQ, SUPERVISE_PROMPT_LENS = 6, (8, 33)
+SUPERVISE_POLICY = dict(interval=4, chain=4)
+SUPERVISE_KILL = "2@8"
+SUPERVISE_RUNS = (
+    # label, the launcher's flags, the decision, slots after it
+    ("hot spare", ["--spares", "1"], "hot_spare", 4),
+    ("shrink", ["--spares", "0"], "shrink", 3),
+    ("restart", ["--spares", "0", "--no-shrink"], "restart_last_ckpt", 4),
+)
+SUPERVISE_MOVE = "3@6"
+# whisper-base at full width and depth trains 8 steps through
+# ``launch.train._run_supervised`` with a checkpoint every 4 steps and host
+# 2 of 4 killed at step 4, no spare: a shrink onto 3 virtual hosts
+SUPERVISE_TRAIN = ["--arch", "whisper-base", "--shape", "train_s4096_b8",
+                   "--steps", "8", "--ckpt-every", "4", "--supervise",
+                   "--hosts", "4", "--spares", "0", "--kill-host", "2@4"]
+
+
+class StepClock:
+    """``on_step`` hook for the launchers' loops: the wall time at the
+    end of each step and the supervisor's incident count then, so the
+    time from the step whose heartbeat tick detected a death to the end
+    of the first step after the decision executed (detection -> serving
+    again) can be read off."""
+
+    def __init__(self, sess):
+        self.sess, self.marks = sess, []
+
+    def __call__(self, *_):
+        sup = self.sess.supervisor
+        self.marks.append((time.monotonic(),
+                           len(sup.incidents) if sup is not None else 0))
+
+    def serving_again(self):
+        """Seconds from the end of the step before each incident to the
+        end of the first step after it."""
+        return [b[0] - a[0] for a, b in zip(self.marks, self.marks[1:])
+                if b[1] > a[1]]
+
+
+def supervised_serving(torch, np, mods, params, prompts, ref):
+    """The three supervised serving runs and the live move of
+    ``supervise_path``; raises unless each run decided the expected
+    action, re-slotted as it should and finished every request with the
+    uninterrupted run's tokens. Returns {label: MTTR and blackout
+    figures}."""
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.launch import serve as L
+    from repro_torch.launch.supervise import parse_supervise_args
+    from repro_torch.serving.engine import Request, ServingEngine
+    sv = SUPERVISE_SERVE
+    base = ["--arch", ARCH, "--slots", str(sv["n_slots"]), "--max-seq",
+            str(sv["max_seq"]), "--max-new", str(sv["max_new"]),
+            "--requests", str(len(prompts))]
+    out = {}
+    runs = [(label, flags, action, slots) for label, flags, action, slots
+            in SUPERVISE_RUNS] + [("live move", None, None, 3)]
+    for label, flags, action, slots in runs:
+        argv = base + (["--supervise", "--hosts", "4", "--kill-host",
+                        SUPERVISE_KILL] + flags if flags is not None
+                       else ["--migrate-to", SUPERVISE_MOVE])
+        args = L.build_parser().parse_args(argv)
+        kill, err = parse_supervise_args(args, "chip_smoke")
+        move, err2 = L._parse_migrate_to(args, "chip_smoke")
+        if err or err2:
+            raise AssertionError(err or err2)
+        store = tempfile.mkdtemp(prefix="chip_smoke_sup_")
+        moves = []
+        try:
+            sess = CheckpointSession(f"sharded:{store}?hosts=4&replicate=1",
+                                     Policy(**SUPERVISE_POLICY))
+            eng0 = ServingEngine.create(ARCH, params, n_slots=sv["n_slots"],
+                                        max_seq=sv["max_seq"],
+                                        manager=sess.manager)
+            sess.attach(eng0)
+            for i, p in enumerate(prompts):
+                eng0.submit(Request(rid=i, prompt=p.copy(),
+                                    max_new=sv["max_new"]))
+            clock = StepClock(sess)
+            occupied = {}
+
+            def on_step(e):
+                clock()
+                if e is eng0:
+                    occupied[e.steps] = sum(r is not None
+                                            for r in e.slot_req)
+            t0 = time.monotonic()
+            if flags is not None:
+                eng, reg = L._run_supervised(args, sess, eng0, params, kill,
+                                             on_step=on_step)
+            else:
+                eng, reg = L._run_migrated(args, sess, eng0, move,
+                                           on_step=on_step,
+                                           on_move=moves.append)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            st = dict(sess.stats)
+            sup = sess.supervisor
+            sess.close()
+        finally:
+            shutil.rmtree(store, ignore_errors=True)
+        got = {rid: list(r.out) for rid, r in reg.items()}
+        if got != ref:
+            bad = sorted(k for k in ref if got.get(k) != ref[k])
+            raise AssertionError(f"supervised serving, {label}: requests "
+                                 f"{bad} diverged from the uninterrupted "
+                                 "run")
+        if eng.n_slots != slots:
+            raise AssertionError(f"supervised serving, {label}: ended on "
+                                 f"{eng.n_slots} slots, wanted {slots}")
+        saves = max(st["saves"], 1)
+        row = dict(wall_s=wall, steps=eng.steps,
+                   snapshots=st["saves"], links=st["chain_links"],
+                   stall_ms=st["capture_seconds"] / saves * 1e3,
+                   encode_s=st["encode_commit_seconds"] / saves)
+        count_written(st)
+        if flags is not None:
+            incs = [(i.action, i.dead) for i in sup.incidents]
+            if incs != [(action, [2])]:
+                raise AssertionError(f"supervised serving, {label}: "
+                                     f"incidents {incs}, wanted "
+                                     f"[({action!r}, [2])]")
+            if (eng is eng0) != (action == "hot_spare"):
+                raise AssertionError(f"supervised serving, {label}: the "
+                                     "engine was "
+                                     + ("kept" if eng is eng0 else "rebuilt"))
+            row.update(restore_s=sup.incidents[0].wall_s,
+                       serving_again_s=clock.serving_again()[0],
+                       world=sup.world, step=sup.incidents[0].step)
+        else:
+            mv = moves[0]
+            # every session in a slot at the move carries its column; a
+            # queued one is admitted from its prompt, as it would have been
+            begun = occupied[move[1]]
+            if mv.carried != begun:
+                raise AssertionError(f"supervised serving, {label}: "
+                                     f"{mv.carried} of the {begun} begun "
+                                     "sessions carried their cache column")
+            row.update(blackout_s=mv.blackout_s, capture_s=mv.capture_s,
+                       restore_s=mv.restore_s, moved=len(mv.moved),
+                       carried=mv.carried,
+                       batches=[{k: round(v, 4) for k, v in b.items()}
+                                for b in mv.batches])
+        out[label] = row
+        log(f"supervised serving, {label}: every request token-identical to "
+            f"the uninterrupted run on {eng.n_slots} slots; {row}; disk "
+            f"writes so far {_WRITTEN['bytes'] / 1e9:.2f} GB of blobs")
+        del eng, eng0, reg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def supervised_training(torch, np, mods):
+    """whisper-base's supervised shrink (``SUPERVISE_TRAIN``) against the
+    training cell's 8 steps uninterrupted (``UNINTERRUPTED``), under
+    deterministic algorithms: every
+    step's loss, the rolled-back steps' again included, and the final
+    state digest bit-identical; raises otherwise, or unless the flash
+    kernels launched 36 / 18 / 18 times a step. Returns the figures."""
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.common import build_session
+    from repro_torch.launch.supervise import parse_supervise_args
+    from repro_torch.train.loop import Trainer, TrainJob
+    args = LT.build_parser().parse_args(SUPERVISE_TRAIN)
+    kill, err = parse_supervise_args(args, "chip_smoke")
+    if err:
+        raise AssertionError(err)
+    if (args.arch, args.shape) not in UNINTERRUPTED:
+        raise AssertionError(f"supervised training needs the {args.arch} "
+                             "training cell's uninterrupted run first")
+    job = TrainJob(args.arch, args.shape)
+    fa = mods["flash"]
+    store = tempfile.mkdtemp(prefix="chip_smoke_suptrain_")
+    torch.use_deterministic_algorithms(True)
+    try:
+        fa.reset_counts()
+        # the same job's first 8 steps uninterrupted, as the training
+        # cell's ``train_path`` ran them from the same seeds
+        want, want_digest = UNINTERRUPTED[(args.arch, args.shape)]
+        sess, err = build_session(f"localfs:{store}", "chip_smoke",
+                                  interval=args.ckpt_every,
+                                  keep_last=args.keep_last)
+        if err:
+            raise AssertionError(err)
+        tr = sess.attach(Trainer(job, manager=sess.manager))
+        tr.init_state()
+        seen = []
+        clock = StepClock(sess)
+
+        def on_step(step, met):
+            seen.append((step, met["loss"]))
+            clock()
+        t0 = time.monotonic()
+        tr = LT._run_supervised(args, sess, tr, kill, on_step=on_step)
+        sess.wait()
+        wall = time.monotonic() - t0
+        got_digest = tr.state_digest()
+        sup, st = sess.supervisor, dict(sess.stats)
+        sess.close()
+        del tr, sess
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(store, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    incs = [(i.action, i.dead, i.step) for i in sup.incidents]
+    if incs != [("shrink", [2], 4)] or sup.world != [0, 1, 3]:
+        raise AssertionError(f"supervised training: incidents {incs}, world "
+                             f"{sup.world}")
+    bad = [(s, l) for s, l in seen if l != want[s - 1]]
+    if bad or [s for s, _ in seen][-1] != args.steps:
+        raise AssertionError(f"supervised training: losses {seen} against "
+                             f"the uninterrupted {want}")
+    if got_digest != want_digest:
+        raise AssertionError(f"supervised training: state digest "
+                             f"{got_digest} != uninterrupted {want_digest}")
+    n_steps = len(seen)
+    launched = fa.counts("cuda")
+    per = {k: n // n_steps for k, n in launched.items()}
+    if any(n % n_steps for n in launched.values()) or \
+            per != dict(zip(fa.KERNELS, (36, 18, 18))):
+        raise AssertionError(f"supervised training: flash launches "
+                             f"{launched} over {n_steps} steps")
+    row = dict(wall_s=wall, steps=[s for s, _ in seen],
+               restore_s=sup.incidents[0].wall_s,
+               serving_again_s=clock.serving_again()[0],
+               snapshots=st["saves"], bytes=st["bytes_written"])
+    log(f"supervised training: whisper-base shrink 4 -> 3 virtual hosts; "
+        f"losses of every step (steps {row['steps']}) and the state digest "
+        f"{got_digest} bit-identical to the uninterrupted run; flash "
+        f"launches {launched} ({per} a step); {row}; {count_written(st)}")
+    return launched, row
+
+
+def supervise_path(torch, np, mods):
+    """The failure loop on the card (see ``SUPERVISE_SERVE`` and
+    ``SUPERVISE_TRAIN``): phi4-mini-3.8b served uninterrupted, then under
+    hot spare, shrink (4 -> 3 slots) and restart, then moved live, every
+    request token for token; then whisper-base's supervised shrink
+    bit-identical. Every kernel count is set to 0 just before the
+    serving runs and read after them, and again around the training;
+    raises unless the capture kernels launched in the serving runs.
+    Returns the counts summed."""
+    from repro_torch.configs import resolve_config
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+    from repro_torch.tree import flatten_with_paths
+    cfg = resolve_config(ARCH)
+    t0 = time.monotonic()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(v.numel() for _, v in flatten_with_paths(params))
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(k)).astype(np.int32)
+               for k in rng.randint(*SUPERVISE_PROMPT_LENS,
+                                    size=SUPERVISE_N_REQ)]
+    log(f"supervise path: {ARCH} full width and depth, {n} bf16 params made "
+        f"in {time.monotonic() - t0:.1f} s; {len(prompts)} requests, prompts "
+        f"{[len(p) for p in prompts]} tokens, {SUPERVISE_SERVE}")
+    _reset_all(mods)
+    eng, reqs, toks, dt = serve(torch, ServingEngine, Request, ARCH, params,
+                                prompts, **SUPERVISE_SERVE)
+    ref = {r.rid: list(r.out) for r in reqs}
+    log(f"supervise path: uninterrupted {eng.steps} engine steps, {toks} "
+        f"tokens in {dt:.2f} s")
+    del eng
+    serving = supervised_serving(torch, np, mods, params, prompts, ref)
+    counts = _all_counts(mods)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"supervise path: serving kernel launches {counts}")
+    if not all(counts["codec"][k] for k in ("fingerprint", "fused_capture")):
+        raise AssertionError(f"supervised serving missed a capture kernel: "
+                             f"{counts['codec']}")
+    ran = {k: v for name in ("flash", "ssd", "rg_lru")
+           for k, v in counts[name].items() if v}
+    if ran:
+        raise AssertionError(f"supervised serving launched {ran}")
+    total = _flat_counts(counts)
+    _reset_all(mods)
+    launched, training = supervised_training(torch, np, mods)
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+    log("supervise path: MTTR (detection -> serving again, s): " + "; ".join(
+        f"{label} {row['serving_again_s']:.3f} (restore hook "
+        f"{row['restore_s']:.3f})" for label, row in serving.items()
+        if "serving_again_s" in row)
+        + f"; whisper-base shrink {training['serving_again_s']:.3f} (restore "
+        f"hook {training['restore_s']:.3f}); live move worst blackout "
+        f"{serving['live move']['blackout_s']:.3f} s")
+    return total
+
+
 def ptxas_summary(report: str):
     """``kernel<hd>: registers[, spill bytes]`` per entry function of an
     ``nvcc -Xptxas -v`` report."""
@@ -2643,6 +2996,7 @@ def main() -> int:
         add(phase(f"train_path {cell['arch']}", train_path, torch, np, mods,
                   cell))
     add(phase("moe_train_smoke", moe_train_smoke, torch, np, mods))
+    add(phase("supervise_path", supervise_path, torch, np, mods))
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,7 +1,5 @@
 """repro_torch.api — the public, checkpoint-agnostic session surface
-(the port of ``repro.api``; the same names, minus those whose modules
-are not ported yet: FleetRouter, MoveResult and SupervisorError wait
-for ROADMAP A7).
+(the port of ``repro.api``, with the same names).
 
 Applications import ONLY from here: the ``CheckpointableApp`` protocol
 to implement, the ``CheckpointSession`` facade that owns the snapshot /
@@ -36,6 +34,10 @@ __all__ = [
     # state declaration (re-exports: apps never import repro_torch.core)
     "UpperHalf",
     "OpLog",
+    # fleet migration (re-exports: the session's migrate() verb returns
+    # a MoveResult; FleetRouter routes + moves over many engines)
+    "FleetRouter",
+    "MoveResult",
     # typed errors
     "CheckpointError",
     "PolicyError",
@@ -45,6 +47,7 @@ __all__ = [
     "MigrationError",
     "StaleHandleError",
     "LifecycleError",
+    "SupervisorError",
     "errors",
 ]
 
@@ -63,6 +66,8 @@ _HOMES = {
     "available_codecs": "repro_torch.api.registry",
     "UpperHalf": "repro_torch.core.split_state",
     "OpLog": "repro_torch.core.oplog",
+    "FleetRouter": "repro_torch.core.migration",
+    "MoveResult": "repro_torch.core.migration",
     "CheckpointError": "repro_torch.api.errors",
     "PolicyError": "repro_torch.api.errors",
     "BackendUnavailable": "repro_torch.api.errors",
@@ -71,6 +76,7 @@ _HOMES = {
     "MigrationError": "repro_torch.api.errors",
     "StaleHandleError": "repro_torch.api.errors",
     "LifecycleError": "repro_torch.api.errors",
+    "SupervisorError": "repro_torch.api.errors",
 }
 
 

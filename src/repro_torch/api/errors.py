@@ -15,7 +15,8 @@ hierarchy adds ways to catch, it never removes one.
     ├── SnapshotError        (RuntimeError) capture/encode pipeline failure
     ├── RestoreError         (ValueError)   checkpoint cannot be decoded
     ├── MigrationError       (RuntimeError) planned move cannot execute
-    └── LifecycleError       (RuntimeError) Incarnation phase out of order
+    ├── LifecycleError       (RuntimeError) Incarnation phase out of order
+    └── SupervisorError      (RuntimeError) failure loop cannot execute
 
 ``StaleHandleError`` predates the hierarchy and stays a ``KeyError``
 subclass (callers index handle tables with it); it is re-exported here
@@ -64,10 +65,13 @@ from repro_torch.core.virtual_ids import StaleHandleError  # noqa: E402,F401
 
 
 def __getattr__(name: str):
-    # LifecycleError lives in a module that itself
-    # imports CheckpointError from here — resolve it lazily so this
-    # module never imports it at load time.
+    # LifecycleError / SupervisorError live in modules that themselves
+    # import CheckpointError from here — resolve them lazily so this
+    # module never imports them at load time.
     if name == "LifecycleError":
         from repro_torch.core.incarnation import LifecycleError
         return LifecycleError
+    if name == "SupervisorError":
+        from repro_torch.core.supervisor import SupervisorError
+        return SupervisorError
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

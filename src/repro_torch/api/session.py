@@ -13,6 +13,7 @@ that sequence once, for every app that speaks ``CheckpointableApp``:
     sess.maybe_snapshot()            # policy cadence; non-blocking
     ...
     app = sess.restore("latest")     # kind-registry binder + attach
+    sup = sess.supervise([0, 1, 2])  # failure loop over the same session
 
 Restore is checkpoint-*kind* driven: the manifest's ``job["kind"]``
 names the registered binder that rebuilds the app through a
@@ -21,6 +22,7 @@ what keeps the paper's §V agnosticism claim honest at the API layer.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
 from repro_torch.api.app import RestoreContext, validate_app
@@ -74,6 +76,7 @@ class CheckpointSession:
                     "replication on")
             self.manager = self.policy.build_manager(backend)
         self._app: Any = None
+        self.supervisor: Any = None
         if app is not None:
             self.attach(app)
 
@@ -201,19 +204,107 @@ class CheckpointSession:
                              lazy_kinds=self.policy.lazy_kinds)
         return self.attach(binder(ctx, **app_kwargs))
 
-    # --- not ported yet ------------------------------------------------
+    # --- live migration ------------------------------------------------
 
-    def migrate(self, to: Any, **kw: Any):
-        """Live migration of serving sessions (the JAX package's
-        ``core.migration``) waits for ROADMAP A7."""
-        raise PolicyError("CheckpointSession.migrate is not ported yet: "
-                          "it waits for ROADMAP A7 (core/migration.py)")
+    def migrate(self, to: Any, *, slots: Optional[List[int]] = None,
+                include_queue: bool = False,
+                via: Optional[str] = None,
+                batch: Optional[int] = None,
+                deadline_s: Optional[float] = None,
+                streaming: bool = True):
+        """Live-migrate this session's serving app's sessions onto
+        another engine, through the C/R protocol: the chosen slots
+        freeze, snapshot as a ``SessionBundle`` on a *move channel* (a
+        dedicated store beside this session's chain — migration traffic
+        never interleaves with the periodic snapshot chain), restore,
+        and re-enter the target through admission replay — the re-slot
+        machinery, so an N-slot engine's sessions land on an M-slot
+        engine token-identically. The source keeps serving its
+        unaffected slots throughout.
 
-    def supervise(self, hosts: List[int], **kw: Any):
-        """The failure loop (the JAX package's ``core.supervisor``)
-        waits for ROADMAP A7."""
-        raise PolicyError("CheckpointSession.supervise is not ported yet: "
-                          "it waits for ROADMAP A7 (core/supervisor.py)")
+        ``to`` is the target engine (or a session holding one).
+        ``via`` overrides the move-channel store spec (default: a
+        ``_moves/`` directory under this session's store root).
+        ``batch`` / ``deadline_s`` default to ``policy.migrate_batch`` /
+        ``policy.drain_deadline_s``. Returns a ``MoveResult`` with
+        per-batch blackout accounting."""
+        from repro_torch.api.errors import MigrationError
+        from repro_torch.core.migration import migrate_sessions
+
+        source = self._require_app()
+        target = to.app if isinstance(to, CheckpointSession) else to
+        if target is None:
+            raise MigrationError("target session has no app attached")
+        if via is None:
+            root = getattr(self.backend, "root", None)
+            if root is None:
+                raise MigrationError(
+                    f"{type(self.backend).__name__} store has no root "
+                    "path to derive a move channel from; pass via= (a "
+                    "store spec for the migration transport)")
+            via = f"localfs:{root}"
+        return migrate_sessions(
+            source, target, via=via, slots=slots,
+            include_queue=include_queue,
+            batch=batch if batch is not None else self.policy.migrate_batch,
+            deadline_s=deadline_s if deadline_s is not None
+            else self.policy.drain_deadline_s,
+            streaming=streaming)
+
+    # --- supervision ---------------------------------------------------
+
+    def supervise(self, hosts: List[int], *,
+                  spares: Optional[List[int]] = None,
+                  heartbeat_timeout: float = 60.0,
+                  clock: Callable[[], float] = time.monotonic,
+                  allow_shrink: bool = True,
+                  n_shards: Optional[int] = None,
+                  restore_kwargs: Union[None, Dict[str, Any],
+                                        Callable[[Any], Dict[str, Any]]] = None,
+                  on_restored: Optional[Callable[[Any, Any], None]] = None,
+                  teardown: Optional[Callable[[Any], None]] = None,
+                  reassign: Optional[Callable[[Any, Any], None]] = None,
+                  repair_storage: bool = True,
+                  event_sink: Optional[
+                      Callable[[float, str, Dict[str, Any]], None]] = None):
+        """Close the failure loop over this session: a
+        ``ClusterSupervisor`` whose restore hook goes back through
+        ``CheckpointSession.restore`` — so a RESTART/SHRINK decision
+        rebuilds whatever kind of app the checkpoint holds, through the
+        protocol, with the decision's op rewrite applied.
+
+        ``restore_kwargs`` supplies the binder kwargs a restore needs
+        (dict, or ``callable(RestoreTarget) -> dict`` for kwargs that
+        depend on the surviving topology — e.g. serving's proportional
+        slot count); ``on_restored(app, target)`` observes each executed
+        rebuild; ``event_sink(t, kind, detail)`` taps the supervisor's
+        event stream live (``core.churn.IncidentLog`` writes it as
+        JSONL). The supervisor also drives the app only through
+        protocol hooks (``quiesce`` at teardown, ``apply_reassignment``
+        for rebalances)."""
+        from repro_torch.core.supervisor import (ClusterSupervisor,
+                                                 one_device_mesh)
+
+        def _restore(target):
+            kw = restore_kwargs(target) if callable(restore_kwargs) \
+                else dict(restore_kwargs or {})
+            if kw.get("mesh_factory") is not None:
+                kw["mesh_factory"] = one_device_mesh(kw["mesh_factory"])
+            app = self.restore(step=target.step,
+                               rewrite_op=target.rewrite_op(), **kw)
+            if on_restored is not None:
+                on_restored(app, target)
+            return app
+
+        sup = ClusterSupervisor(
+            list(hosts), manager=self.manager, spares=list(spares or []),
+            heartbeat_timeout=heartbeat_timeout, clock=clock,
+            allow_shrink=allow_shrink, n_shards=n_shards,
+            restore=_restore, teardown=teardown, reassign=reassign,
+            repair_storage=repair_storage, runner=self._app,
+            event_sink=event_sink)
+        self.supervisor = sup
+        return sup
 
     # --- lifecycle -----------------------------------------------------
 

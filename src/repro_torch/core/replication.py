@@ -11,10 +11,10 @@ window: it re-creates the lost host's directory and rebuilds every blob
 that should live there from its surviving peer copy, returning the
 store to full redundancy before a restore (or the next snapshot) runs.
 
-This is the supervisor's storage-repair step: the JAX package's
-``ClusterSupervisor`` calls ``repair`` after a host death and before
+This is the supervisor's storage-repair step: ``ClusterSupervisor``
+(``core.supervisor``) calls ``repair`` after a host death and before
 driving the Incarnation restore, so the restore never depends on the
-dead host (the port's failure loop waits for ROADMAP A7).
+dead host.
 
 ``scan`` is the read-only half (what's missing, what's unrecoverable);
 ``repair`` is scan + rewrite through the backend's atomic write

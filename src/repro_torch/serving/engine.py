@@ -44,7 +44,7 @@ import torch
 
 from repro_torch.api import register_app_kind
 from repro_torch.api.app import RestoreContext
-from repro_torch.api.errors import RestoreError
+from repro_torch.api.errors import MigrationError, RestoreError
 from repro_torch.configs import registry as cfg_registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.oplog import CacheAlloc, Compile, OpLog
@@ -52,7 +52,8 @@ from repro_torch.core.split_state import (LowerHalf, UpperHalf,
                                           register_step_fn)
 from repro_torch.host import resolve_device, to_tensor
 from repro_torch.models import model as M
-from repro_torch.tree import fill_like, tree_from_paths, tree_map
+from repro_torch.tree import (fill_like, flatten_with_paths,
+                               tree_from_paths, tree_map)
 
 
 def _resolve_cfg(arch: str) -> ModelConfig:
@@ -98,6 +99,16 @@ def _request_from_tree(t: Dict[str, Any]) -> Request:
     return Request(rid=int(t["rid"]), max_new=int(t["max_new"]),
                    prompt=np.asarray(t["prompt"], np.int32),
                    out=[int(x) for x in np.asarray(t["out"]).ravel()])
+
+
+def _by_rid(by_path) -> Dict[int, Dict[str, Any]]:
+    """A "carried" entry's {path: leaf} split into {rid: {the column's
+    cache path: leaf}}."""
+    out: Dict[int, Dict[str, Any]] = {}
+    for p, v in by_path.items():
+        m = re.match(r"\['(-?\d+)'\]", p)
+        out.setdefault(int(m.group(1)), {})[p[m.end():]] = v
+    return out
 
 
 def _reslot_rewriter(n_old: int, n_new: int) -> Callable:
@@ -335,21 +346,75 @@ class ServingEngine:
         self.incarnation = inc  # host payload, keep timings + manifest
 
     def _columns_from(self, by_path) -> Dict[int, Any]:
-        """The "carried" entry back as {rid: cache column on the engine's
+        """A "carried" entry back as {rid: cache column on the engine's
         device}; its paths are the column's cache paths under ``[rid]``."""
         if callable(getattr(by_path, "wait", None)):
             by_path.wait()
         out: Dict[int, Any] = {}
-        rids = {re.match(r"\['(-?\d+)'\]", p).group(1) for p in by_path}
-        for rid in rids:
-            pre = f"[{rid!r}]"
-            col = fill_like(self.cache, {p[len(pre):]: v
-                                         for p, v in by_path.items()
-                                         if p.startswith(pre)})
-            out[int(rid)] = tree_map(
+        for rid, mine in _by_rid(by_path).items():
+            col = fill_like(self.cache, mine)
+            out[rid] = tree_map(
                 lambda v, t: to_tensor(np.asarray(v), t.dtype, t.device),
                 col, self.cache)
         return out
+
+    def column_shapes(self) -> Dict[str, tuple]:
+        """Each cache leaf's path and its shape with the batch axis 1:
+        the shapes a carried column must have to land in this engine."""
+        return {p: tuple(1 if i == ax else n for i, n in enumerate(t.shape))
+                for (p, t), (_, ax) in zip(
+                    flatten_with_paths(self.cache),
+                    flatten_with_paths(self._batch_axes))}
+
+    # --- live migration (core.migration) --------------------------------
+
+    def session_columns(self, slots: Optional[List[int]] = None, *,
+                        include_queue: bool = False) -> Dict[int, Any]:
+        """The decode state a live move carries with its sessions: each
+        chosen occupied slot's cache column (batch 1, a copy) by rid,
+        and with ``include_queue`` the columns that queued re-slotted
+        sessions still carry. Call it before ``extract_sessions`` frees
+        the slots. (The JAX package's move carries no cache and
+        re-prefills each history, which need not give the decode steps'
+        bits, ROADMAP C23.)"""
+        self._ensure_cache()
+        chosen = range(self.n_slots) if slots is None else slots
+        out: Dict[int, Any] = {}
+        for s in chosen:
+            r = self.slot_req[s]
+            if r is not None:
+                out[r.rid] = tree_map(
+                    lambda t, ax, s=s: t.narrow(ax, s, 1).clone(),
+                    self.cache, self._batch_axes)
+        if include_queue:
+            out.update({r.rid: self._carried[r.rid] for r in self.queue
+                        if r.rid in self._carried})
+        return out
+
+    def carry(self, by_path) -> List[int]:
+        """Adopt the cache columns a move brought (the "carried" entry's
+        layout: each column's cache paths under ``[rid]``) for sessions
+        about to be submitted: each lands in the slot that admits its
+        request, as a re-slotted session's does. Raises MigrationError
+        if a column does not fit this engine's cache (another model or
+        ``max_seq``): its session could only re-enter by re-prefilling
+        its history, which need not give the decode steps' bits (ROADMAP
+        C23). Returns the rids adopted."""
+        if callable(getattr(by_path, "wait", None)):
+            by_path.wait()
+        want = self.column_shapes()
+        bad = sorted(rid for rid, col in _by_rid(by_path).items()
+                     if {p: tuple(np.shape(v)) for p, v in col.items()}
+                     != want)
+        if bad:
+            raise MigrationError(
+                f"the cache columns of sessions {bad} do not fit this "
+                f"engine's cache ({self.cfg.name}, max_seq "
+                f"{self.max_seq}); a move lands each begun session with "
+                "its column (ROADMAP C23)")
+        cols = self._columns_from(by_path)
+        self._carried.update(cols)
+        return sorted(cols)
 
     def live_requests(self) -> List[Request]:
         """In-flight requests (slot order) + the waiting queue."""
@@ -362,8 +427,9 @@ class ServingEngine:
         The chosen ``slots`` (None = every occupied slot) give up their
         requests; each request carries its complete history (prompt +
         generated tokens + budget), which is all a target engine needs
-        to rebuild the session's KV state through admission replay — KV
-        bytes never travel, and a queued request's carried column stays
+        to rebuild the session's KV state through admission replay (a
+        live move sends the cache columns too, read first with
+        ``session_columns``); a queued request's carried column stays
         behind and is dropped. The freed slots zero their bookkeeping
         and refill from the queue on the next step. ``include_queue``
         also drains the waiting queue (a full drain of this engine)."""

@@ -34,11 +34,26 @@ and of the encoder-decoder (whose cache holds the cross-attention tuple
             lands its checkpointed cache column in its new slot, a
             waiting request is admitted from its prompt) -> every
             request's tokens as the uninterrupted run's
-            (``run_reslot``), for every engine drive
+            (``run_reslot``), for every engine drive; the third-party
+            app restored onto 3 actors from 2 -> the uninterrupted
+            digest
+  shrink    ``CheckpointSession.supervise`` over 3 virtual hosts detects
+            a silent host, decides SHRINK and restores onto the 2
+            survivors — a trainer with its logged data reassignment
+            rewritten onto them, an engine onto ``len(hosts)`` slots, the
+            third-party app onto as many actors — and the continuation
+            is bit-identical (``run_shrink``)
+  churn-grow the same shrink, one step of progress snapshotted on the
+            survivors, then ``grow`` re-admits the host: the rebuild
+            from the newer step continues bit-identically (an engine,
+            re-slotted onto 3 slots, to the uninterrupted run's tokens)
+            (``run_churn_grow``)
 
 The JAX families (``tests/conformance/families.py``) build JAX apps, so
-the port builds its own specs here; shrink waits for ROADMAP A7/A9, and
-the reslot mode's third-party twin for ROADMAP A10.
+the port builds its own specs here. The ``thirdparty`` family is the
+port's twin of the JAX package's ``examples/rl_actor_learner.py``
+(``repro_torch.examples.rl_actor_learner``), whose uninterrupted digest
+is the JAX example's.
 Every digest covers the complete semantic state: a trainer's params,
 moments, step and data cursor; an engine's cache bytes, slot
 bookkeeping, every request's tokens and its step count.
@@ -47,6 +62,7 @@ import functools
 import glob
 import hashlib
 import os
+import sys
 from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
@@ -57,12 +73,14 @@ import torch
 from repro_torch.api import (CheckpointSession, Policy, UpperHalf,
                              parse_store_spec, register_app_kind)
 from repro_torch.configs import resolve_config
+from repro_torch.examples import rl_actor_learner as trl
 from repro_torch.models import model as M
 from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.train.loop import Trainer, TrainJob
 from repro_torch.tree import flatten_with_paths
 
 SHAPE_KEY = "train_s8_b2"
+N_SHARDS = 2                          # == global_batch (data-layout law)
 
 
 @dataclass(frozen=True)
@@ -78,6 +96,14 @@ class Drive:
     restore_kwargs: Callable[[], Dict[str, Any]]
     total: int = 6
     interval: int = 2
+    # the shrink modes (the reference's ``ShrinkDrive``): the binder's
+    # kwargs for a target's surviving hosts, the data shards the
+    # supervisor balances, a hook before the run and a check after the
+    # shrink's rebuild
+    shrink_kwargs: Callable[[Any], Dict[str, Any]] = lambda target: {}
+    n_shards: Any = None
+    prepare: Any = None
+    check: Any = None
 
 
 # --- trainer side ---------------------------------------------------------------
@@ -91,7 +117,22 @@ def _trainer_drive(family: str, arch: str) -> Drive:
                  advance=lambda t, n: t.train_steps(n),
                  digest=lambda t: t.state_digest(),
                  step_of=lambda t: t.checkpoint_step(),
-                 restore_kwargs=lambda: {"device": "cpu"})
+                 restore_kwargs=lambda: {"device": "cpu"},
+                 n_shards=N_SHARDS,
+                 prepare=lambda t: t.apply_reassignment(
+                     _round_robin((0, 1, 2))),
+                 check=_check_shrink_assignment)
+
+
+def _round_robin(hosts):
+    return [(hosts[i % len(hosts)], i) for i in range(N_SHARDS)]
+
+
+def _check_shrink_assignment(t2, target) -> None:
+    # the logged DataReassign was rewritten onto the survivors on replay
+    got = sorted(map(tuple, t2.lower.data_assignment))
+    want = sorted(_round_robin(tuple(target.hosts)))
+    assert got == want, f"shard assignment {got}, wanted {want}"
 
 
 # --- serving side -----------------------------------------------------------------
@@ -137,12 +178,39 @@ def _digest_engine(eng: ServingEngine) -> str:
     return h.hexdigest()
 
 
+def _check_slots(eng, target) -> None:
+    assert eng.n_slots == len(target.hosts), \
+        f"restored onto {eng.n_slots} slots, wanted {len(target.hosts)}"
+
+
 def _engine_drive(family: str, arch: str) -> Drive:
     return Drive(family=family, fresh=lambda: _fresh_engine(arch),
                  advance=_advance_engine, digest=_digest_engine,
                  step_of=lambda e: e.steps,
                  restore_kwargs=lambda: {"params": _params(arch),
-                                         "device": "cpu"})
+                                         "device": "cpu"},
+                 shrink_kwargs=lambda target: {"n_slots": len(target.hosts)},
+                 check=_check_slots)
+
+
+# --- the third-party app ---------------------------------------------------------
+
+def _fresh_rl():
+    return trl.RLActorLearner(n_actors=2, n_streams=8, dim=16, seed=5)
+
+
+def _check_actors(app, target) -> None:
+    assert app.n_actors == len(target.hosts), \
+        f"restored onto {app.n_actors} actors, wanted {len(target.hosts)}"
+
+
+THIRD_PARTY = Drive(family="thirdparty", fresh=_fresh_rl,
+                    advance=lambda a, n: a.collect_and_learn(n),
+                    digest=lambda a: a.digest(), step_of=lambda a: a.t,
+                    restore_kwargs=dict,
+                    shrink_kwargs=lambda target: {
+                        "n_actors": len(target.hosts)},
+                    check=_check_actors)
 
 
 DRIVES = {
@@ -156,6 +224,7 @@ DRIVES = {
     "ssm-serving": _engine_drive("ssm-serving", "mamba2-780m-smoke"),
     "encdec": _trainer_drive("encdec", "whisper-base-smoke"),
     "encdec-serving": _engine_drive("encdec-serving", "whisper-base-smoke"),
+    "thirdparty": THIRD_PARTY,
 }
 
 
@@ -218,8 +287,9 @@ def run_kill(dr: Drive, store: str) -> str:
 
         app3 = sess.restore("latest", streaming=True, **dr.restore_kwargs())
         assert dr.step_of(app3) == boundary
-        timings = app3.incarnation.stream_timings()
-        assert timings is not None and timings["cold_leaves"] > 0
+        if dr.family != "thirdparty":   # an app without a cold tier
+            timings = app3.incarnation.stream_timings()
+            assert timings is not None and timings["cold_leaves"] > 0
         dr.advance(app3, dr.total - boundary)
         got_streamed = dr.digest(app3)
     assert got == want, f"{dr.family}: post-restore {got} != {want}"
@@ -245,8 +315,10 @@ def run_degraded(dr: Drive, store: str) -> str:
         sess.backend.fail_host(1)             # ... and a dead peer
         app2 = sess.restore("latest", streaming=True, **dr.restore_kwargs())
         assert dr.step_of(app2) == boundary
-        served = app2.incarnation.stream_timings()["fetch_bytes_per_source"]
-        assert "host_001" not in served and served, served
+        if dr.family != "thirdparty":   # keeps no incarnation
+            served = app2.incarnation.stream_timings()[
+                "fetch_bytes_per_source"]
+            assert "host_001" not in served and served, served
         dr.advance(app2, dr.total - boundary)
         got = dr.digest(app2)
         app3 = sess.restore("latest", **dr.restore_kwargs())
@@ -306,6 +378,114 @@ def run_reslot(dr: Drive, store: str) -> None:
     assert got == want, f"{dr.family}: re-slotted {got} != {want}"
 
 
+def run_rl_reslot(store: str) -> None:
+    """The third-party app snapshotted 3 steps in on 2 actors, hard-killed
+    and restored onto 3 actors, then 3 more steps -> the uninterrupted
+    digest (the reference's ``ElasticDrive`` for this family)."""
+    dr = DRIVES["thirdparty"]
+    want = _rl_digest(6)
+    with CheckpointSession(store, Policy(async_save=False)) as sess:
+        app = sess.attach(dr.fresh())
+        app.collect_and_learn(3)
+        sess.snapshot(block=True)
+        del app
+        app2 = sess.restore("latest", n_actors=3)
+        assert app2.n_actors == 3 and app2.t == 3
+        app2.collect_and_learn(3)
+        assert app2.digest() == want
+
+
+def _supervised(sess, dr: Drive, half: int):
+    """``sess.supervise`` over hosts 0, 1, 2 on a virtual clock; host 0
+    falls silent until a poll decides. Returns (supervisor, target)."""
+    clock = [0.0]
+    sup = sess.supervise([0, 1, 2], heartbeat_timeout=3.0,
+                         clock=lambda: clock[0], n_shards=dr.n_shards,
+                         restore_kwargs=lambda target: {
+                             **dr.restore_kwargs(),
+                             **dr.shrink_kwargs(target)})
+
+    def tick(alive):
+        clock[0] += 1.0
+        for h in alive:
+            sup.beat(h, half)
+    tick([0, 1, 2])
+    tick([0, 1, 2])
+    assert sup.poll() is None, "healthy world produced a decision"
+    target = None
+    for _ in range(8):
+        tick([1, 2])
+        target = sup.poll()
+        if target is not None:
+            break
+    assert target is not None, f"{dr.family}: silent host never detected"
+    assert target.action.name == "SHRINK", target.action
+    assert sorted(target.hosts) == [1, 2]
+    return sup, target
+
+
+def run_shrink(dr: Drive, store: str, grow: bool = False) -> None:
+    """Detect a silent host, decide SHRINK, restore onto the survivors,
+    continue -> bit-identical (``run_shrink``); with ``grow``, one step
+    on the survivors is snapshotted and ``grow`` re-admits the host ->
+    the rebuild from that step continues bit-identically
+    (``run_churn_grow``), an engine re-slotted onto 3 slots to the
+    uninterrupted run's tokens."""
+    want = reference_digest(dr.family)
+    with CheckpointSession(store, Policy(async_save=False)) as sess:
+        app = sess.attach(dr.fresh())
+        if dr.prepare is not None:
+            dr.prepare(app)
+        half = dr.total // 2
+        dr.advance(app, half)
+        sess.snapshot(block=True)
+        sup, target = _supervised(sess, dr, half)
+        app2 = sess.app
+        assert app2 is not app, "shrink must rebuild the runner"
+        assert dr.step_of(app2) == half
+        if dr.check is not None:
+            dr.check(app2, target)
+        if not grow:
+            dr.advance(app2, dr.total - half)
+            got = dr.digest(app2)
+            assert got == want, f"{dr.family}: post-shrink {got} != {want}"
+            return
+        dr.advance(app2, 1)
+        sess.snapshot(block=True)
+        gt = sup.grow(0)                          # the host came back
+        assert gt.action.name == "GROW" and sorted(sup.world) == [0, 1, 2]
+        app3 = sess.app
+        assert app3 is not app2, "grow must rebuild the runner"
+        assert dr.step_of(app3) == half + 1
+        if dr.check is not None:
+            dr.check(app3, gt)
+        if dr.digest is _digest_engine:           # 3 slots now: tokens
+            live = app3.live_requests()
+            assert len(live) == _N_REQS
+            app3.run_until_drained(max_steps=500)
+            got = {r.rid: tuple(r.out) for r in live}
+            assert got == reference_outcome(dr.family), dr.family
+            return
+        dr.advance(app3, dr.total - half - 1)
+        got = dr.digest(app3)
+    assert got == want, f"{dr.family}: post-grow {got} != {want}"
+
+
+@functools.lru_cache(maxsize=None)
+def _rl_digest(steps: int) -> str:
+    """The JAX package's example after ``steps`` steps (its digest)."""
+    app = _jax_rl().RLActorLearner(n_actors=2, n_streams=8, dim=16, seed=5)
+    app.collect_and_learn(steps)
+    return app.digest()
+
+
+def _jax_rl():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
+    import rl_actor_learner   # registers its kind in the JAX package
+    return rl_actor_learner
+
+
 @functools.lru_cache(maxsize=None)
 def reference_outcome(family: str):
     """Each request's tokens in the uninterrupted run of an engine
@@ -349,9 +529,29 @@ def test_degraded(family, tmp_path):
 
 
 @pytest.mark.parametrize("backend", ["localfs", "sharded"])
-@pytest.mark.parametrize("family", ENGINES)
+@pytest.mark.parametrize("family", ENGINES + ["thirdparty"])
 def test_reslot(family, backend, tmp_path):
-    run_reslot(DRIVES[family], _store(backend, tmp_path))
+    if family == "thirdparty":
+        run_rl_reslot(_store(backend, tmp_path))
+    else:
+        run_reslot(DRIVES[family], _store(backend, tmp_path))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_shrink(family, tmp_path):
+    run_shrink(DRIVES[family], _store("replicated", tmp_path))
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_churn_grow(family, tmp_path):
+    run_shrink(DRIVES[family], _store("localfs", tmp_path), grow=True)
+
+
+def test_thirdparty_reference_is_the_jax_examples():
+    """The twin's uninterrupted digest, which every thirdparty mode is
+    held to, is the JAX package's example's on the same steps."""
+    assert reference_digest("thirdparty") == \
+        _rl_digest(DRIVES["thirdparty"].total)
 
 
 # --- an entry introduced mid-chain ------------------------------------------------

@@ -482,3 +482,48 @@ def test_single_leaf_formats_agree(tmp_path, dtype):
     back = tdelta.decode_leaf(mj, blobs_j.__getitem__)
     want = jdelta.decode_leaf(mj, blobs_j.__getitem__) if codec else a
     assert _bytes(back) == _bytes(want)
+
+
+# --- the third-party app: the JAX example and the port's twin ----------------------
+
+def _jax_rl_example():
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples"))
+    import rl_actor_learner   # registers its kind in the JAX package
+    return rl_actor_learner
+
+
+@pytest.mark.parametrize("store", ["localfs", "sharded"])
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_rl_actor_learner_chain_restores_in_the_other_package(
+        tmp_path, writer, store):
+    """A delta chain of the RL actor-learner written by one package (the
+    JAX package's ``examples/rl_actor_learner.py`` or the port's twin)
+    restores in the other onto another actor pool, and continues to the
+    uninterrupted run's digest."""
+    from repro.api import Policy as JPolicy
+    from repro_torch.examples import rl_actor_learner as trl
+    jrl = _jax_rl_example()
+    spec = f"{store}:{tmp_path}/rl" + ("?hosts=3" if store == "sharded"
+                                       else "")
+    ref = jrl.RLActorLearner(n_actors=1, n_streams=8, dim=16, seed=4)
+    ref.collect_and_learn(12)
+    w_sess, w_pol, w_rl, r_sess, r_pol = (
+        (CheckpointSession, Policy, trl, JSession, JPolicy)
+        if writer == "torch" else
+        (JSession, JPolicy, jrl, CheckpointSession, Policy))
+    with w_sess(spec, w_pol(interval=2, chain=3, keep_last=4)) as sess:
+        app = sess.attach(w_rl.RLActorLearner(2, 8, dim=16, seed=4))
+        for _ in range(7):
+            app.collect_and_learn(1)
+            sess.maybe_snapshot()
+        sess.wait()
+        assert sess.backend.get_manifest(6).get("base_step") is not None
+    with r_sess(spec, r_pol()) as sess:
+        back = sess.restore("latest", n_actors=3)
+    assert type(back).__module__ != type(app).__module__
+    assert (back.t, back.n_actors) == (6, 3)
+    back.collect_and_learn(6)
+    assert back.digest() == ref.digest()

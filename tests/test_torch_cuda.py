@@ -832,3 +832,67 @@ def test_router_rows_do_not_depend_on_the_batch(cuda_device):
     for n in (2, 3):
         for part, whole in zip(MOE.route(cfg, w, x[:n])[:2], full):
             assert torch.equal(part, whole[:n]), n
+
+
+# --- the failure loop on the card ---------------------------------------------
+
+def _served_tokens(out: str):
+    return {int(line.split()[0][4:]): line.split("out=")[1]
+            for line in out.splitlines() if line.startswith("  rid=")}
+
+
+def test_supervised_shrink_reslots_onto_three_slots_on_the_card(
+        cuda_device, tmp_path, capsys):
+    """``repro_torch.launch.serve`` on the card by default: host 2 of 4
+    dies, no spare, the supervisor shrinks the world and restores the
+    live sessions onto 3 slots from 4 (each carries its checkpointed
+    cache column), and every request keeps the uninterrupted run's
+    tokens."""
+    from repro_torch.launch import serve
+    argv = ["--arch", "phi4-mini-3.8b-smoke", "--slots", "4", "--max-seq",
+            "64", "--requests", "6", "--max-new", "12"]
+    assert serve.main(argv) == 0
+    want = _served_tokens(capsys.readouterr().out)
+    assert serve.main(argv + ["--store", f"localfs:{tmp_path}",
+                              "--supervise", "--hosts", "4", "--spares",
+                              "0", "--kill-host", "2@4"]) == 0
+    out = capsys.readouterr().out
+    assert "shrink: dead=[2]" in out and "on 3 slots" in out
+    assert len(want) == 6 and _served_tokens(out) == want
+
+
+def test_one_row_decode_against_four_rows(cuda_device):
+    """phi4-mini-3.8b-smoke decodes 10 steps for 4 rows together and for
+    each row alone (bf16, the engine's decode step): each row's logits
+    the same bits either way. A re-slot onto 1 slot is claimed
+    token-identical only where this holds (ROADMAP C23)."""
+    cfg = get_smoke_config("phi4-mini-3.8b")
+    params = M.init_params(cfg, seed=0, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, 10), dtype=torch.int32,
+                         device=cuda_device, generator=g)
+    four = M.init_cache(cfg, 4, 32, device=cuda_device)
+    ones = [M.init_cache(cfg, 1, 32, device=cuda_device) for _ in range(4)]
+    for t in range(10):
+        pos = torch.full((4,), t, dtype=torch.int32, device=cuda_device)
+        l4, four = M.decode_step(cfg, params, four, toks[:, t:t + 1], pos)
+        for r in range(4):
+            l1, ones[r] = M.decode_step(cfg, params, ones[r],
+                                        toks[r:r + 1, t:t + 1], pos[:1])
+            assert torch.equal(l1[0], l4[r]), (t, r)
+
+
+def test_router_one_row_against_four_rows(cuda_device):
+    """llama4-scout-17b-a16e-smoke's router (f32 logits) gives a row the
+    same gates and experts alone as in a 4-row batch (ROADMAP C23)."""
+    from repro_torch.models import moe as MOE
+    cfg = get_smoke_config("llama4-scout-17b-a16e")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(4, 1, cfg.d_model, device=cuda_device,
+                    generator=g).to(torch.bfloat16)
+    w = torch.randn(cfg.d_model, cfg.n_experts, device=cuda_device,
+                    generator=g) * cfg.d_model ** -0.5
+    full = MOE.route(cfg, w, x)[:2]
+    for r in range(4):
+        for part, whole in zip(MOE.route(cfg, w, x[r:r + 1])[:2], full):
+            assert torch.equal(part, whole[r:r + 1]), r

@@ -50,7 +50,12 @@ def test_the_scan_sees_the_whole_port():
                 "models/ssm.py", "kernels/rg_lru/ops.py",
                 "kernels/rg_lru/ref.py", "models/hybrid.py",
                 "core/backends/sharded.py", "core/backends/cached.py",
-                "core/replication.py", "core/delta.py"):
+                "core/replication.py", "core/delta.py",
+                "core/failure.py", "core/supervisor.py", "core/churn.py",
+                "core/migration.py", "serving/traffic.py",
+                "launch/common.py", "launch/supervise.py",
+                "launch/train.py", "launch/serve.py", "launch/fleet.py",
+                "examples/rl_actor_learner.py"):
         assert os.path.join("src", "repro_torch", mod) in files
 
 
@@ -76,6 +81,14 @@ def test_port_imports_with_jax_and_ml_dtypes_blocked():
         import repro_torch.models.hybrid
         import repro_torch.core.backends
         import repro_torch.core.replication
+        import repro_torch.core.supervisor
+        import repro_torch.core.churn
+        import repro_torch.core.migration
+        import repro_torch.serving.traffic
+        import repro_torch.launch.train
+        import repro_torch.launch.serve
+        import repro_torch.launch.fleet
+        import repro_torch.examples.rl_actor_learner
         from repro_torch.api.registry import resolve_backend
         import tempfile
         d = tempfile.mkdtemp()

@@ -283,15 +283,19 @@ def test_restore_without_a_card_needs_the_cpu_asked_for(tmp_path):
 
 
 def test_unported_features_name_their_roadmap_item(tmp_path):
-    """Migration and supervision still name ROADMAP A7; the streaming
-    restore (A4) is ported: ``restore(streaming=True)`` and
+    """Migration and supervision (ROADMAP A7) are ported: ``migrate``
+    asks for an app, ``supervise`` hands back a supervisor whose restore
+    onto a mesh of more than one device still names ROADMAP A9. The
+    streaming restore (A4) is ported: ``restore(streaming=True)`` and
     ``Policy(streaming_restore=True)`` bring the engine back with its
     cache as the cold tier."""
+    from repro_torch.core.supervisor import one_device_mesh
     sess = CheckpointSession(f"localfs:{tmp_path}", DENSE)
-    with pytest.raises(PolicyError, match="ROADMAP A7"):
+    with pytest.raises(PolicyError, match="no app attached"):
         sess.migrate(None)
-    with pytest.raises(PolicyError, match="ROADMAP A7"):
-        sess.supervise([0, 1])
+    assert sess.supervise([0, 1]).world == [0, 1]
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        one_device_mesh(lambda: ["cpu", "cpu"])()
     eng = ServingEngine.create(ARCH, _params(), n_slots=1, max_seq=16,
                                manager=sess.manager, device="cpu")
     sess.attach(eng)
