@@ -28,7 +28,12 @@ Phases, each reported on its own line:
    Sq != Skv at whisper-base's encoder ``[8, 8, 1500, 64]`` and
    cross-attention (4,096 queries, 1,500 keys) in bf16 (each kernel's
    time, bound, plain time and the non-causal SDPA's logged) and at a
-   ragged f32 cross shape; then each SSD kernel
+   ragged f32 cross shape, then at recurrentgemma-9b's training
+   attention (head dim 256, q ``[2, 16, 4096, 256]``, k/v ``[2, 1, 4096,
+   256]``, causal, window 2,048) in bf16 and f32, each the same bits on
+   a second call, with the bf16 kernels' times as the kernels line's
+   ``*_hd256`` rows (SDPA given the window as a mask, its backend named
+   from the profiler's kernels); then each SSD kernel
    (the chunked scan's forward and its gradient) against its plain
    version at mamba2-780m's training shape in bf16 and at a ragged f32
    shape with an initial state, with limits set from the plain version's
@@ -43,7 +48,12 @@ Phases, each reported on its own line:
    at a ragged shape with a state, every element within 1e-4 * (|plain|
    + rms(plain)), with its time, its bound, this design's own floor (x,
    r, i read twice), the plain version's time and each of its three
-   launches' device time;
+   launches' device time; then the RG-LRU backward kernel against its
+   plain version at the training cell's shape (``[2, 4096, 4096]``, from
+   zero), at the prefill shape from a random state and at a ragged shape
+   with decays near one (dx, dr, di, dlam, dh0 within the same limit),
+   the same bits on a second call, with its time, its bound by bytes,
+   the plain version's time and each of its four launches' device time;
 5. the serving path: phi4-mini-3.8b at full width and depth (bf16
    params from seeded ``torch.Generator``s) serves 6 requests on 4
    slots under a ``CheckpointSession`` with chained snapshots, is
@@ -115,7 +125,14 @@ Phases, each reported on its own line:
    whisper-base at full width and depth on 8 x 4096 tokens (1,500
    encoder frames a row) through the flash kernels, 36 forward, 18 dq and
    18 dk/dv launches a step (6 encoder, 6 self- and 6 cross-attention
-   layers, the forward twice under remat);
+   layers, the forward twice under remat); recurrentgemma-9b at full
+   width, its depth cut to 3 of 38 layers (one block group: two RG-LRU
+   blocks and one local-attention block), on 2 x 4096 tokens through the
+   RG-LRU forward and backward kernels and the flash kernels at head dim
+   256 (4 ``rg_lru_fwd``, 2 ``rg_lru_bwd``, 2 ``flash_fwd``, 1 ``flash_dq``
+   and 1 ``flash_dkv`` a step), after its full depth is refused on the
+   card before anything is allocated (params and f32 moments past 0.9 x
+   the card's memory; the message names the bytes and ROADMAP A9);
 8. the codec phase, from mamba2-780m's restored trainer (``codec_path``):
    one snapshot under ``codecs={"opt_state": "int8"}`` into a
    ``sharded:`` store of 4 virtual hosts (quantize on the card, only the
@@ -174,6 +191,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Tuple
 
 ROOT = Path(__file__).resolve().parent
 # cuBLAS picks deterministic reductions only with a fixed workspace
@@ -189,9 +207,9 @@ TRAIN_STEPS = 8
 # the training cells, each at full width (and full depth unless ``layers``
 # cuts it, as ``configs.registry.resolve_config`` spells it): the model,
 # its shape (the published 4,096-token length at a batch cut from 256 to
-# what one card steps without accumulation), the kernel module whose
-# kernels the step runs, and the shape and mode of the f32 smoke step
-# held against the CPU (check_train_reference)
+# what one card steps without accumulation), the kernel module (or
+# modules) whose kernels the step runs, and the shape and mode of the f32
+# smoke step held against the CPU (check_train_reference)
 TRAIN_CELLS = (
     dict(arch="starcoder2-3b", shape="train_s4096_b2", kernels="flash",
          reference_shape="train_s192_b2",         # 3 q tiles, ragged-free
@@ -212,10 +230,20 @@ TRAIN_CELLS = (
     # 4,096 tokens to them
     dict(arch="whisper-base", shape="train_s4096_b8", kernels="flash",
          reference_shape="train_s64_b2", reference="grads"),
+    # full width, depth cut from 38 to 3: one block group (two RG-LRU
+    # blocks, one local-attention block at head dim 256), so both block
+    # kinds train; 4,096 tokens cross the 2,048-token window. Full depth
+    # is refused on the card before anything is allocated (params and
+    # f32 moments alone 85.2 GB, ROADMAP A9)
+    dict(arch="recurrentgemma-9b", layers=3, shape="train_s4096_b2",
+         kernels=("rg_lru", "flash"),
+         reference_shape="train_s256_b2", reference="grads",
+         refuse_full_depth=True),
 )
 # one full snapshot, after step 6, with no chain (so no dirty-chunk
 # capture either): each cell logs its snapshot's size (30.3 GB for
-# starcoder2-3b at full depth, 7.8 for mamba2-780m) and the card's machine
+# starcoder2-3b at full depth, 7.8 for mamba2-780m, 16.4 for
+# recurrentgemma-9b at 3 layers) and the card's machine
 # accepts 45 GiB of disk writes per run (deleted files count), so a
 # chain's link at full depth cannot be written there; training links run
 # at smoke size in the tests instead
@@ -501,6 +529,37 @@ def attended_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def flash_f64(torch, fa, q, k, v, do, lse, delta, causal, window):
+    """(out, lse, dq, dk, dv) of the plain versions' math in float64: the
+    forward from scratch, the backward from the given f32 ``lse`` and
+    ``delta`` (the inputs both the kernels and the plain versions take) —
+    how far each version's f32 sums are from exact."""
+    B, H, Sq, hd = q.shape
+    scale = fa.softmax_scale(hd)
+    mask = fa._index_mask(Sq, k.shape[2], causal, window, q.device)
+    f64 = torch.float64
+    res = [torch.empty(q.shape, dtype=f64, device=q.device),
+           torch.empty(lse.shape, dtype=f64, device=q.device),
+           torch.empty(q.shape, dtype=f64, device=q.device),
+           torch.empty(k.shape, dtype=f64, device=q.device),
+           torch.empty(k.shape, dtype=f64, device=q.device)]
+    for b, hk, hs in fa._groups(q, k):
+        qs = q[b, hs].to(f64) * scale
+        kf, vf, dof = k[b, hk].to(f64), v[b, hk].to(f64), do[b, hs].to(f64)
+        s = torch.einsum("gqd,cd->gqc", qs, kf).masked_fill(~mask,
+                                                            -math.inf)
+        res[0][b, hs] = torch.einsum("gqc,cd->gqd", s.softmax(-1), vf)
+        res[1][b, hs] = s.logsumexp(-1)
+        p = torch.exp(s - lse[b, hs].to(f64)[..., None])
+        dp = torch.einsum("gqd,cd->gqc", dof, vf)
+        ds = p * (dp - delta[b, hs].to(f64)[..., None]) * scale
+        res[2][b, hs] = torch.einsum("gqc,cd->gqd", ds, kf)
+        res[4][b, hk] = torch.einsum("gqc,gqd->cd", p, dof)
+        res[3][b, hk] = torch.einsum("gqc,gqd->cd", ds, qs) / scale
+        del s, p, dp, ds
+    return res
+
+
 def check_flash(torch, fa):
     """Phase 4: each flash kernel against its plain version on the card,
     at the training shape (bf16) and at a ragged shape with a window in
@@ -523,7 +582,15 @@ def check_flash(torch, fa):
     # differ by one bf16 ulp, at most 2^-7 of the value (rtol 1e-2), and
     # by the order of the f32 sums (atol 1e-5, ~1/3000 of a typical
     # forward or dq value at the training shape). f32: the order only.
-    # The LSE is f32 in both cases.
+    # The LSE is f32 in both cases. At recurrentgemma-9b's f32 shape, dk
+    # and dv sum over 16 heads x up to 2,048 queries (32,768 terms), and
+    # both versions' f32 sums drift from exact by more than 1e-5 there
+    # (partial sums of ~10 cancel to values of ~1): each part's atol is
+    # then 8 x the plain version's own largest distance from a float64
+    # evaluation of the same math (flash_f64), at least 1e-5. The
+    # kernel's one f32 accumulator an element sums the 32,768 terms in
+    # sequence where the plain version's GEMM sums in blocks: measured on
+    # an H100, its distance from float64 was 2-6 x the plain version's.
     tols = {torch.bfloat16: (1e-2, 1e-5), torch.float32: (1e-4, 1e-5)}
     lse_tol = (0.0, 1e-4)
     parts = {"flash_fwd": ("out", "lse"), "flash_dq": ("dq",),
@@ -538,7 +605,16 @@ def check_flash(torch, fa):
              ("whisper cross", torch.bfloat16, 8, 8, 8, 4096, 1500, 64, False,
               0),
              ("ragged cross", torch.float32, 1, 8, 8, 300, 1000, 64, False,
-              0)]
+              0),
+             # recurrentgemma-9b's training attention: head dim 256, 16
+             # query heads over one kv head, window 2,048 at 4,096 tokens
+             ("recurrentgemma", torch.bfloat16, 2, 16, 1, 4096, 4096, 256,
+              True, 2048),
+             ("recurrentgemma f32", torch.float32, 2, 16, 1, 4096, 4096,
+              256, True, 2048)]
+    # the rows of the kernels line: the starcoder2-3b training shape under
+    # the kernels' names, recurrentgemma-9b's under name + "_hd256"
+    rows = {"training": "", "recurrentgemma": "_hd256"}
     for label, dt, B, H, Hkv, Sq, Skv, hd, causal, window in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device=dev).to(dt)
@@ -557,11 +633,20 @@ def check_flash(torch, fa):
                 "flash_dkv": fa.flash_dkv_plain(q, k, v, do, lse_p, delta,
                                                 **kw)}
         torch.cuda.synchronize()
+        exact = (dict(zip(("out", "lse", "dq", "dk", "dv"), flash_f64(
+            torch, fa, q, k, v, do, lse_p, delta, causal, window)))
+            if label == "recurrentgemma f32" else None)
         errs, readings, bad = {}, [], []
         for name in fa.KERNELS:
             errs[name] = 0.0
             for part, a, b in zip(parts[name], got[name], want[name]):
                 rtol, atol = lse_tol if part == "lse" else tols[dt]
+                if exact is not None:
+                    own = float((b.double() - exact[part]).abs().max())
+                    kern = float((a.double() - exact[part]).abs().max())
+                    atol = max(atol, 8 * own)
+                    readings.append(f"{part} from float64: plain {own:.2e}, "
+                                    f"kernel {kern:.2e}")
                 a, b = a.float(), b.float()
                 err = (a - b).abs()
                 # the worst element's error as a share of its limit
@@ -570,7 +655,8 @@ def check_flash(torch, fa):
                 readings.append(
                     f"{part} {float(err.max()):.2e} (rms of the plain "
                     f"{float(b.square().mean().sqrt()):.2e}, rtol {rtol:g} "
-                    f"atol {atol:g}, worst element {share:.2f} of its limit)")
+                    f"atol {atol:.3g}, worst element {share:.2f} of its "
+                    "limit)")
                 if share > 1:
                     bad.append(f"{name} ({part})")
         log(f"kernel flash ({label}): q {(B, H, Sq, hd)} k/v "
@@ -581,7 +667,23 @@ def check_flash(torch, fa):
         if bad:
             raise AssertionError(f"{label}: kernels disagree with their "
                                  f"plain versions past the limit: {bad}")
-        if label not in ("training", "whisper encoder", "whisper cross"):
+        del exact
+        if label.startswith("recurrentgemma"):
+            again = {"flash_fwd": fa.flash_fwd(q, k, v, **kw),
+                     "flash_dq": (fa.flash_dq(q, k, v, do, lse_p, delta,
+                                              **kw),),
+                     "flash_dkv": fa.flash_dkv(q, k, v, do, lse_p, delta,
+                                               **kw)}
+            same = all(torch.equal(a, b) for name in fa.KERNELS
+                       for a, b in zip(got[name], again[name]))
+            if not same:
+                raise AssertionError(f"{label}: a second call of the flash "
+                                     "kernels gave other bits")
+            log(f"kernel flash ({label}): fwd, dq and dk/dv the same bits "
+                "on a second call")
+            del again
+        if label not in ("training", "whisper encoder", "whisper cross",
+                         "recurrentgemma", "recurrentgemma f32"):
             continue
         pairs = B * H * attended_pairs(Sq, Skv, causal, window)
         esz = q.element_size()
@@ -599,29 +701,41 @@ def check_flash(torch, fa):
                           lambda: fa.flash_dkv_plain(q, k, v, do, lse, delta,
                                                      **kw))}
         qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        # SDPA takes the window as a boolean mask (True: attended), which
+        # rules out its flash backend; the backend it picks is named from
+        # the kernels the profiler sees
+        sdpa_kw = (dict(is_causal=causal) if window == 0 else dict(
+            attn_mask=fa._index_mask(Sq, Skv, causal, window, dev)))
         sdpa_out = F.scaled_dot_product_attention(qr, kr, vr,
-                                                  is_causal=causal,
-                                                  enable_gqa=True)
+                                                  enable_gqa=True, **sdpa_kw)
         lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), 10, flush)
+            q, k, v, enable_gqa=True, **sdpa_kw), 10, flush)
         lib_bwd = time_ms(lambda: torch.autograd.grad(
             sdpa_out, (qr, kr, vr), do, retain_graph=True), 10, flush)
+        if window:
+            top = profile_call(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True, **sdpa_kw), n_top=3)[4]
+            log(f"library ({label}): scaled_dot_product_attention with the "
+                f"window as a mask runs " + "; ".join(
+                    f"{n} {t:.3f} ms" for n, t in top))
         for name in fa.KERNELS:
             nbytes, ops_n = work[name]
             b, o_by = bound_ms(nbytes, ops_n, BF16_OPS_PER_S)
-            if label != "training":
+            if label not in rows:
                 ms, plain = (time_ms(calls[name][0], 5, flush),
                              time_ms(calls[name][1], 2, flush))
                 lib = lib_fwd if name == "flash_fwd" else lib_bwd
                 log(f"timing {name} ({label}): {ms:.4f} ms (bound {b:.4f} "
                     f"ms by {o_by}, {ops_n / 1e9:.1f} GFLOP, "
                     f"{100 * b / ms:.1f}% of it), plain {plain:.4f} ms, "
-                    f"scaled_dot_product_attention(is_causal=False)"
+                    f"scaled_dot_product_attention"
+                    f"({'is_causal=False' if not causal else 'window mask'})"
                     f"{'' if name == 'flash_fwd' else ' backward'} "
                     f"{lib:.4f} ms")
                 continue
-            out[name] = dict(
-                name=name, route="cuda",
+            row = name + rows[label]
+            out[row] = dict(
+                name=row, route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces={"flash_fwd": "src/repro/kernels/flash_attention/"
                                        "kernel.py:86",
@@ -634,10 +748,10 @@ def check_flash(torch, fa):
                 plain_ms=time_ms(calls[name][1], 2, flush),
                 bound_ms=b, bound_by=o_by,
                 library_ms=lib_fwd if name == "flash_fwd" else lib_bwd)
-            log(f"timing {name}: {out[name]['ms']:.4f} ms (bound "
+            log(f"timing {row} ({label}): {out[row]['ms']:.4f} ms (bound "
                 f"{b:.4f} ms by {o_by}, {ops_n / 1e9:.1f} GFLOP), plain "
-                f"{out[name]['plain_ms']:.4f} ms, library "
-                f"{out[name]['library_ms']:.4f} ms")
+                f"{out[row]['plain_ms']:.4f} ms, library "
+                f"{out[row]['library_ms']:.4f} ms")
         del qr, kr, vr, sdpa_out
     del l2
     torch.cuda.empty_cache()
@@ -853,6 +967,99 @@ def check_rglru(torch, rg, R, within):
     del big, ragged, slow, x, r, i, lam, l2
     torch.cuda.empty_cache()
     return {"rg_lru_fwd": out}
+
+
+RGLRU_TRAIN_SHAPE = (2, 4096, 4096)         # B, S, W: train_s4096_b2
+
+
+def check_rglru_bwd(torch, rg, R, within):
+    """The RG-LRU backward kernel against its plain version on the card
+    (the same phases in plain tensors), with x, r, i and lam drawn as a
+    fresh block makes them and dh ~ N(0, 1): at the training cell's shape
+    from a zero state, at the prefill shape from a random one, and at a
+    ragged shape with decays near one. dx, dr, di, dlam and dh0 each
+    within RGLRU_RTOL * (|plain| + rms(plain)); the same bits on a second
+    call at the training shape; its time there, its bound (the bytes it
+    must move) and the plain version's; each launch's device time."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    flush = l2.zero_
+    names = ("dx", "dr", "di", "dlam", "dh0")
+    cases = [("training, h0 = 0", RGLRU_TRAIN_SHAPE, None, False),
+             ("prefill, random h0", RGLRU_PREFILL_SHAPE, None, True),
+             ("ragged, decays near one, random h0", (3, 1000, 1000),
+              NEAR_ONE, True)]
+    worst_err, row = 0.0, None
+    for label, (B, S, W), u_range, init in cases:
+        ins = R.model_inputs(B, S, W, gen, dev,
+                             *(() if u_range is None else (u_range,)))
+        h0 = torch.randn((B, W), generator=gen, device=dev) if init else None
+        dh = torch.randn((B, S, W), generator=gen, device=dev)
+        h = rg.rg_lru_fwd(*ins, h0)
+        got = rg.rg_lru_bwd(*ins, h, dh, h0)
+        want = R.rg_lru_bwd_plain(*ins, h, dh, h0)
+        torch.cuda.synchronize()
+        readings, bad = [], []
+        for name, a, b in zip(names, got, want):
+            share = within(a, b, RGLRU_RTOL)
+            err = float((a - b).abs().max())
+            worst_err = max(worst_err, err)
+            readings.append(f"{name} {err:.2e} (rms of the plain "
+                            f"{float(b.square().mean().sqrt()):.2e}, worst "
+                            f"element {share:.3f} of its limit)")
+            if not share <= 1.0:
+                bad.append(name)
+        log(f"kernel rg_lru_bwd ({label}): x/r/i/h/dh {(B, S, W)} f32 against"
+            f" the plain version, limit {RGLRU_RTOL:g} * (|plain| + rms): "
+            + "; ".join(readings))
+        if bad:
+            raise AssertionError(f"rg_lru_bwd ({label}) disagrees with its "
+                                 f"plain version: {bad}")
+        del want
+        if (B, S, W) == RGLRU_TRAIN_SHAPE:
+            again = rg.rg_lru_bwd(*ins, h, dh, h0)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError("rg_lru_bwd gave other bits on a second "
+                                     "call")
+            del again
+            x, r, i, lam = ins
+            n = x.numel()
+            # x, r, i, h, dh read and dx, dr, di written once (lam, dlam
+            # and dh0 are W and B x W floats); ~20 operations an element:
+            # the gates again, the reverse scan's FMA, the five products
+            # of the gradients
+            nbytes, ops_n = 32 * n + 8 * W + 4 * B * W, 20 * n
+            b, o = bound_ms(nbytes, ops_n)
+            row = dict(name="rg_lru_bwd", route="cuda",
+                       source="src/repro_torch/csrc/rg_lru.cu",
+                       replaces="none: jax.grad of associative_scan, "
+                                "src/repro/models/hybrid.py:76",
+                       ms=time_ms(lambda: rg.rg_lru_bwd(x, r, i, lam, h, dh),
+                                  10, flush),
+                       plain_ms=time_ms(lambda: R.rg_lru_bwd_plain(
+                           x, r, i, lam, h, dh), 2, flush),
+                       bound_ms=b, bound_by=o, library_ms=None)
+            floor = 40 * n / HBM_BYTES_PER_S * 1e3
+            log(f"timing rg_lru_bwd: {row['ms']:.4f} ms (bound {b:.4f} ms by "
+                f"{o}: {nbytes / 1e9:.3f} GB, {ops_n / 1e9:.1f} GFLOP; this "
+                f"design's floor {floor:.4f} ms, 40 bytes an element: r and"
+                f" dh read twice), plain {row['plain_ms']:.4f} ms, library "
+                "none (no single PyTorch call computes this gradient)")
+            log_phases(torch, "rg_lru_bwd",
+                       lambda: rg.rg_lru_bwd(x, r, i, lam, h, dh))
+            del x, r, i, lam
+        elif S == RGLRU_PREFILL_SHAPE[1]:
+            ms = time_ms(lambda: rg.rg_lru_bwd(*ins, h, dh, h0), 5, flush)
+            n = B * S * W
+            log(f"timing rg_lru_bwd ({label}): {ms:.4f} ms (bound "
+                f"{bound_ms(32 * n, 20 * n)[0]:.4f} ms by bytes)")
+        del ins, h0, dh, h, got
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = worst_err
+    del l2
+    torch.cuda.empty_cache()
+    return {"rg_lru_bwd": row}
 
 
 def check_small_reference(torch, M, get_smoke_config):
@@ -1942,9 +2149,9 @@ def moe_train_smoke(torch, np, mods):
     return total
 
 
-def check_train_reference(torch, np, kern, arch, shape_key, mode):
+def check_train_reference(torch, np, kerns, arch, shape_key, mode):
     """One f32 train step of ``arch``'s smoke model on the card (its
-    kernels: ``kern``'s counts must move) against the same step on the
+    kernels: every module of ``kerns``' counts must move) against the same step on the
     CPU (the plain versions): TF32 off, so the two differ only in the
     order of their sums. Loss and grad norm within 1e-5 relative; then,
     ``mode`` "state": params 1e-6 absolute at lr 3e-4 (a step moves a
@@ -2009,9 +2216,10 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
 
     res = {}
     for dev in ("cpu", "cuda"):
-        before = kern.counts(dev)
+        before = [kern.counts(dev) for kern in kerns]
         res[dev] = run(dev)
-        ran = {k: kern.counts(dev)[k] - before[k] for k in kern.KERNELS}
+        ran = {k: kern.counts(dev)[k] - b[k]
+               for kern, b in zip(kerns, before) for k in kern.KERNELS}
         if dev == "cuda" and not all(ran.values()):
             raise AssertionError(f"the card's step missed a kernel: {ran}")
     for key in ("loss", "grad_norm"):
@@ -2053,9 +2261,11 @@ def check_train_reference(torch, np, kern, arch, shape_key, mode):
         spread_of = f"the CPU's chunk {chunk} vs {chunk // 4} spread"
     else:
         from unittest import mock
+        from repro_torch.kernels.rg_lru import ref as RG
         from repro_torch.models import layers as L
         with mock.patch.object(L, "exp_stable", torch.exp), \
-                mock.patch.object(MOE, "exp_stable", torch.exp):
+                mock.patch.object(MOE, "exp_stable", torch.exp), \
+                mock.patch.object(RG, "exp_stable", torch.exp):
             alt = run("cpu")
         alt_label = "the CPU under torch.exp"
         spread_of = "the CPU's exp_f32 vs torch.exp spread"
@@ -2188,27 +2398,72 @@ def profile_train_step(torch, tr):
     return met, wall
 
 
+def calls_per_step(cfg, name: str) -> Tuple[int, int]:
+    """Calls a train step makes to kernel module ``name``'s wrappers,
+    (under remat, outside it): one per layer that runs it — for the
+    encoder-decoder's flash kernels one per encoder layer and two per
+    decoder layer (self- and cross-attention), for the hybrid one per
+    recurrent (``rg_lru``) or attention (``flash``) block, those of its
+    block groups under remat and its remainder blocks outside it."""
+    if cfg.family == "hybrid":
+        kind = "rglru" if name == "rg_lru" else "attn"
+        n_groups, rem = divmod(cfg.n_layers, len(cfg.block_pattern))
+        return (n_groups * cfg.block_pattern.count(kind),
+                cfg.block_pattern[:rem].count(kind))
+    if cfg.is_encoder_decoder and name == "flash":
+        return cfg.n_encoder_layers + 2 * cfg.n_layers, 0
+    return cfg.n_layers, 0
+
+
+def check_full_depth_refused(torch, arch, shape_key):
+    """The model at full depth does not fit one card: its Trainer raises
+    while it plans, before any param or moment is allocated, and the
+    message gives the bytes and names ROADMAP A9."""
+    from repro_torch.train.loop import Trainer, TrainJob
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        Trainer(TrainJob(arch, shape_key))
+    except MemoryError as e:
+        msg = str(e)
+    else:
+        raise AssertionError(f"{arch} at full depth built a trainer on one "
+                             "card")
+    after = torch.cuda.memory_allocated()
+    if "A9" not in msg or " GB" not in msg or after != before:
+        raise AssertionError(f"{arch}: refused with {msg!r}, device memory "
+                             f"{before} -> {after} bytes")
+    log(f"train path: {arch} at full depth refused before allocating "
+        f"(device memory {after} bytes, as before): {msg}")
+
+
 def train_path(torch, np, kernel_mods, cell):
     """A training path (see the module docstring): ``cell`` is one of
-    ``TRAIN_CELLS``; its kernel module ``cell["kernels"]`` must launch
-    its first kernel twice per layer and step (the forward, again under
-    remat) and every other kernel once. Every kernel count is set to 0
-    just before the run and read just after it."""
+    ``TRAIN_CELLS``; each of its kernel modules ``cell["kernels"]`` must
+    launch its first kernel twice per call site and step (the forward,
+    again under remat) and every other kernel once (``calls_per_step``).
+    Every kernel count is set to 0 just before the run and read just
+    after it."""
     from repro_torch.api import CheckpointSession, Policy
     from repro_torch.configs import resolve_config
     from repro_torch.configs.registry import get_shape
     from repro_torch.train.loop import Trainer, TrainJob
 
+    from repro_torch.models.model import param_count
+
     arch, shape_key, steps = cell["arch"], cell["shape"], TRAIN_STEPS
-    kern = kernel_mods[cell["kernels"]]
-    check_train_reference(torch, np, kern, arch, cell["reference_shape"],
-                          cell["reference"])
+    names = ((cell["kernels"],) if isinstance(cell["kernels"], str)
+             else tuple(cell["kernels"]))
+    check_train_reference(torch, np, [kernel_mods[k] for k in names], arch,
+                          cell["reference_shape"], cell["reference"])
+    if cell.get("refuse_full_depth"):
+        check_full_depth_refused(torch, arch, shape_key)
     job_arch = cell.get("job") or arch + (
         f"-layers{cell['layers']}" if "layers" in cell else "")
     cfg = resolve_config(job_arch)
     shape = get_shape(shape_key)
     tokens = shape.global_batch * shape.seq_len
-    n = cfg.n_params()
+    n = param_count(cfg)                        # the template's leaves
     snap = n * (2 + 4 + 4)                      # bf16 params, f32 mu and nu
     store = tempfile.mkdtemp(prefix="chip_smoke_train_")
     disk, mem = shutil.disk_usage(store).free, _mem_available()
@@ -2311,26 +2566,28 @@ def train_path(torch, np, kernel_mods, cell):
     if got != want:
         raise AssertionError(f"state digest after restore {got} != "
                              f"uninterrupted {want}")
-    launched = counts[cell["kernels"]]
-    # kernel calls per step: one per layer, and for the encoder-decoder's
-    # flash kernels one per encoder layer and two per decoder layer
-    # (self- and cross-attention)
-    per_step = cfg.n_layers
-    if cfg.is_encoder_decoder and cell["kernels"] == "flash":
-        per_step = cfg.n_encoder_layers + 2 * cfg.n_layers
-    layer_steps = per_step * (steps + steps - back)
-    expect = {k: (2 if i == 0 else 1) * layer_steps
-              for i, k in enumerate(kern.KERNELS)}
+    launched = {k: n for name in names for k, n in counts[name].items()}
+    run_steps = steps + steps - back
+    expect = {k: ((2 if i == 0 else 1) * calls_per_step(cfg, name)[0]
+                  + calls_per_step(cfg, name)[1]) * run_steps
+              for name in names
+              for i, k in enumerate(kernel_mods[name].KERNELS)}
     if launched != expect:
         raise AssertionError(f"{arch}: kernel launches {launched}, expected "
                              f"{expect} (forward twice per layer and step "
                              f"under remat, the rest once)")
     log(f"train path: losses and state digest {got} bit-identical to the "
-        f"uninterrupted run; kernel launches {launched} ({per_step} kernel "
-        f"calls a step x {steps + steps - back} steps; the forward twice "
+        f"uninterrupted run; kernel launches {launched} "
+        f"({ {name: calls_per_step(cfg, name) for name in names} } kernel "
+        f"calls a step under remat and outside it x {run_steps} steps; the "
+        f"forward twice "
         f"under remat: per step "
-        f"{ {k: n // (steps + steps - back) for k, n in launched.items()} }"
+        f"{ {k: n // run_steps for k, n in launched.items()} }"
         f"); all counts {counts}")
+    if "flash" in names and cfg.resolved_head_dim == 256:
+        # the kernels line's head-dim-256 rows (check_flash)
+        launched.update({f"{k}_hd256": counts["flash"][k]
+                         for k in kernel_mods["flash"].KERNELS})
     if box:
         launched = dict(launched, **codec_path(torch, kernel_mods, box, cfg,
                                                losses[back:]))
@@ -2977,6 +3234,8 @@ def main() -> int:
     kernels.update(phase("check_ssd", check_ssd, torch, ssd, ssd_ref))
     kernels.update(phase("check_rglru", check_rglru, torch, rg, rg_ref,
                          ssd_ref.within))
+    kernels.update(phase("check_rglru_bwd", check_rglru_bwd, torch, rg,
+                         rg_ref, ssd_ref.within))
     # each kernel's launches summed over the paths' runs (every path
     # sets the counts to 0 before it runs and reads them after)
     launches = dict.fromkeys(kernels, 0)

@@ -14,7 +14,13 @@ A snapshot moves through three phases:
             quantization for error-tolerant kinds (done at capture, on
             the card, for tensor leaves), XOR against the
             previous snapshot's staging slot when delta chaining is on,
-            content-addressed chunking always.
+            content-addressed chunking always. Each chunk's probe,
+            compression and hash run on a pack pool of
+            ``encode_workers()`` threads; the encode thread takes them
+            back in chunk order and does the dedup and the blob queueing
+            itself, so manifests, blobs and byte counts are the
+            one-thread encode's (the JAX package packs on its encode
+            thread: a difference of scheduling, not of bytes).
   commit    chunk blobs stream to the backend on a writer pool
             (``put_blob`` fan-out, bounded in-flight bytes); once every
             blob is durable the manifest is committed by the backend's
@@ -66,6 +72,7 @@ caller thread (fingerprint state is advanced at capture time).
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 import weakref
@@ -93,6 +100,13 @@ SPARSE_MANIFEST_FORMAT = 3  # at least one dirty-chunk (sparse) leaf
 # bound on blob bytes queued to the writer pool per snapshot; keeps the
 # encode thread from racing ahead of a slow backend unboundedly
 MAX_PENDING_WRITES = 32
+
+
+def encode_workers() -> int:
+    """Threads that pack a snapshot's chunks: the restore's decode pool
+    rule (``materialize_manifest_chain``). 1 packs on the encode thread
+    itself."""
+    return min(8, os.cpu_count() or 1)
 
 
 # ---------------------------------------------------------------------------
@@ -501,6 +515,11 @@ class AsyncSnapshotter:
             max_workers=1, thread_name_prefix="snap-encode")  # ordered
         self._writer_pool = ThreadPoolExecutor(
             max_workers=writers, thread_name_prefix="snap-write")
+        packers = encode_workers()
+        self._pack_pool: Optional[ThreadPoolExecutor] = (
+            ThreadPoolExecutor(max_workers=packers,
+                               thread_name_prefix="snap-pack")
+            if packers > 1 else None)
         self._inflight: List[SnapshotHandle] = []
         self._last_error: Optional[BaseException] = None
         # previous snapshot kept as the XOR base: (step, host_state, slot)
@@ -529,7 +548,6 @@ class AsyncSnapshotter:
         self._fp_pool: Optional[ThreadPoolExecutor] = None
         self._fp_workers = 1
         if self.sparse_capture:
-            import os
             self._fp_workers = min(4, os.cpu_count() or 1)
             if self._fp_workers > 1:
                 self._fp_pool = ThreadPoolExecutor(
@@ -701,15 +719,16 @@ class AsyncSnapshotter:
                         arr.dirty_bytes if arr.dirty_bytes is not None
                         else np.empty((0, arr.chunk_bytes), np.uint8),
                         prev_arr, writer.put, writer.has,
-                        compress=self.compress)
+                        compress=self.compress, pool=self._pack_pool)
                     logical += arr.nbytes
                 else:
                     prev_arr = None
                     if chain and not deltamod.codec_applicable(arr, codec):
                         prev_arr = base_state.get(name, {}).get(path)
                     m = deltamod.encode_leaf(
-                        arr, writer.put, writer.has,
-                        codec=codec, prev=prev_arr, compress=self.compress)
+                        arr, writer.put, writer.has, codec=codec,
+                        prev=prev_arr, compress=self.compress,
+                        pool=self._pack_pool)
                     logical += nbytes(arr)
                     if has_sparse and isinstance(arr, deltamod.Int8Leaf):
                         # codec leaves never serve as an XOR base
@@ -832,6 +851,8 @@ class AsyncSnapshotter:
         finally:
             self._encode_pool.shutdown(wait=True)
             self._writer_pool.shutdown(wait=True)
+            if self._pack_pool is not None:
+                self._pack_pool.shutdown(wait=True)
             if self._fp_pool is not None:
                 self._fp_pool.shutdown(wait=True)
 
@@ -999,7 +1020,6 @@ def materialize_manifest_chain(
     tasks = [(name, path) for name, e in final["entries"].items()
              if name not in skip for path in e["leaves"]]
     if workers is None:
-        import os
         workers = min(8, os.cpu_count() or 1)
     if workers > 1 and len(tasks) >= _PARALLEL_DECODE_MIN_LEAVES:
         with ThreadPoolExecutor(max_workers=workers,

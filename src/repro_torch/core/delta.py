@@ -58,7 +58,10 @@ from __future__ import annotations
 
 import hashlib
 import zlib
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from collections import deque
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import (Any, Callable, Deque, Dict, Iterable, Iterator, List,
+                    Optional, Tuple)
 
 import numpy as np
 import torch
@@ -211,9 +214,12 @@ def iter_chunk_views(arr) -> Iterator[memoryview]:
 _PROBE_BYTES = 64 * 1024
 
 
-def _store_chunk(chunk: bytes, put_blob, has_blob,
-                 compress: bool) -> Tuple[str, str, int]:
-    """Store one chunk; returns (hash, enc, bytes_written)."""
+def pack_chunk(chunk, compress: bool) -> Tuple[str, str, bytes]:
+    """The pure half of storing one chunk: probe, compress, hash.
+    Returns (hash, enc, payload). No store is touched, so chunks pack
+    on any thread (zlib and blake2b release the GIL on buffers this
+    large)."""
+    chunk = bytes(chunk)
     enc = ENC_RAW
     if compress and len(chunk) > 0:
         # probe a prefix first: full-chunk zlib on incompressible float
@@ -225,11 +231,58 @@ def _store_chunk(chunk: bytes, put_blob, has_blob,
             packed = zlib.compress(chunk, _ZLIB_LEVEL)
             if len(packed) < len(chunk) * 9 // 10:
                 chunk, enc = packed, ENC_ZLIB
-    h = _hash(chunk)
+    return _hash(chunk), enc, chunk
+
+
+def _put_packed(packed: Tuple[str, str, bytes], put_blob,
+                has_blob) -> Tuple[str, str, int]:
+    """The ordered half: dedup against what is stored or queued, then
+    store. Returns (hash, enc, bytes_written)."""
+    h, enc, payload = packed
     if has_blob(h):
         return h, enc, 0
-    put_blob(h, chunk)
-    return h, enc, len(chunk)
+    put_blob(h, payload)
+    return h, enc, len(payload)
+
+
+def _store_chunks(chunks: Iterable[Optional[Any]], put_blob, has_blob,
+                  compress: bool, pool: Optional[ThreadPoolExecutor] = None
+                  ) -> Iterator[Optional[Tuple[str, str, int]]]:
+    """Store each chunk (a bytes-like view, or None for an elided one)
+    and yield (hash, enc, bytes_written), or None, in input order.
+
+    With a ``pool`` the pack step runs on its workers, two chunks a
+    worker ahead (so a worker never waits for the next one), and the
+    calling thread takes the results back in chunk order for the
+    ``has``/``put`` dedup: the blobs, their bytes, the dedup and the
+    counts are the one-thread encode's. ``chunks`` is pulled lazily, so
+    at most that window of payloads is held beside the blob writer's
+    queue."""
+    if pool is None:
+        for c in chunks:
+            yield None if c is None else _put_packed(
+                pack_chunk(c, compress), put_blob, has_blob)
+        return
+    window: Deque[Optional[Future]] = deque()
+    limit = 2 * pool._max_workers
+    try:
+        for c in chunks:
+            window.append(None if c is None
+                          else pool.submit(pack_chunk, c, compress))
+            if len(window) >= limit:
+                f = window.popleft()
+                yield None if f is None else _put_packed(f.result(),
+                                                         put_blob, has_blob)
+        while window:
+            f = window.popleft()
+            yield None if f is None else _put_packed(f.result(), put_blob,
+                                                     has_blob)
+    finally:
+        # a failure (or an abandoned generator) must not leave workers
+        # reading a staging buffer that is about to be reused
+        for f in window:
+            if f is not None and not f.cancel():
+                f.exception()
 
 
 def _load_chunk(entry: Optional[str], enc: str, length: int,
@@ -254,12 +307,12 @@ def _use_device_xor() -> bool:
 
 def _encode_part(p, put_blob, has_blob, *,
                  prev=None,
-                 compress: bool = True) -> Tuple[Dict[str, Any], int]:
+                 compress: bool = True,
+                 pool: Optional[ThreadPoolExecutor] = None
+                 ) -> Tuple[Dict[str, Any], int]:
     """Chunk one part array; XOR against `prev` chunk-by-chunk when given
-    (streaming — never materializes the full delta)."""
-    chunks: List[Optional[str]] = []
-    encs: List[str] = []
-    written = 0
+    (streaming — never materializes the full delta). Chunks pack on
+    ``pool`` when one is given (``_store_chunks``)."""
     # the device-vs-host XOR decision is per-part, not per-chunk: the
     # backend probe is hoisted out of the chunk loop
     if prev is not None and _use_device_xor():
@@ -271,23 +324,29 @@ def _encode_part(p, put_blob, has_blob, *,
             return np.bitwise_xor(a, b)
     else:
         xor = np.bitwise_xor
-    prev_iter = iter_chunk_views(p if prev is None else prev)
-    for view in iter_chunk_views(p):
-        if prev is not None:
-            pview = next(prev_iter)
-            delta = xor(np.frombuffer(view, np.uint8),
-                        np.frombuffer(pview, np.uint8))
-            if not delta.any():
-                chunks.append(None)   # unchanged region: costs nothing
-                encs.append(ENC_RAW)
+
+    def payloads():
+        prev_iter = iter_chunk_views(p if prev is None else prev)
+        for view in iter_chunk_views(p):
+            if prev is None:
+                yield view
                 continue
-            data = delta.tobytes()
-        else:
-            data = view.tobytes()
-        h, enc, w = _store_chunk(data, put_blob, has_blob, compress)
-        chunks.append(h)
-        encs.append(enc)
-        written += w
+            delta = xor(np.frombuffer(view, np.uint8),
+                        np.frombuffer(next(prev_iter), np.uint8))
+            # an unchanged region costs nothing
+            yield delta if delta.any() else None
+
+    chunks: List[Optional[str]] = []
+    encs: List[str] = []
+    written = 0
+    for res in _store_chunks(payloads(), put_blob, has_blob, compress, pool):
+        if res is None:
+            chunks.append(None)
+            encs.append(ENC_RAW)
+            continue
+        chunks.append(res[0])
+        encs.append(res[1])
+        written += res[2]
     meta = {"dtype": dtype_name(p), "shape": list(p.shape),
             "chunks": chunks, "enc": encs}
     return meta, written
@@ -333,6 +392,7 @@ def encode_leaf_sparse(
     *,
     compress: bool = True,
     patch_prev: bool = True,
+    pool: Optional[ThreadPoolExecutor] = None,
 ) -> Dict[str, Any]:
     """Encode one leaf from a sparse dirty-chunk capture.
 
@@ -345,7 +405,8 @@ def encode_leaf_sparse(
     When ``patch_prev`` (the pipeline's mode), ``prev`` is updated IN
     PLACE chunk by chunk, so after the leaf is encoded the buffer holds
     the *current* snapshot's bytes — the pipeline keeps one full host
-    mirror alive instead of two.
+    mirror alive instead of two. The dirty chunks' deltas pack on
+    ``pool`` when one is given (``_store_chunks``).
     """
     dtype = str(dtype)
     total = int(np.prod(shape, dtype=np.int64)) * \
@@ -369,6 +430,7 @@ def encode_leaf_sparse(
     # largest index) is last and the manifest order is unchanged.
     n_full = total // chunk_bytes
     k_full = int(np.searchsorted(idxs, n_full))
+    todo: List[Tuple[int, np.ndarray]] = []   # (chunk index, XOR delta)
     if k_full:
         grid = prev_b[:n_full * chunk_bytes].reshape(n_full, chunk_bytes)
         fi = idxs[:k_full]
@@ -378,11 +440,7 @@ def encode_leaf_sparse(
         if patch_prev:
             grid[fi] = cur_rows  # in-place mirror advance, one scatter
         encoded += k_full * chunk_bytes
-        for j in np.nonzero(changed)[0]:
-            h, enc, w = _store_chunk(deltas[j].tobytes(), put_blob,
-                                     has_blob, compress)
-            dirty.append([int(idxs[j]), h, enc])
-            written += w
+        todo.extend((int(idxs[j]), deltas[j]) for j in np.nonzero(changed)[0])
     for j in range(k_full, idxs.size):  # partial tail chunk
         off = int(idxs[j]) * chunk_bytes
         ln = total - off
@@ -392,11 +450,11 @@ def encode_leaf_sparse(
         encoded += ln
         if patch_prev:
             pv[:] = cur
-        if not delta.any():
-            continue  # conservative dirty mark; nothing actually changed
-        h, enc, w = _store_chunk(delta.tobytes(), put_blob, has_blob,
-                                 compress)
-        dirty.append([int(idxs[j]), h, enc])
+        if delta.any():  # else a conservative dirty mark: nothing changed
+            todo.append((int(idxs[j]), delta))
+    for (idx, _), (h, enc, w) in zip(todo, _store_chunks(
+            (d for _, d in todo), put_blob, has_blob, compress, pool)):
+        dirty.append([idx, h, enc])
         written += w
     return {
         "shape": list(shape),
@@ -445,6 +503,7 @@ def encode_leaf(
     codec: Optional[str] = None,
     prev=None,
     compress: bool = True,
+    pool: Optional[ThreadPoolExecutor] = None,
 ) -> Dict[str, Any]:
     """Encode one tensor (numpy array or CPU tensor) into blobs + leaf
     manifest.
@@ -454,7 +513,8 @@ def encode_leaf(
     xor — quantized entries rely on chunk dedup instead, so requantization
     noise never accumulates along a chain). An ``Int8Leaf`` arrives
     already quantized and is written exactly as the host codec would
-    write its leaf."""
+    write its leaf. With a ``pool`` the chunks pack on its workers; the
+    manifest, blobs and counts are the one-thread encode's."""
     if isinstance(arr, Int8Leaf):
         if codec != arr.codec:
             raise ValueError(f"an int8-coded leaf under codec {codec!r}")
@@ -475,18 +535,20 @@ def encode_leaf(
         meta["mode"] = "codec"
         meta["codec"] = codec
         for pname, p in parts.items():
-            pmeta, w = _encode_part(p, put_blob, has_blob, compress=compress)
+            pmeta, w = _encode_part(p, put_blob, has_blob,
+                                    compress=compress, pool=pool)
             meta["parts"][pname] = pmeta
             written += w
     elif prev is not None and _same_geometry(prev, arr):
         meta["mode"] = "xor"
         pmeta, w = _encode_part(arr, put_blob, has_blob, prev=prev,
-                                compress=compress)
+                                compress=compress, pool=pool)
         meta["parts"]["raw"] = pmeta
         written += w
     else:
         meta["mode"] = "full"
-        pmeta, w = _encode_part(arr, put_blob, has_blob, compress=compress)
+        pmeta, w = _encode_part(arr, put_blob, has_blob, compress=compress,
+                                pool=pool)
         meta["parts"]["raw"] = pmeta
         written += w
     meta["bytes_written"] = written

@@ -73,9 +73,19 @@
 //
 // float32 (the f32 smoke reference steps and checks) keeps the first
 // version of these kernels: f32 FMAs on the CUDA cores (67 TFLOP/s),
-// each of 256 threads owning a 4x4 piece of a 64x64 score tile, tiles in
-// shared memory with padded rows, one block per output tile. It is
-// chosen by dtype; there is no other switch.
+// each of 256 threads owning a 4x4 piece of a 64x64 score tile (2x2 of a
+// 32x32 tile at head dim 256, where 64-row tiles overflow shared
+// memory), tiles in shared memory with padded rows, one block per output
+// tile. It is chosen by dtype; there is no other switch.
+//
+// Head dim 256 (recurrentgemma-9b: 16 query heads over one kv head,
+// window 2048): the bf16 tiles stay 64 rows (5 or 6 of them, 169-204 KB
+// of shared memory, one block an SM), and each block owns one half of
+// the output's columns (MmaCfg::DH, blockIdx.z), recomputing the scores
+// over the whole head dim, so a thread's accumulators stay those of head
+// dim 128. Under a window, whole tiles outside it are skipped, as under
+// the causal limit (tile_live): at S = 4,096 with window 2,048 a q tile
+// visits at most 33 kv tiles of 64.
 //
 // TPU -> Hopper: the Pallas kernels carry (m, l, acc) across a sequential
 // kv grid axis in VMEM scratch. Hopper blocks run in parallel and in no
@@ -102,11 +112,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 
+// query tile i and key tile j of T rows each share a seen pair; a tile
+// wholly outside the causal limit or the window is skipped
+template <int T = BQ>
 __device__ __forceinline__ bool tile_live(int i, int j, int causal,
                                           int window) {
   bool live = true;
-  if (causal) live = live && (j * BK <= i * BQ + BQ - 1);
-  if (window > 0) live = live && (i * BQ - (j * BK + BK - 1) < window);
+  if (causal) live = live && (j * T <= i * T + T - 1);
+  if (window > 0) live = live && (i * T - (j * T + T - 1) < window);
   return live;
 }
 
@@ -135,13 +148,17 @@ __device__ __forceinline__ bool seen(int qp, int kp, int skv, int causal,
 constexpr int TY = 16;
 constexpr int TX = 16;
 constexpr int NT = TY * TX;     // 256 threads
-constexpr int RPT = BQ / TY;    // score rows per thread
-constexpr int CPT = BK / TX;    // score columns per thread
 
+// Tiles are T x T with T = 64, or 32 at head dim 256, where 64-row dq
+// and dk/dv tiles need 280,320 and 296,960 bytes of shared memory, past
+// the 232,448 a block can have.
 template <int HD>
 struct Cfg {
+  static constexpr int T = HD > 128 ? 32 : 64;  // query and key rows a tile
+  static constexpr int RPT = T / TY;    // score rows per thread
+  static constexpr int CPT = T / TX;    // score columns per thread
   static constexpr int LD = HD + 1;     // padded f32 rows
-  static constexpr int LDP = BK + 1;    // f32 [BQ][BK]
+  static constexpr int LDP = T + 1;     // f32 [T][T]
   static constexpr int DPT = HD / TX;   // out columns per thread
 };
 
@@ -172,15 +189,16 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst,
   }
 }
 
+template <int ROWS>
 __device__ __forceinline__ void load_stats(float* __restrict__ dst,
                                            const float* __restrict__ src,
                                            int row0, int nrows) {
-  for (int r = threadIdx.x; r < BQ; r += NT)
+  for (int r = threadIdx.x; r < ROWS; r += NT)
     dst[r] = row0 + r < nrows ? src[row0 + r] : 0.f;
 }
 
 // s[r][c] = sum_d A[ty*RPT + r][d] * B[tx + c*TX][d]
-template <int HD, int LD>
+template <int HD, int LD, int RPT, int CPT>
 __device__ __forceinline__ void scores(const float* __restrict__ A,
                                        const float* __restrict__ Bm, int ty,
                                        int tx, float (&s)[RPT][CPT]) {
@@ -211,11 +229,11 @@ __global__ void __launch_bounds__(NT)
   using C = Cfg<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ps = Qs + BQ * C::LD;
-  float* Ks = Ps + BQ * C::LDP;
-  float* Vs = Ks + BK * C::LD;
+  float* Ps = Qs + C::T * C::LD;
+  float* Ks = Ps + C::T * C::LDP;
+  float* Vs = Ks + C::T * C::LD;
 
-  const int n_q = (Sq + BQ - 1) / BQ;
+  const int n_q = (Sq + C::T - 1) / C::T;
   const int i = n_q - 1 - static_cast<int>(blockIdx.y);
   const int bh = blockIdx.x;
   const int h = bh % H, b = bh / H;
@@ -224,40 +242,40 @@ __global__ void __launch_bounds__(NT)
   const size_t q_off = static_cast<size_t>(bh) * Sq * HD;
   const size_t kv_off = (static_cast<size_t>(b) * Hkv + hk) * Skv * HD;
 
-  load_rows<HD, C::LD, BQ>(Qs, q + q_off, i * BQ, Sq, scale);
+  load_rows<HD, C::LD, C::T>(Qs, q + q_off, i * C::T, Sq, scale);
 
-  float m[RPT], l[RPT], acc[RPT][C::DPT];
+  float m[C::RPT], l[C::RPT], acc[C::RPT][C::DPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
+  for (int r = 0; r < C::RPT; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
     for (int e = 0; e < C::DPT; ++e) acc[r][e] = 0.f;
   }
-  const int n_kv = (Skv + BK - 1) / BK;
+  const int n_kv = (Skv + C::T - 1) / C::T;
   for (int j = 0; j < n_kv; ++j) {
-    if (!tile_live(i, j, causal, window)) continue;
+    if (!tile_live<C::T>(i, j, causal, window)) continue;
     __syncthreads();  // the previous tile's K, V, P are no longer read
-    load_rows<HD, C::LD, BK>(Ks, k + kv_off, j * BK, Skv, 1.f);
-    load_rows<HD, C::LD, BK>(Vs, v + kv_off, j * BK, Skv, 1.f);
+    load_rows<HD, C::LD, C::T>(Ks, k + kv_off, j * C::T, Skv, 1.f);
+    load_rows<HD, C::LD, C::T>(Vs, v + kv_off, j * C::T, Skv, 1.f);
     __syncthreads();
-    float s[RPT][CPT];
-    scores<HD, C::LD>(Qs, Ks, ty, tx, s);
+    float s[C::RPT][C::CPT];
+    scores<HD, C::LD, C::RPT, C::CPT>(Qs, Ks, ty, tx, s);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = ty * RPT + r;
-      const int qp = i * BQ + row;
+    for (int r = 0; r < C::RPT; ++r) {
+      const int row = ty * C::RPT + r;
+      const int qp = i * C::T + row;
       float mt = NEG_INF;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        if (!seen(qp, j * BK + tx + c * TX, Skv, causal, window))
+      for (int c = 0; c < C::CPT; ++c) {
+        if (!seen(qp, j * C::T + tx + c * TX, Skv, causal, window))
           s[r][c] = NEG_INF;
         mt = fmaxf(mt, s[r][c]);
       }
       const float mn = fmaxf(m[r], max16(mt));
       float rs = 0.f;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
+      for (int c = 0; c < C::CPT; ++c) {
         const float p = expf(s[r][c] - mn);
         Ps[row * C::LDP + tx + c * TX] = p;
         rs += p;
@@ -271,21 +289,21 @@ __global__ void __launch_bounds__(NT)
     }
     __syncwarp();  // a P row is written and read by the same half-warp
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < C::T; ++c) {
       float vv[C::DPT];
 #pragma unroll
       for (int e = 0; e < C::DPT; ++e) vv[e] = Vs[c * C::LD + tx + e * TX];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float p = Ps[(ty * RPT + r) * C::LDP + c];
+      for (int r = 0; r < C::RPT; ++r) {
+        const float p = Ps[(ty * C::RPT + r) * C::LDP + c];
 #pragma unroll
         for (int e = 0; e < C::DPT; ++e) acc[r][e] = fmaf(p, vv[e], acc[r][e]);
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = i * BQ + ty * RPT + r;
+  for (int r = 0; r < C::RPT; ++r) {
+    const int row = i * C::T + ty * C::RPT + r;
     if (row >= Sq) continue;
     const float lc = fmaxf(l[r], 1e-30f);
     float* o = out + q_off + static_cast<size_t>(row) * HD;
@@ -305,14 +323,14 @@ __global__ void __launch_bounds__(NT)
   using C = Cfg<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ds = Qs + BQ * C::LD;
-  float* Ls = Ds + BQ * C::LDP;
-  float* Dl = Ls + BQ;
-  float* Os = Dl + BQ;
-  float* Ks = Os + BQ * C::LD;
-  float* Vs = Ks + BK * C::LD;
+  float* Ds = Qs + C::T * C::LD;
+  float* Ls = Ds + C::T * C::LDP;
+  float* Dl = Ls + C::T;
+  float* Os = Dl + C::T;
+  float* Ks = Os + C::T * C::LD;
+  float* Vs = Ks + C::T * C::LD;
 
-  const int n_q = (Sq + BQ - 1) / BQ;
+  const int n_q = (Sq + C::T - 1) / C::T;
   const int i = n_q - 1 - static_cast<int>(blockIdx.y);
   const int bh = blockIdx.x;
   const int h = bh % H, b = bh / H;
@@ -321,55 +339,55 @@ __global__ void __launch_bounds__(NT)
   const size_t q_off = static_cast<size_t>(bh) * Sq * HD;
   const size_t kv_off = (static_cast<size_t>(b) * Hkv + hk) * Skv * HD;
 
-  load_rows<HD, C::LD, BQ>(Qs, q + q_off, i * BQ, Sq, scale);
-  load_rows<HD, C::LD, BQ>(Os, dout + q_off, i * BQ, Sq, 1.f);
-  load_stats(Ls, lse + static_cast<size_t>(bh) * Sq, i * BQ, Sq);
-  load_stats(Dl, delta + static_cast<size_t>(bh) * Sq, i * BQ, Sq);
+  load_rows<HD, C::LD, C::T>(Qs, q + q_off, i * C::T, Sq, scale);
+  load_rows<HD, C::LD, C::T>(Os, dout + q_off, i * C::T, Sq, 1.f);
+  load_stats<C::T>(Ls, lse + static_cast<size_t>(bh) * Sq, i * C::T, Sq);
+  load_stats<C::T>(Dl, delta + static_cast<size_t>(bh) * Sq, i * C::T, Sq);
 
-  float acc[RPT][C::DPT];
+  float acc[C::RPT][C::DPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int r = 0; r < C::RPT; ++r)
 #pragma unroll
     for (int e = 0; e < C::DPT; ++e) acc[r][e] = 0.f;
-  const int n_kv = (Skv + BK - 1) / BK;
+  const int n_kv = (Skv + C::T - 1) / C::T;
   for (int j = 0; j < n_kv; ++j) {
-    if (!tile_live(i, j, causal, window)) continue;
+    if (!tile_live<C::T>(i, j, causal, window)) continue;
     __syncthreads();
-    load_rows<HD, C::LD, BK>(Ks, k + kv_off, j * BK, Skv, 1.f);
-    load_rows<HD, C::LD, BK>(Vs, v + kv_off, j * BK, Skv, 1.f);
+    load_rows<HD, C::LD, C::T>(Ks, k + kv_off, j * C::T, Skv, 1.f);
+    load_rows<HD, C::LD, C::T>(Vs, v + kv_off, j * C::T, Skv, 1.f);
     __syncthreads();
-    float s[RPT][CPT], dp[RPT][CPT];
-    scores<HD, C::LD>(Qs, Ks, ty, tx, s);
-    scores<HD, C::LD>(Os, Vs, ty, tx, dp);
+    float s[C::RPT][C::CPT], dp[C::RPT][C::CPT];
+    scores<HD, C::LD, C::RPT, C::CPT>(Qs, Ks, ty, tx, s);
+    scores<HD, C::LD, C::RPT, C::CPT>(Os, Vs, ty, tx, dp);
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int row = ty * RPT + r;
-      const int qp = i * BQ + row;
+    for (int r = 0; r < C::RPT; ++r) {
+      const int row = ty * C::RPT + r;
+      const int qp = i * C::T + row;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
+      for (int c = 0; c < C::CPT; ++c) {
         const int col = tx + c * TX;
-        const bool ok = qp < Sq && seen(qp, j * BK + col, Skv, causal, window);
+        const bool ok = qp < Sq && seen(qp, j * C::T + col, Skv, causal, window);
         const float p = expf((ok ? s[r][c] : NEG_INF) - Ls[row]);
         Ds[row * C::LDP + col] = p * (dp[r][c] - Dl[row]) * scale;
       }
     }
     __syncwarp();  // a dS row is written and read by the same half-warp
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < C::T; ++c) {
       float kk[C::DPT];
 #pragma unroll
       for (int e = 0; e < C::DPT; ++e) kk[e] = Ks[c * C::LD + tx + e * TX];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float ds = Ds[(ty * RPT + r) * C::LDP + c];
+      for (int r = 0; r < C::RPT; ++r) {
+        const float ds = Ds[(ty * C::RPT + r) * C::LDP + c];
 #pragma unroll
         for (int e = 0; e < C::DPT; ++e) acc[r][e] = fmaf(ds, kk[e], acc[r][e]);
       }
     }
   }
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = i * BQ + ty * RPT + r;
+  for (int r = 0; r < C::RPT; ++r) {
+    const int row = i * C::T + ty * C::RPT + r;
     if (row >= Sq) continue;
     float* o = dq + q_off + static_cast<size_t>(row) * HD;
 #pragma unroll
@@ -388,13 +406,13 @@ __global__ void __launch_bounds__(NT)
   using C = Cfg<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ps = Qs + BQ * C::LD;
-  float* Ds = Ps + BQ * C::LDP;
-  float* Ls = Ds + BQ * C::LDP;
-  float* Dl = Ls + BQ;
-  float* Os = Dl + BQ;
-  float* Ks = Os + BQ * C::LD;
-  float* Vs = Ks + BK * C::LD;
+  float* Ps = Qs + C::T * C::LD;
+  float* Ds = Ps + C::T * C::LDP;
+  float* Ls = Ds + C::T * C::LDP;
+  float* Dl = Ls + C::T;
+  float* Os = Dl + C::T;
+  float* Ks = Os + C::T * C::LD;
+  float* Vs = Ks + C::T * C::LD;
 
   const int j = blockIdx.y;
   const int bk = blockIdx.x;  // b * Hkv + kv head
@@ -403,39 +421,39 @@ __global__ void __launch_bounds__(NT)
   const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
   const size_t kv_off = static_cast<size_t>(bk) * Skv * HD;
 
-  load_rows<HD, C::LD, BK>(Ks, k + kv_off, j * BK, Skv, 1.f);
-  load_rows<HD, C::LD, BK>(Vs, v + kv_off, j * BK, Skv, 1.f);
+  load_rows<HD, C::LD, C::T>(Ks, k + kv_off, j * C::T, Skv, 1.f);
+  load_rows<HD, C::LD, C::T>(Vs, v + kv_off, j * C::T, Skv, 1.f);
 
-  // rows ty*RPT + rr of this kv tile, columns tx + e*TX
-  float dk_acc[RPT][C::DPT], dv_acc[RPT][C::DPT];
+  // rows ty*C::RPT + rr of this kv tile, columns tx + e*TX
+  float dk_acc[C::RPT][C::DPT], dv_acc[C::RPT][C::DPT];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r)
+  for (int r = 0; r < C::RPT; ++r)
 #pragma unroll
     for (int e = 0; e < C::DPT; ++e) dk_acc[r][e] = dv_acc[r][e] = 0.f;
-  const int n_q = (Sq + BQ - 1) / BQ;
+  const int n_q = (Sq + C::T - 1) / C::T;
   for (int i = 0; i < n_q; ++i) {
-    if (!tile_live(i, j, causal, window)) continue;
+    if (!tile_live<C::T>(i, j, causal, window)) continue;
     for (int g = 0; g < group; ++g) {
       const size_t bh = static_cast<size_t>(b) * H + hk * group + g;
       const size_t q_off = bh * Sq * HD;
       __syncthreads();  // the previous (i, g) tiles are no longer read
-      load_rows<HD, C::LD, BQ>(Qs, q + q_off, i * BQ, Sq, scale);
-      load_rows<HD, C::LD, BQ>(Os, dout + q_off, i * BQ, Sq, 1.f);
-      load_stats(Ls, lse + bh * Sq, i * BQ, Sq);
-      load_stats(Dl, delta + bh * Sq, i * BQ, Sq);
+      load_rows<HD, C::LD, C::T>(Qs, q + q_off, i * C::T, Sq, scale);
+      load_rows<HD, C::LD, C::T>(Os, dout + q_off, i * C::T, Sq, 1.f);
+      load_stats<C::T>(Ls, lse + bh * Sq, i * C::T, Sq);
+      load_stats<C::T>(Dl, delta + bh * Sq, i * C::T, Sq);
       __syncthreads();
-      float s[RPT][CPT], dp[RPT][CPT];
-      scores<HD, C::LD>(Qs, Ks, ty, tx, s);
-      scores<HD, C::LD>(Os, Vs, ty, tx, dp);
+      float s[C::RPT][C::CPT], dp[C::RPT][C::CPT];
+      scores<HD, C::LD, C::RPT, C::CPT>(Qs, Ks, ty, tx, s);
+      scores<HD, C::LD, C::RPT, C::CPT>(Os, Vs, ty, tx, dp);
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int row = ty * RPT + r;
-        const int qp = i * BQ + row;
+      for (int r = 0; r < C::RPT; ++r) {
+        const int row = ty * C::RPT + r;
+        const int qp = i * C::T + row;
 #pragma unroll
-        for (int c = 0; c < CPT; ++c) {
+        for (int c = 0; c < C::CPT; ++c) {
           const int col = tx + c * TX;
           const bool ok =
-              qp < Sq && seen(qp, j * BK + col, Skv, causal, window);
+              qp < Sq && seen(qp, j * C::T + col, Skv, causal, window);
           const float p = expf((ok ? s[r][c] : NEG_INF) - Ls[row]);
           Ps[row * C::LDP + col] = p;
           Ds[row * C::LDP + col] = p * (dp[r][c] - Dl[row]) * scale;
@@ -443,7 +461,7 @@ __global__ void __launch_bounds__(NT)
       }
       __syncthreads();  // every thread reads every row of P and dS
 #pragma unroll 2
-      for (int r = 0; r < BQ; ++r) {
+      for (int r = 0; r < C::T; ++r) {
         float o[C::DPT], qq[C::DPT];
 #pragma unroll
         for (int e = 0; e < C::DPT; ++e) {
@@ -451,9 +469,9 @@ __global__ void __launch_bounds__(NT)
           qq[e] = Qs[r * C::LD + tx + e * TX];
         }
 #pragma unroll
-        for (int rr = 0; rr < RPT; ++rr) {
-          const float pv = Ps[r * C::LDP + ty * RPT + rr];
-          const float dsv = Ds[r * C::LDP + ty * RPT + rr];
+        for (int rr = 0; rr < C::RPT; ++rr) {
+          const float pv = Ps[r * C::LDP + ty * C::RPT + rr];
+          const float dsv = Ds[r * C::LDP + ty * C::RPT + rr];
 #pragma unroll
           for (int e = 0; e < C::DPT; ++e) {
             dv_acc[rr][e] = fmaf(pv, o[e], dv_acc[rr][e]);
@@ -465,8 +483,8 @@ __global__ void __launch_bounds__(NT)
   }
   // dS was taken against the pre-scaled q: divide the scale back out
 #pragma unroll
-  for (int rr = 0; rr < RPT; ++rr) {
-    const int kr = j * BK + ty * RPT + rr;
+  for (int rr = 0; rr < C::RPT; ++rr) {
+    const int kr = j * C::T + ty * C::RPT + rr;
     if (kr >= Skv) continue;
     float* gk = dk + kv_off + static_cast<size_t>(kr) * HD;
     float* gv = dv + kv_off + static_cast<size_t>(kr) * HD;
@@ -624,12 +642,20 @@ __device__ __forceinline__ void ld_b(uint32_t (&b)[4], const bf16* tile,
 
 constexpr int MT = 128;   // threads of a tensor-core block: 4 warps
 
+// A block owns DH of the output's HD columns: all of them, or at head dim
+// 256 one half (blockIdx.z), since a warp's 16 x 256 f32 accumulator
+// would take 128 registers a thread in the forward and dq, and dK with
+// dV 256. Each half recomputes the scores (and dP) over the whole head
+// dim: 4/3 x the forward's products, 3/2 x dq's, 4/3 x dk/dv's.
 template <int HD>
 struct MmaCfg {
   static constexpr int LDS = HD + 8;     // bf16 row stride in shared memory
   static constexpr int TILE = 64 * LDS;  // one 64-row tile
-  static constexpr int KD = HD / 16;     // k16 steps (or n16 pairs) over hd
-  static constexpr int ND = HD / 8;      // n8 blocks over hd
+  static constexpr int KD = HD / 16;     // k16 steps over hd (the scores)
+  static constexpr int DH = HD > 128 ? 128 : HD;  // output columns a block
+  static constexpr int NH = HD / DH;     // blocks over the head dim
+  static constexpr int OD = DH / 8;      // n8 output blocks a block owns
+  static constexpr int OK = DH / 16;     // their n16 pairs
 };
 
 // rows [row0, row0 + 64) of a [nrows, HD] bf16 matrix -> a shared tile,
@@ -690,6 +716,7 @@ __global__ void __launch_bounds__(MT)
   const int r0 = i * BQ + warp * 16 + lane / 4;  // rows r0 and r0 + 8
   const size_t q_off = static_cast<size_t>(bh) * Sq * HD;
   const size_t kv_off = (static_cast<size_t>(b) * Hkv + hk) * Skv * HD;
+  const int col0 = blockIdx.z * C::DH;  // this block's output columns
   int j0, j1;
   live_range(n_kv, [&](int j) { return tile_live(i, j, causal, window); },
              j0, j1);
@@ -702,9 +729,9 @@ __global__ void __launch_bounds__(MT)
   cp_async_commit();
 
   const float c2 = scale * LOG2E;   // scores in log2 units
-  float o[C::ND][4];
+  float o[C::OD][4];
 #pragma unroll
-  for (int d = 0; d < C::ND; ++d)
+  for (int d = 0; d < C::OD; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -769,7 +796,7 @@ __global__ void __launch_bounds__(MT)
         }
       l[r] = l[r] * corr + rs;
 #pragma unroll
-      for (int d = 0; d < C::ND; ++d) {
+      for (int d = 0; d < C::OD; ++d) {
         o[d][2 * r] *= corr;
         o[d][2 * r + 1] *= corr;
       }
@@ -782,12 +809,12 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
     for (int kt = 0; kt < 4; ++kt) a_split(s[2 * kt], s[2 * kt + 1], hi[kt], lo[kt]);
 #pragma unroll
-    for (int dp = 0; dp < C::KD; ++dp) {
+    for (int dp = 0; dp < C::OK; ++dp) {
       float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         uint32_t bb[4];
-        ld_b(bb, Vt, C::LDS, kt * 16, dp * 16, lane);
+        ld_b(bb, Vt, C::LDS, kt * 16, col0 + dp * 16, lane);
         mma_chain(t0, t1, hi[kt], lo[kt], bb);
       }
       add_to(o[2 * dp], t0);
@@ -805,12 +832,13 @@ __global__ void __launch_bounds__(MT)
     const float lc = fmaxf(lt, 1e-30f);
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
-    bf16* orow = out + q_off + static_cast<size_t>(row) * HD;
+    bf16* orow = out + q_off + static_cast<size_t>(row) * HD + col0;
 #pragma unroll
-    for (int d = 0; d < C::ND; ++d)
+    for (int d = 0; d < C::OD; ++d)
       *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t) =
           __floats2bfloat162_rn(o[d][2 * r] / lc, o[d][2 * r + 1] / lc);
-    if (t == 0) lse[static_cast<size_t>(bh) * Sq + row] = m[r] * LN2 + logf(lc);
+    if (t == 0 && blockIdx.z == 0)
+      lse[static_cast<size_t>(bh) * Sq + row] = m[r] * LN2 + logf(lc);
   }
 }
 
@@ -841,6 +869,7 @@ __global__ void __launch_bounds__(MT)
   const int r0 = i * BQ + warp * 16 + lane / 4;  // rows r0 and r0 + 8
   const size_t q_off = static_cast<size_t>(bh) * Sq * HD;
   const size_t kv_off = (static_cast<size_t>(b) * Hkv + hk) * Skv * HD;
+  const int col0 = blockIdx.z * C::DH;  // this block's output columns
   int j0, j1;
   live_range(n_kv, [&](int j) { return tile_live(i, j, causal, window); },
              j0, j1);
@@ -861,9 +890,9 @@ __global__ void __launch_bounds__(MT)
     lse2[r] = row < Sq ? lse[static_cast<size_t>(bh) * Sq + row] * LOG2E : 0.f;
     dl[r] = row < Sq ? delta[static_cast<size_t>(bh) * Sq + row] : 0.f;
   }
-  float acc[C::ND][4];
+  float acc[C::OD][4];
 #pragma unroll
-  for (int d = 0; d < C::ND; ++d)
+  for (int d = 0; d < C::OD; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
 
@@ -920,12 +949,12 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
     for (int kt = 0; kt < 4; ++kt) a_split(s[2 * kt], s[2 * kt + 1], hi[kt], lo[kt]);
 #pragma unroll
-    for (int d2 = 0; d2 < C::KD; ++d2) {
+    for (int d2 = 0; d2 < C::OK; ++d2) {
       float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         uint32_t bb[4];
-        ld_b(bb, Kt, C::LDS, kt * 16, d2 * 16, lane);
+        ld_b(bb, Kt, C::LDS, kt * 16, col0 + d2 * 16, lane);
         mma_chain(t0, t1, hi[kt], lo[kt], bb);
       }
       add_to(acc[2 * d2], t0);
@@ -939,9 +968,9 @@ __global__ void __launch_bounds__(MT)
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
-    bf16* drow = dq + q_off + static_cast<size_t>(row) * HD;
+    bf16* drow = dq + q_off + static_cast<size_t>(row) * HD + col0;
 #pragma unroll
-    for (int d = 0; d < C::ND; ++d)
+    for (int d = 0; d < C::OD; ++d)
       *reinterpret_cast<__nv_bfloat162*>(drow + d * 8 + 2 * t) =
           __floats2bfloat162_rn(acc[d][2 * r], acc[d][2 * r + 1]);
   }
@@ -981,6 +1010,7 @@ __global__ void __launch_bounds__(MT)
   const int t = lane % 4;
   const int kr0 = j * BK + warp * 16 + lane / 4;  // rows kr0 and kr0 + 8
   const size_t kv_off = static_cast<size_t>(bk) * Skv * HD;
+  const int col0 = blockIdx.z * C::DH;  // this block's output columns
   int i0, i1;
   live_range(n_q, [&](int i) { return tile_live(i, j, causal, window); },
              i0, i1);
@@ -1000,9 +1030,9 @@ __global__ void __launch_bounds__(MT)
   cp_async_commit();
 
   const float c2 = scale * LOG2E;
-  float dk[C::ND][4], dv[C::ND][4];
+  float dk[C::OD][4], dv[C::OD][4];
 #pragma unroll
-  for (int d = 0; d < C::ND; ++d)
+  for (int d = 0; d < C::OD; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
 
@@ -1058,10 +1088,10 @@ __global__ void __launch_bounds__(MT)
       a_split(s[0], s[1], ph, pl);
       a_split(dp[0], dp[1], dh, dlo);
 #pragma unroll
-      for (int d2 = 0; d2 < C::KD; ++d2) {
+      for (int d2 = 0; d2 < C::OK; ++d2) {
         uint32_t bo[4], bq[4];
-        ld_b(bo, Ot, C::LDS, qq * 16, d2 * 16, lane);
-        ld_b(bq, Qt, C::LDS, qq * 16, d2 * 16, lane);
+        ld_b(bo, Ot, C::LDS, qq * 16, col0 + d2 * 16, lane);
+        ld_b(bq, Qt, C::LDS, qq * 16, col0 + d2 * 16, lane);
         float v0[4] = {0.f, 0.f, 0.f, 0.f}, v1[4] = {0.f, 0.f, 0.f, 0.f};
         float k0[4] = {0.f, 0.f, 0.f, 0.f}, k1[4] = {0.f, 0.f, 0.f, 0.f};
         mma_chain(v0, v1, ph, pl, bo);
@@ -1084,8 +1114,8 @@ __global__ void __launch_bounds__(MT)
     const int row = kr0 + 8 * r;
     if (row >= Skv) continue;
 #pragma unroll
-    for (int d = 0; d < C::ND; ++d) {
-      const size_t at = static_cast<size_t>(row) * HD + d * 8 + 2 * t;
+    for (int d = 0; d < C::OD; ++d) {
+      const size_t at = static_cast<size_t>(row) * HD + col0 + d * 8 + 2 * t;
       *reinterpret_cast<float2*>(pk + at) =
           make_float2(dk[d][2 * r], dk[d][2 * r + 1]);
       *reinterpret_cast<float2*>(pv + at) =
@@ -1140,10 +1170,10 @@ template <int HD>
 int launch_fwd_f32(const void* q, const void* k, const void* v, void* out,
                    void* lse, const Dims& d, cudaStream_t st) {
   using C = Cfg<HD>;
-  const size_t smem = (BQ * C::LD + BQ * C::LDP + 2 * BK * C::LD) *
+  const size_t smem = (C::T * C::LD + C::T * C::LDP + 2 * C::T * C::LD) *
                       sizeof(float);
   if (int e = prepare(fwd_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ);
+  const dim3 grid(d.B * d.H, (d.Sq + C::T - 1) / C::T);
   fwd_kernel<HD><<<grid, NT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
@@ -1158,10 +1188,10 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
                   void* dq, const Dims& d, cudaStream_t st) {
   using C = Cfg<HD>;
   const size_t smem =
-      (2 * BQ * C::LD + BQ * C::LDP + 2 * BQ + 2 * BK * C::LD) *
+      (2 * C::T * C::LD + C::T * C::LDP + 2 * C::T + 2 * C::T * C::LD) *
       sizeof(float);
   if (int e = prepare(dq_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ);
+  const dim3 grid(d.B * d.H, (d.Sq + C::T - 1) / C::T);
   dq_kernel<HD><<<grid, NT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -1177,10 +1207,10 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
                    void* dk, void* dv, const Dims& d, cudaStream_t st) {
   using C = Cfg<HD>;
   const size_t smem =
-      (2 * BQ * C::LD + 2 * BQ * C::LDP + 2 * BQ + 2 * BK * C::LD) *
+      (2 * C::T * C::LD + 2 * C::T * C::LDP + 2 * C::T + 2 * C::T * C::LD) *
       sizeof(float);
   if (int e = prepare(dkv_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.Hkv, (d.Skv + BK - 1) / BK);
+  const dim3 grid(d.B * d.Hkv, (d.Skv + C::T - 1) / C::T);
   dkv_kernel<HD><<<grid, NT, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout),
@@ -1195,7 +1225,7 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
                    void* lse, const Dims& d, cudaStream_t st) {
   const size_t smem = 5 * MmaCfg<HD>::TILE * sizeof(bf16);
   if (int e = prepare(fwd_mma_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ);
+  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ, MmaCfg<HD>::NH);
   fwd_mma_kernel<HD><<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
@@ -1210,7 +1240,7 @@ int launch_dq_mma(const void* q, const void* k, const void* v,
                   void* dq, const Dims& d, cudaStream_t st) {
   const size_t smem = 6 * MmaCfg<HD>::TILE * sizeof(bf16);
   if (int e = prepare(dq_mma_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ);
+  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ, MmaCfg<HD>::NH);
   dq_mma_kernel<HD><<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
@@ -1230,7 +1260,8 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   const size_t smem =
       6 * MmaCfg<HD>::TILE * sizeof(bf16) + 4 * BQ * sizeof(float);
   if (int e = prepare(dkv_mma_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.Hkv * nsplit, (d.Skv + BK - 1) / BK);
+  const dim3 grid(d.B * d.Hkv * nsplit, (d.Skv + BK - 1) / BK,
+                  MmaCfg<HD>::NH);
   dkv_mma_kernel<HD><<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
@@ -1247,7 +1278,7 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dims 16, 32, 64, 128
+// head dims 16, 32, 64, 128, 256
 #define FLASH_DISPATCH(FN, ...)                        \
   do {                                                 \
     switch (hd) {                                      \
@@ -1255,6 +1286,7 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
       case 32: return FN<32>(__VA_ARGS__);             \
       case 64: return FN<64>(__VA_ARGS__);             \
       case 128: return FN<128>(__VA_ARGS__);           \
+      case 256: return FN<256>(__VA_ARGS__);           \
     }                                                  \
     return static_cast<int>(cudaErrorInvalidValue);    \
   } while (0)

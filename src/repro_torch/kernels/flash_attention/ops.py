@@ -50,7 +50,7 @@ from repro_torch.kernels.nvcc import CudaLibrary
 
 NEG_INF = -1e30
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
-HEAD_DIMS = (16, 32, 64, 128)      # the head dims the CUDA kernels take
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the CUDA kernels take
 ALIGN = 16                         # bytes: the kernels' cp.async copies
 DKV_MAX_SPLIT = 4                  # blocks sharing one kv tile's group
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

@@ -20,6 +20,12 @@ what ``chip_smoke.py`` holds the CUDA kernel against on the card.
   tokens: each chunk but the last run from a zero state, the carry pass
   over chunks, each chunk run again from its carry-in. Nothing on the
   model's path calls it.
+* :func:`rg_lru_bwd_plain` — the gradients, in the phases of the CUDA
+  backward ``rg_lru_bwd``: the forward's mirrored in time (each chunk's
+  reverse scan from a zero carry, the carry pass from the last chunk
+  down, each chunk again from its carry). What the CPU route of the
+  autograd ``ops.RGLRU`` runs and what ``chip_smoke.py`` holds the
+  kernel against.
 * :func:`model_inputs` — x, r, i and lam drawn the way a freshly
   initialised RG-LRU block makes them, for the kernel checks.
 """
@@ -53,6 +59,27 @@ def gates(r: torch.Tensor, lam: torch.Tensor
     return log_a, torch.sqrt(-torch.expm1(2.0 * log_a))
 
 
+def _linear_scan(log_a: torch.Tensor, b: torch.Tensor, h: torch.Tensor,
+                 chunk: int = CHUNK) -> torch.Tensor:
+    """h_t = exp(log_a_t) h_{t-1} + b_t over t of log_a, b f32 [B,S,W]
+    from h f32 [B,W], blocked in chunks of at most ``chunk`` tokens (see
+    the module docstring). Returns h f32 [B,S,W]."""
+    B, S, W = b.shape
+    out = torch.empty((B, S, W), dtype=F32, device=b.device)
+    for lo in range(0, S, chunk):
+        hi = min(lo + chunk, S)
+        q = hi - lo
+        cum = torch.cumsum(log_a[:, lo:hi].double(), dim=1)     # [B,q,W]
+        diff = cum[:, :, None] - cum[:, None, :]                # [B,t,s,W]
+        causal = torch.ones(q, q, dtype=torch.bool,
+                            device=b.device).tril()[None, :, :, None]
+        decay = exp_f32(diff.masked_fill(~causal, -math.inf).to(F32))
+        out[:, lo:hi] = torch.einsum("btsw,bsw->btw", decay, b[:, lo:hi]) \
+            + exp_f32(cum.to(F32)) * h[:, None]
+        h = out[:, hi - 1]
+    return out
+
+
 def rg_lru_plain(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
                  lam: torch.Tensor, h0: Optional[torch.Tensor] = None,
                  chunk: int = CHUNK) -> torch.Tensor:
@@ -63,19 +90,7 @@ def rg_lru_plain(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     b = gate * (i.to(F32) * x.to(F32))
     h = torch.zeros((B, W), dtype=F32, device=x.device) if h0 is None \
         else h0.to(F32)
-    out = torch.empty((B, S, W), dtype=F32, device=x.device)
-    for lo in range(0, S, chunk):
-        hi = min(lo + chunk, S)
-        q = hi - lo
-        cum = torch.cumsum(log_a[:, lo:hi].double(), dim=1)     # [B,q,W]
-        diff = cum[:, :, None] - cum[:, None, :]                # [B,t,s,W]
-        causal = torch.ones(q, q, dtype=torch.bool,
-                            device=x.device).tril()[None, :, :, None]
-        decay = exp_f32(diff.masked_fill(~causal, -math.inf).to(F32))
-        out[:, lo:hi] = torch.einsum("btsw,bsw->btw", decay, b[:, lo:hi]) \
-            + exp_f32(cum.to(F32)) * h[:, None]
-        h = out[:, hi - 1]
-    return out
+    return _linear_scan(log_a, b, h, chunk)
 
 
 def rg_lru_phased_plain(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
@@ -107,6 +122,75 @@ def rg_lru_phased_plain(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
     # phase 3
     return torch.cat([rg_lru_plain(x[:, t], r[:, t], i[:, t], lam, h_in)
                       for t, h_in in zip(spans, carry)], dim=1)
+
+
+def _reverse_scan(log_a: torch.Tensor, dy: torch.Tensor,
+                  q: torch.Tensor) -> torch.Tensor:
+    """The gradient reaching each h_t of one span of n tokens, from the
+    right: g_t = dy_t + a_{t+1} g_{t+1}, g_{n-1} = dy_{n-1} + q, where q
+    is what reaches h_{n-1} from past the span (a_n g_n) and log_a
+    [B,n,W] is the span's own. :func:`_linear_scan` over the span
+    reversed, its decays shifted by one token (the first one 1)."""
+    shifted = torch.cat([torch.zeros_like(log_a[:, :1]),
+                         log_a[:, 1:].flip(1)], dim=1)
+    return _linear_scan(shifted, dy.flip(1), q).flip(1)
+
+
+def rg_lru_bwd_plain(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
+                     lam: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                     h0: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The RG-LRU gradients, the algebra of the CUDA kernel
+    ``rg_lru_bwd`` (``csrc/rg_lru.cu``) in plain tensors. x, r, i, h (the
+    forward's output) and dh (the gradient of the loss with respect to
+    h) f32 [B,S,W]; lam f32 [W]; h0 f32 [B,W] or None. Returns (dx, dr,
+    di, dlam, dh0): dlam [W], dh0 [B,W] (the gradient with respect to
+    the initial state, zero or given).
+
+    With g_t the whole gradient reaching h_t (the reverse scan g_t = dy_t
+    + a_{t+1} g_{t+1}): dx = g gate i, di = g gate x, d log_a = g (h_{t-1}
+    a - i x a^2 / gate) (d gate / d log_a = -a^2 / gate, what ``jax.grad``
+    of the reference's gate gives), dr = -8 softplus(lam) d log_a, dlam =
+    -8 sigmoid(lam) sum over (b, t) of d log_a r, dh0 = a_0 g_0. The
+    forward's phases mirrored in time, chunks of ``TIME_CHUNK`` tokens:
+
+    1. every chunk c but the first, from a zero carry: its decay product
+       A_c (as the forward's) and a_lo g_lo, what it passes to its left;
+    2. the carry into each chunk from its right, from the last chunk
+       (zero) down: q_{c-1} = A_c q_c + end_c;
+    3. every chunk again from its carry, emitting the gradients and its
+       share of dlam's sum; the shares are summed in float64 over
+       (b, chunk).
+    """
+    B, S, W = x.shape
+    x, r, i, lam, h, dh = (t.to(F32) for t in (x, r, i, lam, h, dh))
+    log_a, gate = gates(r, lam)
+    a = exp_stable(log_a)
+    spans = [slice(lo, min(lo + TIME_CHUNK, S))
+             for lo in range(0, S, TIME_CHUNK)]
+    zero = torch.zeros((B, W), dtype=F32, device=x.device)
+    # phase 1
+    local = [(exp_f32(log_a[:, t].double().sum(1).to(F32)),
+              a[:, t.start] * _reverse_scan(log_a[:, t], dh[:, t], zero)[:, 0])
+             for t in spans[1:]]
+    # phase 2
+    carry = [zero]
+    for dec, end in reversed(local):
+        carry.append(dec * carry[-1] + end)
+    carry.reverse()
+    # phase 3
+    g = torch.cat([_reverse_scan(log_a[:, t], dh[:, t], q)
+                   for t, q in zip(spans, carry)], dim=1)
+    h_prev = torch.cat([(zero if h0 is None else h0.to(F32))[:, None],
+                        h[:, :-1]], dim=1)
+    gg = g * gate
+    dlog_a = g * (h_prev * a - (i * x) * (a * a) / gate)
+    shares = torch.stack([(dlog_a[:, t] * r[:, t]).sum(1) for t in spans],
+                         dim=1)                                # [B,nc,W]
+    dlam = shares.double().sum((0, 1)).to(F32) \
+        * (-GATE_C * torch.sigmoid(lam))
+    return (gg * i, -GATE_C * softplus(lam) * dlog_a, gg * x, dlam,
+            a[:, 0] * g[:, 0])
 
 
 def model_inputs(B: int, S: int, W: int, generator: torch.Generator,

@@ -2,10 +2,12 @@
 local attention in a repeating pattern (rglru, rglru, attn) — the port
 of ``repro.models.hybrid``.
 
-Prefill runs the recurrence over the whole sequence through ``rg_lru``:
-on a CUDA tensor the hand-written kernel of ``kernels/rg_lru``, with no
-option; on a CPU tensor its plain version (the JAX package takes
-``jax.lax.associative_scan``; both compute the same recurrence in f32).
+Prefill and training run the recurrence over the whole sequence through
+``rg_lru``: on a CUDA tensor the hand-written kernels of ``kernels/rg_lru``
+(the forward, and in training its backward ``rg_lru_bwd``), with no
+option; on a CPU tensor their plain versions (the JAX package takes
+``jax.lax.associative_scan`` and its ``jax.grad``; both compute the same
+recurrence in f32).
 Decode is the O(1) step ``rg_lru_step``. The gates are per channel, as in
 the JAX package (its documented simplification of RecurrentGemma's
 block-diagonal gate projections). Paths, shapes, dtypes and the
@@ -84,7 +86,7 @@ def rg_lru(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
            lam: torch.Tensor, h0: Optional[torch.Tensor] = None):
     """The RG-LRU recurrence. x, r, i: [B,S,W] f32; lam: [W]; h0: [B,W]
     or None. Returns (h [B,S,W], h_last [B,W])."""
-    h = rg_ops.rg_lru_fwd(x, r, i, lam, h0)
+    h = rg_ops.rg_lru(x, r, i, lam, h0)
     return h, h[:, -1]
 
 

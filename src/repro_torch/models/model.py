@@ -16,14 +16,14 @@ JAX package runs a stack under ``jax.lax.scan``, this is a Python loop
 that indexes the stacked dim (a view, no copy). Remat "full" wraps each
 layer in ``torch.utils.checkpoint`` (non-reentrant), where the JAX
 package wraps the scan body in ``jax.checkpoint`` (for whisper: each
-encoder layer and each decoder layer). Decode state (KV caches, conv
+encoder layer and each decoder layer; for the hybrid: each block group,
+its remainder blocks not). Decode state (KV caches, conv
 windows, recurrent states) is updated in place; whisper's cross-attention
 cache ``cross`` = (k, v), stacked over decoder layers, is written by
 ``prefill(frames=)`` and only read by ``decode_step``. The moe
 family's blocks return their router's load-balance loss, summed over the
 layers in order into ``forward_train``'s ``moe_aux``; prefill and decode
-drop it, as the JAX package does. Hybrid training raises
-``NotImplementedError`` naming ROADMAP A8.
+drop it, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -61,14 +61,9 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless the port can train ``cfg``'s family."""
+    """Raise unless the port can train ``cfg``'s family (every family it
+    runs)."""
     _check_family(cfg)
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: hybrid training is not ported yet (ROADMAP A8; "
-            "Next slices 1: an RG-LRU backward kernel, flash attention at "
-            "head dim 256, a plan for 8.5e9 params); the port serves and "
-            "prefills the hybrid family")
 
 
 def _hybrid_layout(cfg: ModelConfig):
@@ -228,17 +223,30 @@ def _hybrid_block(cfg: ModelConfig, kind: str, p, x: torch.Tensor,
     return x
 
 
+def _hybrid_group(cfg: ModelConfig, group, p_g, x: torch.Tensor,
+                  positions: torch.Tensor, c_g) -> torch.Tensor:
+    for k, kind in group:
+        x = _hybrid_block(cfg, kind, p_g[k], x, positions,
+                          c_g[k] if c_g is not None else None)
+    return x
+
+
 def _scan_hybrid(cfg: ModelConfig, params, x: torch.Tensor,
-                 positions: torch.Tensor, cache) -> torch.Tensor:
+                 positions: torch.Tensor, cache,
+                 opts: CallOptions = CallOptions()) -> torch.Tensor:
     """The block groups in order (the JAX package's ``lax.scan`` over
     ``groups``), then the remainder blocks; ``cache`` is written in
-    place."""
+    place. Remat "full" recomputes each group in the backward pass (the
+    reference's ``jax.checkpoint`` of the scan body); the remainder
+    blocks are not recomputed, as there."""
     n_groups, group, tail = _hybrid_layout(cfg)
     for g, p_g in enumerate(_unstack(params["groups"], n_groups)):
+        if cache is None and opts.remat == "full":
+            x = checkpoint(_hybrid_group, cfg, group, p_g, x, positions,
+                           None, use_reentrant=False)
+            continue
         c_g = _layer(cache["groups"], g) if cache is not None else None
-        for k, kind in group:
-            x = _hybrid_block(cfg, kind, p_g[k], x, positions,
-                              c_g[k] if c_g is not None else None)
+        x = _hybrid_group(cfg, group, p_g, x, positions, c_g)
     for k, kind in tail:
         x = _hybrid_block(cfg, kind, params[k], x, positions,
                           cache[k] if cache is not None else None)
@@ -344,7 +352,7 @@ def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
     if cfg.family == "ssm":
         return _scan_ssm(cfg, params["layers"], x, cache, opts), zero()
     if cfg.family == "hybrid":
-        return _scan_hybrid(cfg, params, x, positions, cache), zero()
+        return _scan_hybrid(cfg, params, x, positions, cache, opts), zero()
     if cfg.is_encoder_decoder:
         enc = None if frames is None \
             else _whisper_encoder(cfg, params, frames, opts)
@@ -373,9 +381,11 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     family's router losses summed over the layers (an f32 zero for the
     other families). Positions are ``arange(S)``, so
     attention takes its no-cache branch (the flash kernels on the card;
-    whisper's encoder and cross-attention too, non-causal); the ssm
-    family's scan runs the SSD kernels on the card. The hybrid family is
-    not trainable yet (``check_trainable``)."""
+    whisper's encoder and cross-attention too, non-causal; the hybrid's
+    local attention with its window, at head dim 256 for
+    recurrentgemma-9b); the ssm family's scan runs the SSD kernels on
+    the card, the hybrid's recurrence the RG-LRU kernels (forward and
+    backward)."""
     check_trainable(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape

@@ -6,8 +6,8 @@ for each in parentheses) through ``repro_torch.api`` alone, for the
 attention, moe (top-1 with a shared expert, and top-k), ssm and
 encoder-decoder families (their ``Trainer`` at ``-smoke``; whisper's
 batches carry encoder frames) and the rglru family (its serving engine
-at ``-smoke``: the port serves the hybrid family but does not train it,
-ROADMAP A8), plus the serving engines of the moe family (prefill
+at ``-smoke``; its trainer's chains are in ``test_torch_hybrid_train.py``),
+plus the serving engines of the moe family (prefill
 admission, whose bucket sets the experts' capacity), of the ssm family
 and of the encoder-decoder (whose cache holds the cross-attention tuple
 ``['cross'][0]``/``[1]``), whose admissions replay:

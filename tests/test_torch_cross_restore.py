@@ -215,17 +215,19 @@ def _port_training_chain(tmp_path, arch, shape_key, paths):
         m.close()
 
 
-def _jax_training_chain(tmp_path, arch, shape_key):
+def _jax_training_chain(tmp_path, arch, shape_key, params=None):
     """A chain written by the JAX package's CheckpointManager from its
     pure step (its Trainer fails on jax 0.9's Explicit-axis meshes,
     ROADMAP C4) comes back in the port with the same bytes, and the
     port's trainer steps on from it to the JAX step's loss within 2e-2
-    (bf16 params)."""
+    (bf16 params). ``params``: the JAX params to start from (default:
+    the JAX init's)."""
     cfg = jreg.resolve_config(arch)
     shape = jreg.get_shape(shape_key)
     jfn = jax.jit(jstep.make_train_step(
         cfg, jmake_plan(cfg, shape, MESH), JAdamW(), JSchedule(), mesh=None))
-    params = _jax_params_of(arch)
+    if params is None:
+        params = _jax_params_of(arch)
     opt = jinit_opt(params, JAdamW())
     lower = JLower(mesh_factory=lambda: MESH)
     lower.mesh_create((1, 1), ("data", "model"))

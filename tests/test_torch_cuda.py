@@ -324,6 +324,13 @@ FLASH_CASES = [   # B, H, Hkv, Sq, Skv, hd, causal, window
     (1, 8, 8, 300, 1000, 64, False, 0),    # ragged cross, Sq < Skv
     (2, 8, 8, 256, 150, 64, False, 0),     # cross, Sq > Skv, ragged keys
     (1, 4, 4, 150, 150, 64, False, 0),     # ragged encoder
+    # head dim 256 (recurrentgemma-9b: MQA, a window; its bf16 kernels
+    # split the output's columns over two blocks, its f32 ones take 32-row
+    # tiles): a window that skips whole tiles, ragged rows, a group of 16
+    # over one kv head (split 4), non-causal
+    (1, 16, 1, 700, 700, 256, True, 256),
+    (2, 4, 1, 333, 333, 256, True, 100),
+    (1, 2, 2, 96, 160, 256, False, 0),
 ]
 
 
@@ -384,6 +391,97 @@ def test_flash_kernels_are_deterministic(cuda_device):
                          *fa.flash_dkv(q, k, v, do, lse, delta)))
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+def test_flash_kernels_at_head_dim_256_are_deterministic(cuda_device):
+    """recurrentgemma-9b's attention at a reduced length (q [1,16,1024,
+    256], k/v [1,1,1024,256], window 512): the same bits from run to run
+    in bf16 (dk/dv split over 4 blocks per kv tile and 2 halves of the
+    head dim) and f32."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = _qkv(cuda_device, dtype, 1, 16, 1, 1024, 1024, 256)
+        runs = []
+        for _ in range(2):
+            out, lse = fa.flash_fwd(q, k, v, window=512)
+            delta = fa.attention_delta(out, do)
+            runs.append((out, lse, fa.flash_dq(q, k, v, do, lse, delta,
+                                               window=512),
+                         *fa.flash_dkv(q, k, v, do, lse, delta,
+                                       window=512)))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+def test_hybrid_trainer_parallel_encode_restores_on_the_card(cuda_device,
+                                                             tmp_path):
+    """recurrentgemma-9b-smoke trains on the card (the RG-LRU forward and
+    backward kernels, flash at head dim 16) under deterministic
+    algorithms, its snapshots encoded over the pack pool (more than one
+    thread on the card's machine), then drop and ``restore("latest")``:
+    the next loss and the state digest bit-identical, and the snapshot's
+    blob files and manifest entries those a one-thread encode of the same
+    run writes."""
+    import os
+    from repro_torch.core import async_snapshot
+    from repro_torch.kernels.rg_lru import ops as rg
+    from repro_torch.train.loop import Trainer, TrainJob
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        pytest.skip("set CUBLAS_WORKSPACE_CONFIG=:4096:8 for deterministic "
+                    "cuBLAS")
+    assert async_snapshot.encode_workers() > 1
+    policy = Policy(interval=2, chain=2, sparse_chunk_bytes=CB,
+                    sparse_min_bytes=2 * CB)
+
+    def files(root):
+        """The blob files, and each manifest's entries."""
+        import json
+        out = {}
+        for d, _, names in os.walk(root):
+            for n in names:
+                path = os.path.join(d, n)
+                data = open(path, "rb").read()
+                if n.endswith(".json"):
+                    data = json.loads(data)["entries"]
+                out[os.path.relpath(path, root)] = data
+        return out
+
+    def run(root):
+        sess = CheckpointSession(f"localfs:{root}", policy)
+        t = Trainer(TrainJob("recurrentgemma-9b-smoke", "train_s64_b2"),
+                    manager=sess.manager)
+        t.init_state()
+        sess.attach(t)
+        losses = []
+        for _ in range(5):
+            losses.append(t.train_steps(1)["loss"])
+            sess.maybe_snapshot()
+        sess.wait()
+        digest = t.state_digest()
+        sess.close()
+        return losses, digest
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        rg.reset_counts()
+        fa.reset_counts()
+        losses, want = run(tmp_path / "pool")
+        assert rg.counts("cuda")["rg_lru_bwd"] == 4 * 5   # 4 rec. layers
+        assert fa.counts("cuda")["flash_dkv"] == 1 * 5     # 1 attn layer
+        t2 = CheckpointSession(f"localfs:{tmp_path / 'pool'}",
+                               policy).restore("latest", expect_kind="train")
+        assert t2.device.type == "cuda" and t2.checkpoint_step() == 4
+        assert t2.train_steps(1)["loss"] == losses[4]
+        assert t2.state_digest() == want
+        del t2
+        one = pytest.MonkeyPatch()
+        one.setattr(async_snapshot, "encode_workers", lambda: 1)
+        try:
+            assert run(tmp_path / "one") == (losses, want)
+        finally:
+            one.undo()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert files(tmp_path / "pool") == files(tmp_path / "one")
 
 
 def test_flash_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
@@ -724,11 +822,57 @@ def test_rg_lru_kernel_matches_plain(cuda_device, case):
     rg.reset_counts()
     h = rg.rg_lru_fwd(x, r, i, lam, h0)
     torch.cuda.synchronize()
-    assert rg.counts("cuda") == {"rg_lru_fwd": 1}
-    assert rg.counts("cpu") == {"rg_lru_fwd": 0}
+    assert rg.counts("cuda") == {"rg_lru_fwd": 1, "rg_lru_bwd": 0}
+    assert rg.counts("cpu") == {"rg_lru_fwd": 0, "rg_lru_bwd": 0}
     assert torch.isfinite(h).all()
     assert ssd_ref.within(h, R.rg_lru_plain(x, r, i, lam, h0), 1e-4) <= 1.0
     assert torch.equal(h, rg.rg_lru_fwd(x, r, i, lam, h0))  # deterministic
+
+
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rg_lru_bwd_kernel_matches_plain(cuda_device, case):
+    """rg_lru_bwd against its plain version (the same phases in plain
+    tensors) on the same card inputs: dx, dr, di, dlam and dh0 each
+    within 1e-4 * (|plain| + rms(plain)), as the forward; the same bits
+    on a second call (no atomics, a fixed order)."""
+    from repro_torch.kernels.rg_lru import ops as rg
+    from repro_torch.kernels.rg_lru import ref as R
+    B, S, W, init, u_range = case
+    g = torch.Generator(device=cuda_device).manual_seed(S + W + 1)
+    x, r, i, lam = R.model_inputs(B, S, W, g, cuda_device, u_range)
+    h0 = torch.randn((B, W), generator=g, device=cuda_device) if init \
+        else None
+    dh = torch.randn((B, S, W), generator=g, device=cuda_device)
+    h = rg.rg_lru_fwd(x, r, i, lam, h0)
+    rg.reset_counts()
+    got = rg.rg_lru_bwd(x, r, i, lam, h, dh, h0)
+    torch.cuda.synchronize()
+    assert rg.counts("cuda") == {"rg_lru_fwd": 0, "rg_lru_bwd": 1}
+    want = R.rg_lru_bwd_plain(x, r, i, lam, h, dh, h0)
+    for name, a, b in zip(("dx", "dr", "di", "dlam", "dh0"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert ssd_ref.within(a, b, 1e-4) <= 1.0, name
+    again = rg.rg_lru_bwd(x, r, i, lam, h, dh, h0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_rg_lru_autograd_on_the_card_matches_the_cpu(cuda_device):
+    """Gradients through the differentiable ``rg_lru`` (the forward and
+    backward kernels) against the same loss on the CPU (the plain
+    versions), from a state: each within 1e-4 * (|cpu| + rms(cpu))."""
+    from repro_torch.kernels.rg_lru import ops as rg
+    from repro_torch.kernels.rg_lru import ref as R
+    g = torch.Generator().manual_seed(4)
+    ins = R.model_inputs(2, 700, 96, g, "cpu") + (
+        torch.randn((2, 96), generator=g),)
+    dy = torch.randn((2, 700, 96), generator=g)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in ins]
+        (rg.rg_lru(*leaves) * dy.to(dev)).sum().backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert ssd_ref.within(a, b, 1e-4) <= 1.0
 
 
 def test_rg_lru_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
@@ -736,8 +880,12 @@ def test_rg_lru_wrapper_refuses_what_the_kernel_cannot_take(cuda_device):
     from repro_torch.kernels.rg_lru import ref as R
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x, r, i, lam = R.model_inputs(2, 32, 64, g, cuda_device)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        rg.rg_lru_fwd(x.requires_grad_(True), r, i, lam)
+    # a CUDA input that requires grad has a backward now: the gradient
+    # of the sum is finite and reaches every input
+    xg = x.clone().requires_grad_(True)
+    rg.rg_lru(xg, r, i, lam).sum().backward()
+    assert xg.grad is not None and torch.isfinite(xg.grad).all()
+    assert float(xg.grad.abs().sum()) > 0
     with pytest.raises(ValueError, match="contiguous"):
         rg.rg_lru_fwd(x.detach().transpose(0, 1).contiguous().transpose(
             0, 1), r, i, lam)
@@ -771,7 +919,8 @@ def test_hybrid_prefill_decode_and_engine_on_the_card(cuda_device):
                 torch.tensor([pos, pos], dtype=torch.int32, device=dev))[0])
         res[dev] = ([t.cpu() for t in logits],
                     [t.cpu() for _, t in flatten_with_paths(cache)])
-    assert rg.counts("cuda") == {"rg_lru_fwd": 4}   # 4 recurrent layers
+    assert rg.counts("cuda") == {"rg_lru_fwd": 4,   # 4 recurrent layers
+                                 "rg_lru_bwd": 0}
     for a, b in zip(res["cuda"][0] + res["cuda"][1],
                     res["cpu"][0] + res["cpu"][1]):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
@@ -787,7 +936,7 @@ def test_hybrid_prefill_decode_and_engine_on_the_card(cuda_device):
         eng.run_until_drained()
         out[dev] = [q.out for q in reqs]
     assert out["cuda"] == out["cpu"]
-    assert rg.counts("cuda") == {"rg_lru_fwd": 0}
+    assert rg.counts("cuda") == {"rg_lru_fwd": 0, "rg_lru_bwd": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -111,12 +111,22 @@ def test_cache_spec_and_empty_cache_match():
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b"])
 def test_other_families_wait_for_roadmap_a8(arch):
-    """The hybrid family serves, but does not train (ROADMAP A8, hybrid
-    training)."""
+    """ROADMAP A8's hybrid training is ported: the smoke model's training
+    forward gives finite logits; what it still waits for is A9, sharding
+    over cards: full depth's params and f32 moments exceed one 80 GB
+    card, and the card's plan says so before allocating."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.parallel.planner import card_plan
     cfg = t_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TM.forward_train(cfg, TM.init_params(cfg, 0, "cpu"),
-                         {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    logits, aux = TM.forward_train(
+        cfg, TM.init_params(cfg, 0, "cpu"),
+        {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    assert tuple(logits.shape) == (1, 4, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert float(aux["moe_aux"]) == 0.0
+    with pytest.raises(MemoryError, match="ROADMAP A9"):
+        card_plan(treg.resolve_config(arch), treg.get_shape("train_s4096_b2"),
+                  80e9)
 
 
 # ---------------------------------------------------------------------------
