@@ -32,8 +32,11 @@ Phases, each reported on its own line:
    attention (head dim 256, q ``[2, 16, 4096, 256]``, k/v ``[2, 1, 4096,
    256]``, causal, window 2,048) in bf16 and f32, each the same bits on
    a second call, with the bf16 kernels' times as the kernels line's
-   ``*_hd256`` rows (SDPA given the window as a mask, its backend named
-   from the profiler's kernels); then each SSD kernel
+   ``*_hd256`` rows (``csrc/flash_attention_hd256.cu``: wgmma and TMA;
+   SDPA given the window as a mask, its backend named from the
+   profiler's kernels), and two bf16 hd-256 cases at that design's tile
+   edges (ragged rows with a window off the 64-row grid; a GQA group of
+   2, non-causal, Sq != Skv); then each SSD kernel
    (the chunked scan's forward and its gradient) against its plain
    version at mamba2-780m's training shape in bf16 and at a ragged f32
    shape with an initial state, with limits set from the plain version's
@@ -611,7 +614,14 @@ def check_flash(torch, fa):
              ("recurrentgemma", torch.bfloat16, 2, 16, 1, 4096, 4096, 256,
               True, 2048),
              ("recurrentgemma f32", torch.float32, 2, 16, 1, 4096, 4096,
-              256, True, 2048)]
+              256, True, 2048),
+             # the bf16 hd-256 kernels' edges: 700 rows are not a multiple
+             # of the forward's 128-row blocks nor 300 of the 64-row
+             # tiles; a group of 2, non-causal, more keys than queries
+             ("ragged hd256", torch.bfloat16, 1, 16, 1, 700, 700, 256, True,
+              300),
+             ("cross hd256", torch.bfloat16, 1, 4, 2, 300, 520, 256, False,
+              0)]
     # the rows of the kernels line: the starcoder2-3b training shape under
     # the kernels' names, recurrentgemma-9b's under name + "_hd256"
     rows = {"training": "", "recurrentgemma": "_hd256"}
@@ -736,7 +746,9 @@ def check_flash(torch, fa):
             row = name + rows[label]
             out[row] = dict(
                 name=row, route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
+                source="src/repro_torch/csrc/" + ("flash_attention_hd256.cu"
+                                                  if hd == 256 else
+                                                  "flash_attention.cu"),
                 replaces={"flash_fwd": "src/repro/kernels/flash_attention/"
                                        "kernel.py:86",
                           "flash_dq": "src/repro/kernels/flash_attention/"
@@ -3211,7 +3223,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.monotonic()
-    libs = (ops.LIB, fa.LIB, ssd.LIB, rg.LIB)
+    libs = (ops.LIB, fa.LIB, fa.LIB256, ssd.LIB, rg.LIB)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.library(), libs))
     log(f"build: {len(libs)} nvcc {' '.join(ARCH_FLAGS)} in parallel, "

@@ -79,13 +79,11 @@
 // tile. It is chosen by dtype; there is no other switch.
 //
 // Head dim 256 (recurrentgemma-9b: 16 query heads over one kv head,
-// window 2048): the bf16 tiles stay 64 rows (5 or 6 of them, 169-204 KB
-// of shared memory, one block an SM), and each block owns one half of
-// the output's columns (MmaCfg::DH, blockIdx.z), recomputing the scores
-// over the whole head dim, so a thread's accumulators stay those of head
-// dim 128. Under a window, whole tiles outside it are skipped, as under
-// the causal limit (tile_live): at S = 4,096 with window 2,048 a q tile
-// visits at most 33 kv tiles of 64.
+// window 2048) in bfloat16 is flash_attention_hd256.cu's (wgmma and TMA,
+// blocks that own the whole head dim); here it is float32 only. Under a
+// window, whole tiles outside it are skipped, as under the causal limit
+// (tile_live): at S = 4,096 with window 2,048 a q tile visits at most 33
+// kv tiles of 64.
 //
 // TPU -> Hopper: the Pallas kernels carry (m, l, acc) across a sequential
 // kv grid axis in VMEM scratch. Hopper blocks run in parallel and in no
@@ -642,20 +640,15 @@ __device__ __forceinline__ void ld_b(uint32_t (&b)[4], const bf16* tile,
 
 constexpr int MT = 128;   // threads of a tensor-core block: 4 warps
 
-// A block owns DH of the output's HD columns: all of them, or at head dim
-// 256 one half (blockIdx.z), since a warp's 16 x 256 f32 accumulator
-// would take 128 registers a thread in the forward and dq, and dK with
-// dV 256. Each half recomputes the scores (and dP) over the whole head
-// dim: 4/3 x the forward's products, 3/2 x dq's, 4/3 x dk/dv's.
+// head dims 16 to 128 (256 is flash_attention_hd256.cu's)
 template <int HD>
 struct MmaCfg {
+  static_assert(HD <= 128, "bf16 head dim 256 is flash_attention_hd256.cu");
   static constexpr int LDS = HD + 8;     // bf16 row stride in shared memory
   static constexpr int TILE = 64 * LDS;  // one 64-row tile
-  static constexpr int KD = HD / 16;     // k16 steps over hd (the scores)
-  static constexpr int DH = HD > 128 ? 128 : HD;  // output columns a block
-  static constexpr int NH = HD / DH;     // blocks over the head dim
-  static constexpr int OD = DH / 8;      // n8 output blocks a block owns
-  static constexpr int OK = DH / 16;     // their n16 pairs
+  static constexpr int KD = HD / 16;     // k16 steps over hd
+  static constexpr int OD = HD / 8;      // n8 output blocks
+  static constexpr int OK = HD / 16;     // their n16 pairs
 };
 
 // rows [row0, row0 + 64) of a [nrows, HD] bf16 matrix -> a shared tile,
@@ -716,7 +709,6 @@ __global__ void __launch_bounds__(MT)
   const int r0 = i * BQ + warp * 16 + lane / 4;  // rows r0 and r0 + 8
   const size_t q_off = static_cast<size_t>(bh) * Sq * HD;
   const size_t kv_off = (static_cast<size_t>(b) * Hkv + hk) * Skv * HD;
-  const int col0 = blockIdx.z * C::DH;  // this block's output columns
   int j0, j1;
   live_range(n_kv, [&](int j) { return tile_live(i, j, causal, window); },
              j0, j1);
@@ -814,7 +806,7 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         uint32_t bb[4];
-        ld_b(bb, Vt, C::LDS, kt * 16, col0 + dp * 16, lane);
+        ld_b(bb, Vt, C::LDS, kt * 16, dp * 16, lane);
         mma_chain(t0, t1, hi[kt], lo[kt], bb);
       }
       add_to(o[2 * dp], t0);
@@ -832,12 +824,12 @@ __global__ void __launch_bounds__(MT)
     const float lc = fmaxf(lt, 1e-30f);
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
-    bf16* orow = out + q_off + static_cast<size_t>(row) * HD + col0;
+    bf16* orow = out + q_off + static_cast<size_t>(row) * HD;
 #pragma unroll
     for (int d = 0; d < C::OD; ++d)
       *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t) =
           __floats2bfloat162_rn(o[d][2 * r] / lc, o[d][2 * r + 1] / lc);
-    if (t == 0 && blockIdx.z == 0)
+    if (t == 0)
       lse[static_cast<size_t>(bh) * Sq + row] = m[r] * LN2 + logf(lc);
   }
 }
@@ -869,7 +861,6 @@ __global__ void __launch_bounds__(MT)
   const int r0 = i * BQ + warp * 16 + lane / 4;  // rows r0 and r0 + 8
   const size_t q_off = static_cast<size_t>(bh) * Sq * HD;
   const size_t kv_off = (static_cast<size_t>(b) * Hkv + hk) * Skv * HD;
-  const int col0 = blockIdx.z * C::DH;  // this block's output columns
   int j0, j1;
   live_range(n_kv, [&](int j) { return tile_live(i, j, causal, window); },
              j0, j1);
@@ -954,7 +945,7 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
       for (int kt = 0; kt < 4; ++kt) {
         uint32_t bb[4];
-        ld_b(bb, Kt, C::LDS, kt * 16, col0 + d2 * 16, lane);
+        ld_b(bb, Kt, C::LDS, kt * 16, d2 * 16, lane);
         mma_chain(t0, t1, hi[kt], lo[kt], bb);
       }
       add_to(acc[2 * d2], t0);
@@ -968,7 +959,7 @@ __global__ void __launch_bounds__(MT)
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= Sq) continue;
-    bf16* drow = dq + q_off + static_cast<size_t>(row) * HD + col0;
+    bf16* drow = dq + q_off + static_cast<size_t>(row) * HD;
 #pragma unroll
     for (int d = 0; d < C::OD; ++d)
       *reinterpret_cast<__nv_bfloat162*>(drow + d * 8 + 2 * t) =
@@ -1010,7 +1001,6 @@ __global__ void __launch_bounds__(MT)
   const int t = lane % 4;
   const int kr0 = j * BK + warp * 16 + lane / 4;  // rows kr0 and kr0 + 8
   const size_t kv_off = static_cast<size_t>(bk) * Skv * HD;
-  const int col0 = blockIdx.z * C::DH;  // this block's output columns
   int i0, i1;
   live_range(n_q, [&](int i) { return tile_live(i, j, causal, window); },
              i0, i1);
@@ -1090,8 +1080,8 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
       for (int d2 = 0; d2 < C::OK; ++d2) {
         uint32_t bo[4], bq[4];
-        ld_b(bo, Ot, C::LDS, qq * 16, col0 + d2 * 16, lane);
-        ld_b(bq, Qt, C::LDS, qq * 16, col0 + d2 * 16, lane);
+        ld_b(bo, Ot, C::LDS, qq * 16, d2 * 16, lane);
+        ld_b(bq, Qt, C::LDS, qq * 16, d2 * 16, lane);
         float v0[4] = {0.f, 0.f, 0.f, 0.f}, v1[4] = {0.f, 0.f, 0.f, 0.f};
         float k0[4] = {0.f, 0.f, 0.f, 0.f}, k1[4] = {0.f, 0.f, 0.f, 0.f};
         mma_chain(v0, v1, ph, pl, bo);
@@ -1115,7 +1105,7 @@ __global__ void __launch_bounds__(MT)
     if (row >= Skv) continue;
 #pragma unroll
     for (int d = 0; d < C::OD; ++d) {
-      const size_t at = static_cast<size_t>(row) * HD + col0 + d * 8 + 2 * t;
+      const size_t at = static_cast<size_t>(row) * HD + d * 8 + 2 * t;
       *reinterpret_cast<float2*>(pk + at) =
           make_float2(dk[d][2 * r], dk[d][2 * r + 1]);
       *reinterpret_cast<float2*>(pv + at) =
@@ -1225,7 +1215,7 @@ int launch_fwd_mma(const void* q, const void* k, const void* v, void* out,
                    void* lse, const Dims& d, cudaStream_t st) {
   const size_t smem = 5 * MmaCfg<HD>::TILE * sizeof(bf16);
   if (int e = prepare(fwd_mma_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ, MmaCfg<HD>::NH);
+  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ);
   fwd_mma_kernel<HD><<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out),
@@ -1240,7 +1230,7 @@ int launch_dq_mma(const void* q, const void* k, const void* v,
                   void* dq, const Dims& d, cudaStream_t st) {
   const size_t smem = 6 * MmaCfg<HD>::TILE * sizeof(bf16);
   if (int e = prepare(dq_mma_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ, MmaCfg<HD>::NH);
+  const dim3 grid(d.B * d.H, (d.Sq + BQ - 1) / BQ);
   dq_mma_kernel<HD><<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
@@ -1260,8 +1250,7 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   const size_t smem =
       6 * MmaCfg<HD>::TILE * sizeof(bf16) + 4 * BQ * sizeof(float);
   if (int e = prepare(dkv_mma_kernel<HD>, smem)) return e;
-  const dim3 grid(d.B * d.Hkv * nsplit, (d.Skv + BK - 1) / BK,
-                  MmaCfg<HD>::NH);
+  const dim3 grid(d.B * d.Hkv * nsplit, (d.Skv + BK - 1) / BK);
   dkv_mma_kernel<HD><<<grid, MT, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
@@ -1278,7 +1267,7 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// head dims 16, 32, 64, 128, 256
+// head dims 16, 32, 64, 128 (both dtypes) and 256 (float32)
 #define FLASH_DISPATCH(FN, ...)                        \
   do {                                                 \
     switch (hd) {                                      \
@@ -1286,9 +1275,13 @@ int launch_dkv_mma(const void* q, const void* k, const void* v,
       case 32: return FN<32>(__VA_ARGS__);             \
       case 64: return FN<64>(__VA_ARGS__);             \
       case 128: return FN<128>(__VA_ARGS__);           \
-      case 256: return FN<256>(__VA_ARGS__);           \
     }                                                  \
     return static_cast<int>(cudaErrorInvalidValue);    \
+  } while (0)
+#define FLASH_DISPATCH_F32(FN, ...)                    \
+  do {                                                 \
+    if (hd == 256) return FN<256>(__VA_ARGS__);        \
+    FLASH_DISPATCH(FN, __VA_ARGS__);                   \
   } while (0)
 
 }  // namespace
@@ -1299,14 +1292,15 @@ const char* flash_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores)
+// dtype 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores, head dims
+// up to 128)
 int flash_fwd(int dtype, int hd, const void* q, const void* k, const void* v,
               void* out, void* lse, int B, int H, int Hkv, int Sq, int Skv,
               float scale, int causal, int window, void* stream) {
   if (B == 0 || H == 0 || Sq == 0) return 0;
   const Dims d{B, H, Hkv, Sq, Skv, scale, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) FLASH_DISPATCH(launch_fwd_f32, q, k, v, out, lse, d, st);
+  if (dtype == 0) FLASH_DISPATCH_F32(launch_fwd_f32, q, k, v, out, lse, d, st);
   if (dtype == 1) FLASH_DISPATCH(launch_fwd_mma, q, k, v, out, lse, d, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1319,7 +1313,7 @@ int flash_dq(int dtype, int hd, const void* q, const void* k, const void* v,
   const Dims d{B, H, Hkv, Sq, Skv, scale, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    FLASH_DISPATCH(launch_dq_f32, q, k, v, dout, lse, delta, dq, d, st);
+    FLASH_DISPATCH_F32(launch_dq_f32, q, k, v, dout, lse, delta, dq, d, st);
   if (dtype == 1)
     FLASH_DISPATCH(launch_dq_mma, q, k, v, dout, lse, delta, dq, d, st);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -1335,7 +1329,8 @@ int flash_dkv(int dtype, int hd, const void* q, const void* k, const void* v,
   const Dims d{B, H, Hkv, Sq, Skv, scale, causal, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    FLASH_DISPATCH(launch_dkv_f32, q, k, v, dout, lse, delta, dk, dv, d, st);
+    FLASH_DISPATCH_F32(launch_dkv_f32, q, k, v, dout, lse, delta, dk, dv, d,
+                       st);
   if (dtype == 1)
     FLASH_DISPATCH(launch_dkv_mma, q, k, v, dout, lse, delta, dk, dv, part,
                    nsplit, d, st);

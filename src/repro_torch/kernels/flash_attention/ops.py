@@ -5,14 +5,18 @@ of ``repro.kernels.flash_attention`` (``kernel.py``, ``backward.py``,
 
 Each kernel has two implementations behind one wrapper:
 
-* on a CUDA tensor, the hand-written CUDA kernel of
-  ``csrc/flash_attention.cu`` (built and bound through
+* on a CUDA tensor, a hand-written CUDA kernel (built and bound through
   ``repro_torch.kernels.nvcc``), launched on the current stream; a
-  refused launch raises. bfloat16 runs on the tensor cores (``mma.sync``
-  with P and dS fed as two bf16 terms, ``cp.async`` double buffering;
-  ``dk/dv`` splits each GQA group over :func:`dkv_splits` blocks whose
-  f32 partials a second kernel sums in a fixed order, in scratch this
-  wrapper allocates); float32 runs f32 FMAs on the CUDA cores;
+  refused launch raises. bfloat16 at head dim 256 runs
+  ``csrc/flash_attention_hd256.cu`` (``LIB256``: ``wgmma`` fed by TMA,
+  warp-specialised blocks that own the whole head dim); every other
+  call runs ``csrc/flash_attention.cu`` (``LIB``): bfloat16 on the
+  tensor cores (``mma.sync``, ``cp.async`` double buffering), float32 as
+  f32 FMAs on the CUDA cores. Both bf16 routes feed P and dS to the
+  tensor cores as two bf16 terms (P as three in the hd-256 ``dk/dv``'s
+  dV), and their ``dk/dv`` splits each GQA
+  group over :func:`dkv_splits` blocks whose f32 partials a second
+  kernel sums in a fixed order, in scratch this wrapper allocates;
 * on a CPU tensor, its plain PyTorch version below: the math of the JAX
   package's ``ref.attention_ref`` plus the LSE for the forward, and the
   explicit backward formulas of ``backward.py`` for ``dq`` and ``dk/dv``
@@ -24,7 +28,8 @@ Each kernel has two implementations behind one wrapper:
 A CUDA tensor never takes the plain version: the wrapper launches the
 kernel or raises, and it refuses what the kernels cannot take (a head
 dim outside ``HEAD_DIMS``, a tensor that is not contiguous or not
-16-byte aligned, which the 16-byte ``cp.async`` copies need). Every
+16-byte aligned, which the 16-byte ``cp.async`` copies and the TMA
+tensor maps need). Every
 wrapper call on the card adds one to its count (``counts("cuda")``; the
 bf16 ``dk/dv`` call is two launches, the kernel and its sum), every
 plain call one to ``counts("cpu")``.
@@ -51,7 +56,7 @@ from repro_torch.kernels.nvcc import CudaLibrary
 NEG_INF = -1e30
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 HEAD_DIMS = (16, 32, 64, 128, 256)  # the head dims the CUDA kernels take
-ALIGN = 16                         # bytes: the kernels' cp.async copies
+ALIGN = 16                         # bytes: cp.async copies, TMA maps
 DKV_MAX_SPLIT = 4                  # blocks sharing one kv tile's group
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -62,6 +67,23 @@ LIB = CudaLibrary("flash_attention", {            # causal window stream
     "flash_dq": [_INT, _INT] + [_VP] * 7 + _DIMS,
     "flash_dkv": [_INT, _INT] + [_VP] * 9 + [_INT] + _DIMS,
 }, error_fn="flash_error_string")
+# bfloat16 at head dim 256: the same arguments without dtype and head dim
+LIB256 = CudaLibrary("flash_attention_hd256", {
+    "flash256_fwd": [_VP] * 5 + _DIMS,
+    "flash256_dq": [_VP] * 7 + _DIMS,
+    "flash256_dkv": [_VP] * 9 + [_INT] + _DIMS,
+}, error_fn="flash256_error_string")
+
+# flash_attention_hd256.cu's launches, as its source states them: 384
+# threads (two consumer warpgroups and a producer), 64-row tiles, and
+# each kernel's shared memory (*_SMEM_BYTES there); a block may have
+# SMEM_LIMIT bytes on an H100
+HD256_THREADS = 384
+HD256_ROWS = 64
+HD256_SMEM_BYTES = {"flash_fwd": 197688, "flash_dq": 230440,
+                    "flash_dkv": 222248}
+SMEM_LIMIT = 232448
+MAX_GRID_Y = 65535
 
 _count_lock = threading.Lock()
 _counts: Dict[str, Dict[str, int]] = {
@@ -134,6 +156,45 @@ def dkv_splits(H: int, Hkv: int) -> int:
     group = H // Hkv
     return max(d for d in range(1, min(group, DKV_MAX_SPLIT) + 1)
                if group % d == 0)
+
+
+def kernel_library(dtype: torch.dtype, hd: int) -> CudaLibrary:
+    """The CUDA library that takes a call of this dtype and head dim."""
+    return LIB256 if dtype == torch.bfloat16 and hd == 256 else LIB
+
+
+def hd256_grid(name: str, B: int, H: int, Hkv: int, Sq: int, Skv: int
+               ) -> Tuple[int, int]:
+    """The grid ``flash256_*`` launches for kernel ``name``: (b, head) x
+    128 query rows (two warpgroups of 64) for the forward, longest
+    first; (b, head) x 64 query rows for dq; (b, kv head, split) x 64
+    kv rows for dk/dv, the group split :func:`dkv_splits` ways."""
+    n_q = -(-Sq // HD256_ROWS)
+    if name == "flash_fwd":
+        return B * H, -(-n_q // 2)
+    if name == "flash_dq":
+        return B * H, n_q
+    if name == "flash_dkv":
+        return B * Hkv * dkv_splits(H, Hkv), -(-Skv // HD256_ROWS)
+    raise ValueError(f"no kernel {name!r}")
+
+
+def _launch(name: str, q: torch.Tensor, k: torch.Tensor, ptrs,
+            extra, causal: bool, window: int) -> None:
+    """Launch ``name``'s kernel on the library for q's dtype and head
+    dim; raise on a refused launch."""
+    dims = _dims(q, k, causal, window)
+    lib = kernel_library(q.dtype, q.shape[3])
+    if lib is LIB256:
+        grid = hd256_grid(name, *dims[:5])
+        if grid[1] > MAX_GRID_Y:
+            raise ValueError(f"{name}: {grid[1]} row tiles exceed the "
+                             f"grid's {MAX_GRID_Y}")
+        fn, head = getattr(lib.library(), "flash256" + name[5:]), ()
+    else:
+        fn = getattr(lib.library(), name)
+        head = (_DTYPE_CODE[q.dtype], q.shape[3])
+    lib.check(fn(*head, *ptrs, *extra, *dims), name)
 
 
 def _same_dtype(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
@@ -252,11 +313,9 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0
         return flash_fwd_plain(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    code = LIB.library().flash_fwd(
-        _DTYPE_CODE[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        *_dims(q, k, causal, window))
-    LIB.check(code, "flash_fwd")
+    _launch("flash_fwd", q, k, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                out.data_ptr(), lse.data_ptr()), (),
+            causal, window)
     return out, lse
 
 
@@ -271,11 +330,10 @@ def flash_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
         return flash_dq_plain(q, k, v, dout, lse, delta, causal=causal,
                               window=window)
     dq = torch.empty_like(q)
-    code = LIB.library().flash_dq(
-        _DTYPE_CODE[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), *_dims(q, k, causal, window))
-    LIB.check(code, "flash_dq")
+    _launch("flash_dq", q, k, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               dout.data_ptr(), lse.data_ptr(),
+                               delta.data_ptr(), dq.data_ptr()), (),
+            causal, window)
     return dq
 
 
@@ -295,12 +353,11 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
         nsplit = dkv_splits(q.shape[1], k.shape[1])
         part = torch.empty((nsplit, 2, *k.shape), dtype=torch.float32,
                            device=k.device)
-    code = LIB.library().flash_dkv(
-        _DTYPE_CODE[q.dtype], q.shape[3], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), None if part is None
-        else part.data_ptr(), nsplit, *_dims(q, k, causal, window))
-    LIB.check(code, "flash_dkv")
+    _launch("flash_dkv", q, k, (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr()), (nsplit,),
+        causal, window)
     return dk, dv
 
 

@@ -325,12 +325,18 @@ FLASH_CASES = [   # B, H, Hkv, Sq, Skv, hd, causal, window
     (2, 8, 8, 256, 150, 64, False, 0),     # cross, Sq > Skv, ragged keys
     (1, 4, 4, 150, 150, 64, False, 0),     # ragged encoder
     # head dim 256 (recurrentgemma-9b: MQA, a window; its bf16 kernels
-    # split the output's columns over two blocks, its f32 ones take 32-row
-    # tiles): a window that skips whole tiles, ragged rows, a group of 16
-    # over one kv head (split 4), non-causal
+    # are flash_attention_hd256.cu's, blocks of 128 query rows in the
+    # forward, 64 in dq and dk/dv, its f32 ones take 32-row tiles): a
+    # window that skips whole tiles, ragged rows, a group of 16 over one
+    # kv head (split 4), non-causal
     (1, 16, 1, 700, 700, 256, True, 256),
     (2, 4, 1, 333, 333, 256, True, 100),
     (1, 2, 2, 96, 160, 256, False, 0),
+    (1, 4, 2, 130, 130, 256, True, 0),       # group 2, 2 rows past a tile
+    (1, 16, 1, 700, 700, 256, True, 300),    # a window off the tile grid
+    (1, 2, 1, 2200, 2200, 256, True, 2048),  # the model's window
+    (1, 4, 4, 333, 200, 256, False, 0),      # group 1, cross, Sq > Skv
+    (2, 2, 1, 130, 333, 256, True, 100),     # group 2, Sq < Skv, window
 ]
 
 
@@ -396,8 +402,8 @@ def test_flash_kernels_are_deterministic(cuda_device):
 def test_flash_kernels_at_head_dim_256_are_deterministic(cuda_device):
     """recurrentgemma-9b's attention at a reduced length (q [1,16,1024,
     256], k/v [1,1,1024,256], window 512): the same bits from run to run
-    in bf16 (dk/dv split over 4 blocks per kv tile and 2 halves of the
-    head dim) and f32."""
+    in bf16 (dk/dv split over 4 blocks per kv tile, partials summed in a
+    fixed order) and f32."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = _qkv(cuda_device, dtype, 1, 16, 1, 1024, 1024, 256)
         runs = []
