@@ -72,11 +72,11 @@ Phases, each reported on its own line:
    a prefill past the attention window and greedy decode steps (logits
    and every cache leaf, the unstacked remainder blocks' too, within
    1e-5; the same tokens), then the engine's tokens on both devices;
-   recurrentgemma-9b at full width, its depth cut from 38 to 20 layers
+   recurrentgemma-9b at full width, its depth cut from 38 to 5 layers
    (``HYBRID_LAYERS``; bf16 params from seeded generators) prefills ``prefill_s32768_b2`` (PREFILL_32K's
    length, batch cut from 32 to 2) through the registered
    ``prefill_step``, profiled, launching the RG-LRU kernel exactly once
-   per recurrent layer (14) and no other kernel; for each serving prompt
+   per recurrent layer (4) and no other kernel; for each serving prompt
    a batch-1 prefill (the kernel) against the engine's replay admission
    (batch-1 decode steps) in f32, logits and every RG-LRU state within
    1e-4 in the 2-norm; then 6 requests of 32-96 tokens on 4 slots, 24
@@ -85,7 +85,7 @@ Phases, each reported on its own line:
    ``restore("latest")``: every request token for token as the
    uninterrupted run, the capture kernels launched, no flash, SSD or
    RG-LRU kernel during decode or replay; then the ssm serving cell:
-   mamba2-780m at full width, its depth cut from 48 to 24 layers
+   mamba2-780m at full width, its depth cut from 48 to 8 layers
    (``SSM_SERVE_LAYERS``) serves 6 requests of 16-48 tokens on 4 slots, 24 new tokens
    each (admission by replay, timed per token), its decode profiled
    (ms a step, device idle share), then under ``Policy(interval=4,
@@ -124,7 +124,7 @@ Phases, each reported on its own line:
    and step (the forward twice, under remat). starcoder2-3b, its depth
    cut to 12 of 30 layers (``starcoder2-3b-layers12``), trains on 2 x
    4096 tokens a step through the flash kernels, mamba2-780m, its depth
-   cut to 16 of 48 layers, on 8 x 4096 through the SSD kernels,
+   cut to 8 of 48 layers, on 8 x 4096 through the SSD kernels,
    whisper-base at full width and depth on 8 x 4096 tokens (1,500
    encoder frames a row) through the flash kernels, 36 forward, 18 dq and
    18 dk/dv launches a step (6 encoder, 6 self- and 6 cross-attention
@@ -159,8 +159,8 @@ Phases, each reported on its own line:
 10. the failure loop (``supervise_path``), driven through the launchers'
    own functions (``repro_torch.launch.serve._run_supervised`` and
    ``_run_migrated``, ``repro_torch.launch.train._run_supervised``) over
-   a simulated world of 4 hosts: phi4-mini-3.8b at full width and depth
-   in bf16 (params from one init) serves 6 seeded prompts on 4 slots, 24
+   a simulated world of 4 hosts: phi4-mini-3.8b at full width, 16 of 32
+   layers, in bf16 (params from one init) serves 6 seeded prompts on 4 slots, 24
    new tokens each, into ``sharded:<tmp>?hosts=4&replicate=1`` with a
    chained snapshot every 4 engine steps, with host 2 killed at engine
    step 8 under a hot spare (no restore), a shrink (re-slotted onto 3
@@ -173,7 +173,27 @@ Phases, each reported on its own line:
    with a checkpoint every 4 and host 2 of 4 killed at step 4 (a shrink
    onto 3 virtual hosts): every step's loss, the rolled-back steps'
    again, and the state digest bit-identical to the training cell's
-   uninterrupted run, 36 / 18 / 18 flash launches a step.
+   uninterrupted run, 36 / 18 / 18 flash launches a step;
+11. training over a device mesh and elastic restore (``mesh_path``):
+   four ranks (``launch.mesh.spawn_ranks``) share the card, their
+   collectives through gloo and the collective shim's pinned staging
+   area (``parallel.collectives``); starcoder2-3b at full width, 2 of 30
+   layers, ``train_s4096_b4``, a step on a (2, 2) mesh through the
+   flash kernels on each rank's local heads, a snapshot (the shards
+   gathered onto rank 0 alone, its capture kernels and commit), one
+   more step; the group torn down; the checkpoint restored onto one
+   device here and, in a
+   second launch, onto (4, 1) and (2, 2), every params digest the saved
+   one, each stepped once, (2, 2)'s loss and state digest the
+   uninterrupted run's bit for bit and the others' losses within 2e-4
+   of it; llama4-scout's one-layer forward expert-parallel on (1, 4)
+   against one rank (bf16, ROADMAP C8): the tokens whose top-1 expert
+   differs counted, the others' logits held within a relative 2-norm
+   limit; ``compressed_psum`` over the four ranks within 2 x scale of
+   the exact mean that rank 0 computes alone from every rank's seed;
+   the GPipe toy pipeline against the layer loop. Per-rank step ms,
+   the staged collectives' seconds and bytes, the snapshot's gather and
+   encode, each restore's seconds and peak memory per rank are logged.
    Every phase logs its seconds and the run's running total of snapshot
    bytes written.
 
@@ -194,12 +214,21 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Tuple
 
 ROOT = Path(__file__).resolve().parent
 # cuBLAS picks deterministic reductions only with a fixed workspace
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, str(ROOT / "src"))
+# bytecode of every module this run imports, compiled once into build/
+# (gitignored) and read by the mesh path's spawned ranks, which would
+# otherwise each compile torch's sources again (~10 s a rank on the card
+# machine, whose site-packages keeps no bytecode)
+if __name__ == "__main__":
+    os.environ["PYTHONPYCACHEPREFIX"] = str(ROOT / "build" / "pycache")
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    sys.dont_write_bytecode = False
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12     # H100 SXM peak outside the tensor cores
@@ -226,8 +255,9 @@ TRAIN_CELLS = (
          reference="grads", codec=True,
          # depth cut from 48: the snapshot's one-thread encode (95.6 s)
          # and the codec phase's (113.9 s) at full depth put the script
-         # over its 1,200 s limit; 16 layers keep a 2.6 GB snapshot
-         layers=16),
+         # over its 1,200 s limit; 16 layers kept a 2.6 GB snapshot, 8
+         # since the mesh path came (ROADMAP C17)
+         layers=8),
     # full width and depth (6 + 6 layers); the flash kernels also run
     # non-causal: the encoder over 1,500 frames, the cross-attention from
     # 4,096 tokens to them
@@ -1369,10 +1399,11 @@ def main_path(torch, np, ops, fa):
 
 
 HYBRID_ARCH = "recurrentgemma-9b"
-# depth cut from 38 to 20 layers (6 groups of the rglru, rglru, attn
+# depth cut from 38 to 5 layers (a group of the rglru, rglru, attn
 # pattern and its 2 remainder blocks) to keep the script inside its
 # 1,200 s limit: replay admission and decode are host-bound per layer
-HYBRID_LAYERS = 20
+# (20 until the mesh path came, ROADMAP C17)
+HYBRID_LAYERS = 5
 HYBRID_RUN = f"{HYBRID_ARCH}-layers{HYBRID_LAYERS}"
 # PREFILL_32K's 32,768 tokens at a global batch cut from 32 to 2
 HYBRID_PREFILL = "prefill_s32768_b2"
@@ -1751,9 +1782,10 @@ def hybrid_path(torch, np, mods):
 
 
 SSM_SERVE_ARCH = "mamba2-780m"
-# depth cut from 48 to 24 layers to keep the script inside its 1,200 s
-# limit (replay admission and the snapshot encode scale with depth)
-SSM_SERVE_LAYERS = 24
+# depth cut from 48 to 8 layers to keep the script inside its 1,200 s
+# limit (replay admission and the snapshot encode scale with depth; 24
+# until the mesh path came, ROADMAP C17)
+SSM_SERVE_LAYERS = 8
 SSM_SERVE_RUN = f"{SSM_SERVE_ARCH}-layers{SSM_SERVE_LAYERS}"
 # replay admission costs ~0.1 s a token at 48 layers, so the prompts
 # are short: 6 requests of 16-48 tokens on 4 slots, 24 new tokens each
@@ -2868,7 +2900,7 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
 # the failure loop on the card, driven through the launchers'
 # own functions (``repro_torch.launch.serve._run_supervised`` /
 # ``_run_migrated``, ``repro_torch.launch.train._run_supervised``) over a
-# simulated 4-host world: phi4-mini-3.8b at full width and depth in bf16
+# simulated 4-host world: phi4-mini-3.8b at full width (16 of 32 layers) in bf16
 # serves 6 seeded prompts of 8-32 tokens on 4 slots of 64, 24 new tokens
 # each, into a replicated ``sharded:`` store of 4 virtual hosts with a
 # chained snapshot every 4 engine steps, under each policy below with
@@ -2882,6 +2914,9 @@ def codec_path(torch, kernel_mods, box, cfg, uncoded_losses):
 # that backlog
 SUPERVISE_SERVE = dict(n_slots=4, max_seq=64, max_new=24)
 SUPERVISE_N_REQ, SUPERVISE_PROMPT_LENS = 6, (8, 33)
+# phi4-mini-3.8b at full width, depth cut from 32 to 16 layers since the
+# mesh path came (ROADMAP C17): its decode is host-bound per layer
+SUPERVISE_ARCH = f"{ARCH}-layers16"
 SUPERVISE_POLICY = dict(interval=4, chain=4)
 SUPERVISE_KILL = "2@8"
 SUPERVISE_RUNS = (
@@ -2932,7 +2967,8 @@ def supervised_serving(torch, np, mods, params, prompts, ref):
     from repro_torch.launch.supervise import parse_supervise_args
     from repro_torch.serving.engine import Request, ServingEngine
     sv = SUPERVISE_SERVE
-    base = ["--arch", ARCH, "--slots", str(sv["n_slots"]), "--max-seq",
+    base = ["--arch", SUPERVISE_ARCH, "--slots", str(sv["n_slots"]),
+            "--max-seq",
             str(sv["max_seq"]), "--max-new", str(sv["max_new"]),
             "--requests", str(len(prompts))]
     out = {}
@@ -2952,7 +2988,8 @@ def supervised_serving(torch, np, mods, params, prompts, ref):
         try:
             sess = CheckpointSession(f"sharded:{store}?hosts=4&replicate=1",
                                      Policy(**SUPERVISE_POLICY))
-            eng0 = ServingEngine.create(ARCH, params, n_slots=sv["n_slots"],
+            eng0 = ServingEngine.create(SUPERVISE_ARCH, params,
+                                        n_slots=sv["n_slots"],
                                         max_seq=sv["max_seq"],
                                         manager=sess.manager)
             sess.attach(eng0)
@@ -3129,7 +3166,7 @@ def supervise_path(torch, np, mods):
     from repro_torch.models import model as M
     from repro_torch.serving.engine import Request, ServingEngine
     from repro_torch.tree import flatten_with_paths
-    cfg = resolve_config(ARCH)
+    cfg = resolve_config(SUPERVISE_ARCH)
     t0 = time.monotonic()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -3138,11 +3175,13 @@ def supervise_path(torch, np, mods):
     prompts = [rng.randint(0, cfg.vocab_size, size=int(k)).astype(np.int32)
                for k in rng.randint(*SUPERVISE_PROMPT_LENS,
                                     size=SUPERVISE_N_REQ)]
-    log(f"supervise path: {ARCH} full width and depth, {n} bf16 params made "
+    log(f"supervise path: {SUPERVISE_ARCH} at full width, {n} bf16 params "
+        f"made "
         f"in {time.monotonic() - t0:.1f} s; {len(prompts)} requests, prompts "
         f"{[len(p) for p in prompts]} tokens, {SUPERVISE_SERVE}")
     _reset_all(mods)
-    eng, reqs, toks, dt = serve(torch, ServingEngine, Request, ARCH, params,
+    eng, reqs, toks, dt = serve(torch, ServingEngine, Request,
+                                SUPERVISE_ARCH, params,
                                 prompts, **SUPERVISE_SERVE)
     ref = {r.rid: list(r.out) for r in reqs}
     log(f"supervise path: uninterrupted {eng.steps} engine steps, {toks} "
@@ -3173,6 +3212,496 @@ def supervise_path(torch, np, mods):
         + f"; whisper-base shrink {training['serving_again_s']:.3f} (restore "
         f"hook {training['restore_s']:.3f}); live move worst blackout "
         f"{serving['live move']['blackout_s']:.3f} s")
+    return total
+
+
+# the mesh path: four ranks share the one card (gloo, the collective shim
+# of ``parallel.collectives``); starcoder2-3b at full width, depth cut
+# from 30 to 2 (ROADMAP C17), the published 4,096 tokens at a batch cut
+# from 256 to 4 (the (4, 1) mesh splits it four ways), one step and a
+# snapshot (a base: a link after a second step cost rank 0 a 50 s encode
+# on one H100, PERF.md §6); a restore's loss within
+# ``loss_rtol`` of the uninterrupted run's on another mesh (the bf16
+# forward sums in another order: 1e-6 to 1e-5 relative on one H100);
+# llama4-scout's one-layer forward expert-parallel, the logits of tokens
+# that kept their top-1 expert within ``max_rel`` of one rank's
+MESH_TRAIN = dict(arch="starcoder2-3b-layers2", shape="train_s4096_b4",
+                  steps=1, mesh=(2, 2), elastic=((4, 1), (2, 2)),
+                  loss_rtol=2e-4)
+MESH_MOE = dict(arch="llama4-scout-17b-a16e-layers1", mesh=(1, 4),
+                batch=2, seq=1024, capacity_factor=16.0, max_rel=3e-2)
+MESH_COMPRESS = (1536, 50280)
+MESH_PIPELINE = dict(L=8, M=6, mb=4, D=16)
+MESH_AXES = ("data", "model")
+
+
+def _rank_counts(device):
+    from repro_torch.kernels.ckpt_codec import ops as codec
+    from repro_torch.kernels.flash_attention import ops as fa
+    route = "cuda" if device == "cuda" else "cpu"
+    return {**codec.counts(route), **fa.counts(route)}
+
+
+def _rank_reset():
+    from repro_torch.kernels.ckpt_codec import ops as codec
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.parallel import collectives
+    codec.reset_counts()
+    fa.reset_counts()
+    collectives.reset_stats()
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak(torch, device) -> int:
+    return torch.cuda.max_memory_allocated() if device == "cuda" else 0
+
+
+def _rank_stats():
+    from repro_torch.parallel import collectives
+    return {k: dict(v) for k, v in collectives.STATS.items()}
+
+
+class _Marks:
+    """Seconds since the rank's spawn at each named point of its run."""
+
+    def __init__(self, spawned: float) -> None:
+        self.spawned, self.at = spawned, []
+        self("start")
+
+    def __call__(self, name: str) -> None:
+        self.at.append((name, round(time.time() - self.spawned, 2)))
+
+
+def mesh_train_rank(rank, world, device, store, cell, spawned):
+    """One rank of the mesh path's uninterrupted run: ``cell["steps"]``
+    steps on ``cell["mesh"]``, a snapshot after each (a base, then its
+    links; rank 0 commits them in the background), then one more
+    step."""
+    import torch
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.train.loop import Trainer, TrainJob
+    mark = _Marks(spawned)
+    torch.use_deterministic_algorithms(True)
+    sess = CheckpointSession(f"localfs:{store}", Policy(chain=2)) \
+        if rank == 0 else None
+    tr = Trainer(TrainJob(cell["arch"], cell["shape"]), cell["mesh"],
+                 MESH_AXES, manager=sess and sess.manager, device=device)
+    mark("mesh, step built")
+    tr.init_state()
+    mark("init")
+    _rank_reset()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, gather_s = [], [], []
+    for i in range(cell["steps"]):
+        t0 = time.monotonic()
+        losses.append(tr.train_steps(1)["loss"])
+        _sync(torch, device)
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        t0 = time.monotonic()
+        tr.snapshot()
+        gather_s.append(time.monotonic() - t0)
+        mark(f"step, snapshot {i + 1}")
+    digest = tr.params_digest()
+    mark("params digest")
+    t0 = time.monotonic()
+    nxt = tr.train_steps(1)["loss"]
+    _sync(torch, device)
+    step_ms.append((time.monotonic() - t0) * 1e3)
+    state = tr.state_digest()
+    mark("step, state digest")
+    t0 = time.monotonic()
+    if sess is not None:
+        sess.wait()
+        encode_s = sess.stats["encode_commit_seconds"]
+        sess.close()
+    else:
+        encode_s = 0.0
+    mark("drain")
+    out = dict(losses=losses, step_ms=step_ms, gather_s=gather_s,
+               encode_s=encode_s, drain_s=time.monotonic() - t0,
+               marks=mark.at,
+               digest=digest, next_loss=nxt, state_digest=state,
+               counts=_rank_counts(device), stats=_rank_stats(),
+               peak=_peak(torch, device), plan=str(tr.plan),
+               step=cell["steps"])
+    return out
+
+
+def _restore_on(torch, store, mesh, device):
+    from repro_torch.api import CheckpointSession
+    from repro_torch.train.loop import Trainer
+    sess = CheckpointSession(f"localfs:{store}")
+    t0 = time.monotonic()
+    tr = Trainer.restore(sess.manager, mesh_factory=lambda: mesh)
+    _sync(torch, device)
+    return tr, sess, time.monotonic() - t0
+
+
+class _Routes:
+    """Within the block, every top-k choice the MoE's router makes
+    (``moe._route_local``'s expert ids), in call order."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self.mod, self.plain, self.idx = MOE, MOE._route_local, []
+
+        def spy(*args):
+            out = self.plain(*args)
+            self.idx.append(out[1])
+            return out
+        MOE._route_local = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route_local = self.plain
+
+
+def mesh_moe_forward(torch, cfg, device):
+    """forward_train of ``cfg`` on a ``MESH_MOE["mesh"]`` mesh,
+    expert-parallel: (the logits gathered whole, the aux loss, seconds,
+    the tokens, the router's expert ids [MoE layers, B, S, k] — every
+    rank routes all the tokens on a mesh of one data rank)."""
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel.planner import make_plan
+    from repro_torch.parallel.sharding import leaf_placements, shard_tensor
+    from repro_torch.train.step import make_call_options, shard_batch
+    mesh = make_mesh(MESH_MOE["mesh"], MESH_AXES, device)
+    B, S = MESH_MOE["batch"], MESH_MOE["seq"]
+    # a forward needs the plan's rules only: the train branch's over the
+    # mesh's axis sizes, not the card's training budget (params, moments
+    # and a snapshot's gather), which a one-layer forward never holds
+    sizes = SimpleNamespace(shape=dict(zip(MESH_AXES, MESH_MOE["mesh"])))
+    plan = make_plan(cfg, get_shape(f"train_s{S}_b{B}"), sizes)
+    places = leaf_placements(plan, M.param_template(cfg), mesh)
+    params = M.init_params(cfg, seed=0, device=device, leaf_fn=lambda p, t:
+                           shard_tensor(t, mesh, places[p]))
+    gen = torch.Generator().manual_seed(7)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           dtype=torch.int32).to(device)
+    if MESH_MOE["mesh"][0] != 1:
+        raise ValueError("the routing comparison needs one data rank")
+    t0 = time.monotonic()
+    with torch.no_grad(), pctx.mesh_context(mesh, plan.batch_axes,
+                                            plan.model_axis), \
+            _Routes() as routes:
+        logits, aux = M.forward_train(
+            cfg, params, shard_batch(plan, mesh, {"tokens": tokens}),
+            make_call_options(plan, mesh))
+        full = logits.full_tensor().float()
+        aux = float(aux["moe_aux"].full_tensor())
+    _sync(torch, device)
+    return full, aux, time.monotonic() - t0, tokens, torch.stack(routes.idx)
+
+
+def mesh_moe_reference(torch, cfg, device, full, tokens, idx):
+    """The same forward on one rank (plain tensors) against ``full``:
+    the tokens whose top-k choices differ from the mesh's (``idx``), and
+    the relative 2-norm error over all tokens and over those that kept
+    their choices."""
+    from repro_torch.models import model as M
+    params = M.init_params(cfg, seed=0, device=device)
+    with torch.no_grad(), _Routes() as routes:
+        ref, aux = M.forward_train(cfg, params, {"tokens": tokens})
+    ref = ref.float()
+    # [MoE layers, B, S, k] -> [B, S]: a token routed elsewhere in a
+    # layer (with one MoE layer its logits depend on its own choices
+    # alone)
+    flipped = (idx != torch.stack(routes.idx)).movedim(0, -1) \
+        .flatten(2).any(dim=-1)
+    kept = ~flipped
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
+    return dict(rel=rel(full, ref), kept_rel=rel(full[kept], ref[kept]),
+                flipped=int(flipped.sum()), tokens=int(flipped.numel()),
+                equal=bool(torch.equal(full, ref)),
+                finite=bool(torch.isfinite(full).all()),
+                ref_aux=float(aux["moe_aux"]))
+
+
+def mesh_compress(torch, device, rank, world):
+    """compressed_psum over the world on a [1536, 50280] f32 gradient per
+    rank (seed 100 + rank). Every rank returns its result's hash; rank 0
+    also its error against the exact mean and the scale (the largest
+    magnitude / 127), which it computes alone from every rank's seed,
+    with no collective."""
+    import hashlib
+    from repro_torch.optim.compression import (compressed_psum,
+                                               init_error_feedback)
+
+    def grad(r):
+        gen = torch.Generator().manual_seed(100 + r)
+        return torch.randn(MESH_COMPRESS, generator=gen).to(device)
+    g = grad(rank)
+    t0 = time.monotonic()
+    red, ef = compressed_psum({"w": g}, init_error_feedback({"w": g}))
+    _sync(torch, device)
+    out = dict(seconds=time.monotonic() - t0, hash=hashlib.blake2b(
+        red["w"].cpu().numpy().tobytes(), digest_size=16).hexdigest())
+    del g, ef
+    if rank == 0:
+        exact = torch.zeros(MESH_COMPRESS, device=device)
+        top = 0.0
+        for r in range(world):
+            gr = grad(r)
+            exact += gr
+            top = max(top, float(gr.abs().amax()))
+            del gr
+        exact /= world
+        out.update(err=float((red["w"] - exact).abs().max()),
+                   scale=top / 127)
+    return out
+
+
+def mesh_pipeline(torch, device, rank, world):
+    """The reference's toy GPipe (L 8, M 6, mb 4, D 16) over ``world``
+    stages against the plain layer loop."""
+    from repro_torch.parallel.pipeline import bubble_fraction, \
+        pipeline_forward
+    c = MESH_PIPELINE
+    gen = torch.Generator().manual_seed(0)
+    W = (torch.randn(c["L"], c["D"], c["D"], generator=gen) * 0.2).to(device)
+    X = torch.randn(c["M"], c["mb"], c["D"], generator=gen).to(device)
+    block = lambda w, x: torch.tanh(x @ w)
+    ref = X
+    for i in range(c["L"]):
+        ref = block(W[i], ref)
+    out = pipeline_forward(lambda p, x: block(p["w"], x), {"w": W}, X)
+    return dict(err=float((out - ref).abs().max()),
+                bubble=bubble_fraction(world, c["M"]))
+
+
+def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned):
+    """One rank of the mesh path's second launch: the checkpoint restored
+    onto each of ``cell["elastic"]`` and stepped once (the state digest
+    read after the step on the uninterrupted run's mesh), then the
+    expert-parallel forward, the compressed all-reduce and the
+    pipeline."""
+    import gc
+    import torch
+    from repro_torch.configs import resolve_config
+    mark = _Marks(spawned)
+    torch.use_deterministic_algorithms(True)
+    out = {"restores": [], "marks": mark.at}
+    from repro_torch.launch.mesh import make_mesh
+    meshes = {shape: make_mesh(shape, MESH_AXES, device)
+              for shape in cell["elastic"]}
+    _rank_reset()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for shape in cell["elastic"]:
+        tr, sess, seconds = _restore_on(torch, store, meshes[shape],
+                                        device)
+        mark(f"restore {shape}")
+        timings = dict(tr.incarnation.timings)
+        digest = tr.params_digest()
+        mark("params digest")
+        t0 = time.monotonic()
+        loss = tr.train_steps(1)["loss"]
+        _sync(torch, device)
+        mark("step")
+        res = dict(shape=shape, seconds=seconds, digest=digest, loss=loss,
+                   step_ms=(time.monotonic() - t0) * 1e3,
+                   step=tr.checkpoint_step() - 1, timings=timings)
+        if tuple(shape) == tuple(cell["mesh"]):
+            res["state_digest"] = tr.state_digest()
+        out["restores"].append(res)
+        mark("state digest")
+        sess.close()
+        del tr, sess
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    cfg = resolve_config(moe["arch"]).replace(
+        capacity_factor=moe["capacity_factor"])
+    if device != "cuda":
+        cfg = cfg.replace(dtype="float32")
+    full, aux, seconds, tokens, idx = mesh_moe_forward(torch, cfg, device)
+    mark("moe init, forward")
+    out["counts"] = _rank_counts(device)     # the comparisons below don't
+    out["peak"] = _peak(torch, device)       # count
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["moe"] = dict(ep_s=seconds, aux=aux)
+    if rank == 0:
+        out["moe"].update(mesh_moe_reference(torch, cfg, device, full,
+                                             tokens, idx))
+    del full, idx
+    mark("moe reference")
+    out["compress"] = mesh_compress(torch, device, rank, world)
+    out["pipeline"] = mesh_pipeline(torch, device, rank, world)
+    mark("compress, pipeline")
+    out["stats"] = _rank_stats()
+    return out
+
+
+def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None):
+    """Training over a device mesh and elastic restore across meshes
+    (ROADMAP A9a), four ranks on the one card: (a) ``MESH_TRAIN`` on a
+    (2, 2) mesh through the flash kernels on each rank's local heads, a
+    snapshot (the shards gathered whole; rank 0's capture kernels, its
+    encode and commit behind the next step), one more step; (b) the
+    group torn down; (c) the checkpoint
+    restored onto (4, 1) and, in this process, onto one device, each
+    restore's params digest the saved one bit for bit, each stepped once;
+    (d) restored onto (2, 2) again, its step's loss and state digest the
+    uninterrupted run's bit for bit; (e) llama4-scout's one-layer forward
+    expert-parallel on (1, 4) against one rank; (f) ``compressed_psum``
+    over the four ranks within 2 x scale of the exact mean; (g) the toy
+    pipeline against the plain layer loop. Returns the ranks' flash and
+    codec launches summed."""
+    from repro_torch.api import CheckpointSession
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.train.loop import Trainer
+    cell, moe = cell or MESH_TRAIN, moe or MESH_MOE
+    world = int(np.prod(cell["mesh"]))
+    store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    def collectives_line(stats):
+        return "; ".join(
+            f"{k} {v['calls']} calls {v['bytes'] / 1e6:.1f} MB "
+            f"{v['seconds']:.2f} s{' staged' if v['staged'] else ''}"
+            for k, v in sorted(stats.items()))
+    try:
+        t0 = time.monotonic()
+        runs = spawn_ranks(mesh_train_rank, world, device=device,
+                           args=(device, store, cell, time.time()),
+                           timeout_s=600)
+        train_s = time.monotonic() - t0         # the group is torn down
+        t0 = time.monotonic()
+        sess = CheckpointSession(f"localfs:{store}")
+        one = Trainer.restore(sess.manager, device=device)
+        one_s = time.monotonic() - t0
+        one_digest = one.params_digest()
+        one_loss = one.train_steps(1)["loss"]
+        sess.close()
+        del one, sess
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        runs2 = spawn_ranks(mesh_elastic_rank, world, device=device,
+                            args=(device, store, cell, moe, time.time()),
+                            timeout_s=600)
+        elastic_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    r0 = runs[0]
+    for r in runs:
+        add(r["counts"])
+    if len({r["digest"] for r in runs}) != 1 or \
+            len({tuple(r["losses"]) for r in runs}) != 1:
+        raise AssertionError("ranks disagree on the losses or digest")
+    log(f"mesh path: {cell['arch']} {cell['shape']} on {cell['mesh']} x "
+        f"{world} ranks in {train_s:.1f} s (spawn included); plan "
+        f"{r0['plan']}; losses {r0['losses']} then {r0['next_loss']}; "
+        "step ms per rank (the last after the snapshot) "
+        + "; ".join(f"r{i} {[round(m, 1) for m in r['step_ms']]}"
+                    for i, r in enumerate(runs))
+        + f"; snapshots (gather onto rank 0 and capture) "
+        f"{[round(g, 2) for g in r0['gather_s']]} s, rank 0's encode + "
+        f"commit {r0['encode_s']:.2f} s in the background "
+        f"({r0['drain_s']:.2f} s left after the next step and the "
+        f"digests); peak device memory per rank GB "
+        f"{[round(r['peak'] / 1e9, 2) for r in runs]}")
+    log(f"mesh path: rank 0's run, s from its spawn: {r0['marks']}")
+    log(f"mesh path: collectives rank 0 (train, snapshot, digests): "
+        f"{collectives_line(r0['stats'])}; launches rank 0 "
+        f"{ {k: v for k, v in r0['counts'].items() if v} }")
+    if device == "cuda" and not r0["counts"].get("fingerprint"):
+        raise AssertionError(f"rank 0's snapshot missed the capture "
+                             f"kernels: {r0['counts']}")
+    if one_digest != r0["digest"]:
+        raise AssertionError(f"(1, 1) restore digest {one_digest} != saved "
+                             f"{r0['digest']}")
+
+    def near(loss):
+        return abs(loss - r0["next_loss"]) <= \
+            cell["loss_rtol"] * abs(r0["next_loss"])
+    if not near(one_loss):
+        raise AssertionError(f"(1, 1) continuation loss {one_loss} off the "
+                             f"uninterrupted {r0['next_loss']}")
+    e0 = runs2[0]
+    for r in runs2:
+        add(r["counts"])
+    for res in e0["restores"]:
+        if res["digest"] != r0["digest"] or res["step"] != r0["step"]:
+            raise AssertionError(f"restore onto {res['shape']}: digest "
+                                 f"{res['digest']} step {res['step']} != "
+                                 f"saved {r0['digest']} step {r0['step']}")
+        if not near(res["loss"]):
+            raise AssertionError(f"{res['shape']} continuation loss "
+                                 f"{res['loss']} off the uninterrupted "
+                                 f"{r0['next_loss']}")
+    same = [r for r in e0["restores"] if tuple(r["shape"]) ==
+            tuple(cell["mesh"])][0]
+    if same["loss"] != r0["next_loss"] or \
+            same["state_digest"] != r0["state_digest"]:
+        raise AssertionError(
+            f"{cell['mesh']} continuation: loss {same['loss']} digest "
+            f"{same['state_digest']} != uninterrupted {r0['next_loss']} "
+            f"{r0['state_digest']}")
+
+    def phases(t):
+        return (f"materialize {t.get('materialize_s', 0):.2f}, replay "
+                f"{t.get('replay_s', 0):.2f}, rebind "
+                f"{t.get('rebind_s', 0):.2f} s")
+    log(f"mesh path: restores in {elastic_s:.1f} s (spawn included): "
+        + "; ".join(f"{tuple(r['shape'])} {r['seconds']:.2f} s "
+                    f"({phases(r['timings'])}), loss {r['loss']}, step "
+                    f"{r['step_ms']:.0f} ms" for r in e0["restores"])
+        + f"; (1, 1) in this process {one_s:.2f} s, loss {one_loss}; every "
+        f"params digest the saved {r0['digest']}; {cell['mesh']}'s loss and "
+        f"state digest bit-identical to the uninterrupted run's, the other "
+        f"losses within {cell['loss_rtol']} relative; peak device "
+        f"memory per rank GB {[round(r['peak'] / 1e9, 2) for r in runs2]}")
+    log(f"mesh path: rank 0's second run, s from its spawn: {e0['marks']}")
+    m = e0["moe"]
+    # bf16 (ROADMAP C8): the mesh sums the attention's and the shared
+    # expert's parts in another order, so a token whose top-1 choice is
+    # a near tie can route to another expert; the tokens that kept their
+    # choice are held at ``max_rel``
+    if not m["finite"] or m["kept_rel"] > moe["max_rel"]:
+        raise AssertionError(f"expert-parallel forward off one rank's: {m}")
+    log(f"mesh path: {moe['arch']} forward_train on {moe['mesh']} "
+        f"(capacity factor {moe['capacity_factor']}, B {moe['batch']} S "
+        f"{moe['seq']}) in {m['ep_s']:.2f} s against one rank: "
+        f"{m['flipped']} of {m['tokens']} tokens routed to another expert, "
+        f"relative 2-norm error {m['kept_rel']:.3e} over the others (limit "
+        f"{moe['max_rel']}), {m['rel']:.3e} over all (bits equal: "
+        f"{m['equal']}), aux {m['aux']} vs {m['ref_aux']}")
+    c = e0["compress"]
+    if len({r["compress"]["hash"] for r in runs2}) != 1:
+        raise AssertionError("the ranks' compressed_psum results differ")
+    worst = c["err"] / c["scale"]
+    if worst >= 2:
+        raise AssertionError(f"compressed_psum off the exact mean: {worst} "
+                             "x scale")
+    log(f"mesh path: compressed_psum on {MESH_COMPRESS} f32 x {world} ranks "
+        f"in {c['seconds']:.2f} s, max error {c['err']:.3e} = "
+        f"{worst:.3f} x scale (limit 2)")
+    pe = max(r["pipeline"]["err"] for r in runs2)
+    if pe > 1e-5:
+        raise AssertionError(f"pipeline off the layer loop by {pe}")
+    log(f"mesh path: pipeline {MESH_PIPELINE} over {world} stages, max "
+        f"error {pe:.2e} against the layer loop, bubble "
+        f"{e0['pipeline']['bubble']:.3f}; collectives rank 0 (restores, "
+        f"moe, compress, pipeline): {collectives_line(e0['stats'])}")
     return total
 
 
@@ -3268,6 +3797,7 @@ def main() -> int:
                   cell))
     add(phase("moe_train_smoke", moe_train_smoke, torch, np, mods))
     add(phase("supervise_path", supervise_path, torch, np, mods))
+    add(phase("mesh_path", mesh_path, torch, np, mods))
     for name, k in kernels.items():
         k["launches"] = launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

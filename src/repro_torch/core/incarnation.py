@@ -145,10 +145,12 @@ class Incarnation:
 
     # --- phase 3: upper-half rebinding ---------------------------------
 
-    def bind(self, name: str, template):
+    def bind(self, name: str, template, plan=None, logical=None):
         """Rematerialize one upper-half entry onto this incarnation's
         device: path-matched host leaves -> tensors with the template's
-        dtypes (elastic: the payload references no devices)."""
+        dtypes (elastic: the payload references no devices). On a
+        ``DeviceMesh`` each rank keeps its block of each leaf, placed by
+        the leaf's logical axes under ``plan``."""
         from repro_torch.core.restore import materialize_entry
         if self.lower is None:
             raise LifecycleError("bind() before build_lower()")
@@ -157,7 +159,7 @@ class Incarnation:
                                  "before release()")
         t0 = time.monotonic()
         out = materialize_entry(self.restored, name, template,
-                                self.mesh_or_none())
+                                self.mesh_or_none(), plan, logical)
         self.timings["rebind_s"] = \
             self.timings.get("rebind_s", 0.0) + time.monotonic() - t0
         return out

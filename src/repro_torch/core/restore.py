@@ -13,10 +13,11 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-import torch
+import numpy as np
 
 from repro_torch.core.checkpoint import RestoredState
 from repro_torch.host import to_tensor
+from repro_torch.parallel.sharding import shard_tensor
 from repro_torch.tree import fill_like, tree_map
 
 
@@ -44,21 +45,54 @@ def restorable_steps(backend) -> List[int]:
 
 
 def materialize_entry(restored: RestoredState, name: str, template,
-                      device: Optional[torch.device]):
+                      device, plan=None, logical=None):
     """Step 3 for one entry: path-matched host leaves -> tensors on
     ``device`` with the dtypes of ``template`` (a tree of tensors; a
     bfloat16 leaf's host bytes arrive as their uint16 bit view; an
-    ``int8`` codec leaf is dequantized on ``device`` as it lands)."""
+    ``int8`` codec leaf is dequantized on ``device`` as it lands).
+
+    ``device`` may be a ``DeviceMesh``: each leaf's logical axes
+    (``logical``) then bind through ``spec_for_axes`` under ``plan`` onto
+    that mesh, and each rank keeps only its block, as a DTensor (a leaf
+    with no axes, or a 0-d one, replicated). The checkpoint holds whole
+    leaves, whatever mesh wrote it, so any mesh can read it."""
     by_path = restored.entries[name]
     # a streaming restore hands us a LazyLeaves Mapping: binding a whole
     # entry is a bulk page-in, so wait for it as one promoted batch
     # instead of faulting leaf-by-leaf through fill_like
     waiter = getattr(by_path, "wait", None)
+    from repro_torch.launch.mesh import is_device_mesh
+    if is_device_mesh(device):
+        if callable(waiter):
+            raise NotImplementedError(
+                "a streamed restore onto a mesh of "
+                f"{int(np.prod(list(device.shape)))} ranks waits for "
+                "ROADMAP A9b")
+        return _materialize_on_mesh(fill_like(template, by_path), template,
+                                    device, plan, logical)
     if callable(waiter):
         waiter()
     host_tree = fill_like(template, by_path)
     return tree_map(lambda t, v: to_tensor(v, t.dtype, device),
                     template, host_tree)
+
+
+def _materialize_on_mesh(host_tree, template, mesh, plan, logical):
+    from repro_torch.core.delta import Int8Leaf
+    from repro_torch.launch.mesh import mesh_device
+    from repro_torch.parallel.sharding import tree_placements
+    from torch.distributed.tensor import Replicate
+    dev = mesh_device(mesh)
+    places = tree_placements(plan, logical, template, mesh) \
+        if logical is not None else tree_map(
+            lambda t: (Replicate(),) * mesh.ndim, template)
+
+    def bind(t, v, pl):
+        if isinstance(v, Int8Leaf):     # dequantized where it lands
+            return shard_tensor(to_tensor(v, t.dtype, dev), mesh, pl)
+        return shard_tensor(to_tensor(v, t.dtype, None), mesh, pl, dev)
+
+    return tree_map(bind, template, host_tree, places)
 
 
 def restore_scalar(restored: RestoredState, name: str):

@@ -12,9 +12,11 @@ live cache allocations, schedule overrides, data-shard assignment. Never
 serialized. Every mutating entry point both executes and appends to the
 op-log, so a fresh LowerHalf can be driven back into an equivalent state
 by replay (core.oplog). The op-log's JSON is the reference's, op for op:
-``MeshCreate`` binds a ``torch.device`` here (where the JAX package
-built a ``jax.sharding.Mesh``), and ``Compile`` binds a registered
-Python step function — PyTorch runs eagerly, so there is nothing to jit.
+``MeshCreate`` binds a ``torch.distributed`` ``DeviceMesh`` of the
+logged shape over the process group's ranks (where the JAX package built
+a ``jax.sharding.Mesh``) — one device, a ``torch.device``, for a mesh of
+one — and ``Compile`` binds a registered Python step function — PyTorch
+runs eagerly, so there is nothing to jit.
 """
 from __future__ import annotations
 
@@ -133,9 +135,12 @@ class LowerHalf:
     or via replay) binds hardware. A restart constructs a new LowerHalf
     (or calls ``reset()``) and replays the op-log.
 
-    ``mesh_factory`` supplies the ``torch.device`` a ``MeshCreate``
-    binds (the caller's choice of card or CPU); without one, the op
-    binds the CUDA card (``host.resolve_device``).
+    ``mesh_factory`` supplies the ``torch.device`` or ``DeviceMesh`` a
+    ``MeshCreate`` binds, overriding the logged geometry (the caller's
+    choice of card or CPU; elastic restore onto another mesh); without
+    one, a logged mesh of one device binds the CUDA card
+    (``host.resolve_device``) and a larger one a ``DeviceMesh`` on the
+    card, if the process group's world size equals its size.
     """
 
     def __init__(self, handles: Optional[HandleTable] = None,
@@ -147,6 +152,7 @@ class LowerHalf:
         # mesh_factory overrides logged mesh geometry (elastic restore)
         self.mesh_factory = mesh_factory
         self.vmesh: Optional[VirtualId] = None
+        self.mesh_shape: Optional[Dict[str, int]] = None
         self.schedule_overrides: Dict[str, float] = {}
         self.data_cursor_replayed = 0
         self.data_assignment: Optional[Tuple[Tuple[int, int], ...]] = None
@@ -222,6 +228,7 @@ class LowerHalf:
         self.handles.new_incarnation()
         self.devices = DeviceMap()
         self.vmesh = None
+        self.mesh_shape = None
         self.schedule_overrides = {}
         self.data_cursor_replayed = 0
         self.data_assignment = None
@@ -235,12 +242,14 @@ class LowerHalf:
         if isinstance(op, MeshCreate):
             if self.mesh_factory is not None:
                 mesh = self.mesh_factory()
-            else:
-                if int(np.prod(op.shape)) != 1:
-                    raise NotImplementedError(
-                        f"a {tuple(op.shape)} device mesh: the port runs "
-                        "on one device until ROADMAP A9 (DeviceMesh)")
+            elif int(np.prod(op.shape)) == 1:
                 mesh = resolve_device(None)
+            else:
+                from repro_torch.launch.mesh import make_mesh
+                mesh = make_mesh(op.shape, op.axes)
+            names = getattr(mesh, "mesh_dim_names", None)
+            self.mesh_shape = dict(zip(names, (int(n) for n in mesh.shape))) \
+                if names is not None else {a: 1 for a in op.axes}
             self.devices.bind_mesh(mesh)
             self.handles.bind(op.vmesh, mesh)
             self.vmesh = op.vmesh
@@ -274,11 +283,10 @@ class LowerHalf:
     # --- observability (for tests / prune equivalence) -------------------
 
     def fingerprint(self) -> Dict[str, Any]:
-        mesh = None
-        try:
-            mesh = str(self.devices.mesh)
-        except Exception:
-            pass
+        """The bound state: the mesh's shape by axis (one device: each
+        logged axis of size 1), the live compilations and caches, the
+        schedule, data cursor and assignment."""
+        mesh = None if self.mesh_shape is None else dict(self.mesh_shape)
         compiled = sorted(
             key for key, vexec in self._compiled.items()
             if self.handles.is_bound(vexec))

@@ -8,9 +8,19 @@ or transparently resumes) — the port of ``repro.launch.train``.
       --store localfs:/tmp/job1
 
 The run goes on the CUDA card; ``--device cpu`` runs it on the CPU (with
-no card and no ``--device``, the launcher refuses to start). In place of
-the reference's ``--data-mesh``/``--model-mesh`` the port takes
-``--device``: it trains on one device (ROADMAP A9).
+no card and no ``--device``, the launcher refuses to start).
+``--data-mesh D --model-mesh M`` (the reference's flags) train over a
+(D, M) ``DeviceMesh``: the launcher spawns D x M ranks
+(``launch.mesh.spawn_ranks``), every rank on the card (they share one
+card on a one-card machine) or, with ``--device cpu``, gloo CPU ranks;
+rank 0 prints and commits the snapshots. ``--data-mesh 0`` (the default)
+puts every device on the data axis: one here, as the port runs one
+device a process. A re-run of the same command restores the last
+checkpoint onto whatever mesh the flags name, one device included:
+
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch starcoder2-3b-smoke --steps 8 --store localfs:/tmp/job2 \
+      --data-mesh 2 --model-mesh 2 --device cpu
 
 Swapping checkpoint packages is a one-string change (the paper's §V
 claim at the command line): ``--store sharded:/tmp/job1?hosts=4``.
@@ -43,6 +53,7 @@ import sys
 from repro_torch.core.churn import IncidentLog
 from repro_torch.core.failure import FailureAction
 from repro_torch.host import resolve_device
+from repro_torch.launch.mesh import make_mesh, spawn_ranks
 from repro_torch.launch.common import (add_store_args, build_session,
                                        parse_resume_arg, resolve_store,
                                        restore_timings_line, validate_resume)
@@ -64,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the CUDA "
                          "card; 'cpu' runs on the CPU)")
+    ap.add_argument("--data-mesh", type=int, default=0,
+                    help="data axis size (0 = all devices: one)")
+    ap.add_argument("--model-mesh", type=int, default=1)
     add_store_args(ap, interval_flag="--ckpt-every", interval_default=5,
                    keep_last_default=3)
     add_supervise_args(ap)
@@ -99,6 +113,15 @@ def main(argv=None) -> int:
         return 2
 
     device = resolve_device(args.device)
+    mesh = (args.data_mesh or 1, args.model_mesh)
+    if mesh != (1, 1):
+        if args.supervise:
+            print("[launch] --supervise over a mesh of more than one rank "
+                  "waits for ROADMAP A9b", file=sys.stderr)
+            return 2
+        spawn_ranks(_mesh_rank, mesh[0] * mesh[1], device=str(device),
+                    args=(args, spec, resume, resume_step, mesh))
+        return 0
     sess, err = build_session(spec, "launch", interval=args.ckpt_every,
                               keep_last=args.keep_last)
     if err is not None:
@@ -138,6 +161,49 @@ def main(argv=None) -> int:
     print(f"[launch] done at step {tr.checkpoint_step()}; "
           f"checkpoints: {sess.backend.list_steps()}")
     return 0
+
+
+def _mesh_rank(rank, world, args, spec, resume, resume_step, mesh):
+    """One rank of a (D, M) mesh run: restore onto ``mesh`` if the store
+    has a checkpoint (every rank reads it), else a cold start; the step
+    loop, with rank 0 printing and committing the snapshots (each one
+    collective: each leaf gathered onto rank 0, ``Trainer.save``)."""
+    device = resolve_device(args.device)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    sess, err = build_session(spec, "launch", interval=args.ckpt_every,
+                              keep_last=args.keep_last)
+    if err is not None:
+        raise ValueError(err)
+    if resume:
+        resume_step, err = validate_resume(sess, resume_step, spec, "launch")
+        if err is not None:
+            raise ValueError(err)
+    factory = lambda: make_mesh(mesh, ("data", "model"), device)
+    if sess.latest_step() is not None:
+        tr = sess.restore(step=resume_step, expect_kind="train",
+                          mesh_factory=factory)
+        say(f"[launch] RESUMED {args.arch} at step {tr.checkpoint_step()} "
+            f"from {spec} onto mesh {mesh} "
+            f"({restore_timings_line(tr.incarnation)})")
+    else:
+        job = TrainJob(arch=args.arch, shape_key=args.shape)
+        tr = Trainer(job, mesh, ("data", "model"), manager=sess.manager,
+                     device=device)
+        tr.init_state()
+        say(f"[launch] COLD START {args.arch} on mesh {mesh} x {device}")
+    for step in range(tr.checkpoint_step(), args.steps):
+        m = tr.train_steps(1)
+        say(f"step {m['step']:5.0f} loss {m['loss']:.4f} "
+            f"lr {m['lr']:.2e}", flush=True)
+        done = step + 1
+        if done == args.steps or (args.ckpt_every
+                                  and done % args.ckpt_every == 0):
+            tr.save(block=False)
+    if rank == 0:
+        sess.wait()
+    say(f"[launch] done at step {tr.checkpoint_step()}; "
+        f"checkpoints: {sess.backend.list_steps()}")
+    sess.close()
 
 
 def _run_supervised(args, sess, tr, kill, drain=None, trace=None,

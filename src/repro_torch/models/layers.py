@@ -20,6 +20,12 @@ the cache tensors are written in place (``index_put_`` / ``copy_``),
 which keeps one cache allocation alive instead of two. A snapshot of the
 cache therefore has to copy it (``core.async_snapshot._StagingSlot``)
 and cannot assume an unchanged object holds unchanged bytes.
+
+Under a device mesh (``parallel.context``) the training forward's
+tensors are DTensors: projections, norms and the MLP run through
+DTensor's sharding propagation, and attention drops to each rank's
+local heads (``_mesh_attention``) so the flash kernels — or the plain
+attention on the CPU — only ever see plain tensors.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.numerics import exp_stable
 from repro_torch.models.params import P
+from repro_torch.parallel import context as pctx
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
@@ -234,6 +241,11 @@ def attention_forward(
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     g = nh // nkv
 
+    if is_dtensor(x) and (cache is not None or cross_kv is not None):
+        raise NotImplementedError(
+            "attention with a cache or cross k/v under a device mesh: "
+            "serving over a mesh waits for ROADMAP A9b")
+    x = replicate_seq(x)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
@@ -248,6 +260,10 @@ def attention_forward(
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         if cross_kv is None:
             k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if is_dtensor(q):
+        out = _mesh_attention(cfg, q, k, v, causal=causal, window=window,
+                              use_rope=use_rope, attn_chunk=attn_chunk)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if use_rope:
         q = rope_apply(q, positions, cfg.rope_theta)
         if cross_kv is None:
@@ -290,18 +306,120 @@ def attention_forward(
             # trailing window; every query still sees its own context here)
             att_k, att_v, att_pos = k, v, positions
     else:
-        if q.is_cuda and softcap == 0.0:
-            return torch.einsum("bshk,hkd->bsd", _flash_no_cache(
-                q, k, v, causal=causal, window=window), p["wo"])
-        att_k, att_v, att_pos = k, v, positions
-    if S == 1 or att_k.shape[1] <= 2048:
-        out = dense_attention(qg, att_k, att_v, positions, att_pos,
-                              causal=causal, window=window, softcap=softcap)
-    else:
-        out = chunked_attention(qg, att_k, att_v, positions, att_pos,
-                                causal=causal, window=window,
-                                softcap=softcap, chunk=attn_chunk)
+        return torch.einsum("bshk,hkd->bsd", _attend(
+            q, k, v, positions, causal=causal, window=window,
+            softcap=softcap, attn_chunk=attn_chunk), p["wo"])
+    out = _attend_positions(qg, att_k, att_v, positions, att_pos,
+                            causal=causal, window=window, softcap=softcap,
+                            attn_chunk=attn_chunk)
     return torch.einsum("bshk,hkd->bsd", out.reshape(B, S, nh, h), p["wo"])
+
+
+def _attend_positions(qg, k, v, q_pos, kv_pos, *, causal, window, softcap,
+                      attn_chunk):
+    if qg.shape[1] == 1 or k.shape[1] <= 2048:
+        return dense_attention(qg, k, v, q_pos, kv_pos, causal=causal,
+                               window=window, softcap=softcap)
+    return chunked_attention(qg, k, v, q_pos, kv_pos, causal=causal,
+                             window=window, softcap=softcap, chunk=attn_chunk)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            positions: torch.Tensor, *, causal: bool, window: int,
+            softcap: float, attn_chunk: int) -> torch.Tensor:
+    """Attention without a cache (query and key positions both
+    ``positions`` = ``arange(S)``): q [B,S,H,hd], k/v [B,S,Hkv,hd] ->
+    [B,S,H,hd]; the flash kernels on a CUDA tensor, the plain dense or
+    chunked attention elsewhere."""
+    if q.is_cuda and softcap == 0.0:
+        return _flash_no_cache(q, k, v, causal=causal, window=window)
+    B, S, H, hd = q.shape
+    out = _attend_positions(q.reshape(B, S, k.shape[2], -1, hd), k, v,
+                            positions, positions, causal=causal,
+                            window=window, softcap=softcap,
+                            attn_chunk=attn_chunk)
+    return out.reshape(B, S, H, hd)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def replicate_seq(x):
+    """A DTensor activation [B, S, ...] with its sequence dim gathered
+    over the mesh (sequence parallelism's all-gather before a
+    projection: a product that folds B and S together needs S whole);
+    anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+               for p in x.placements)
+    return x if pl == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
+
+
+def kv_heads_for(n_heads: int, n_kv: int, model_size: int, model_rank: int
+                 ) -> Tuple[int, int, Optional[list]]:
+    """The KV heads that this rank's query heads read under GQA (query
+    head h reads KV head h // (H / Hkv)) when the query heads are split
+    over the model axis in contiguous blocks and the KV heads are not:
+    ``(lo, hi, None)`` where the block covers whole groups (KV heads
+    ``lo..hi-1``, the grouping kept), else ``(0, 0, idx)`` — one KV head
+    per local query head (``-smoke`` at (1, 4): 4 query heads over 2 KV
+    heads, each rank's one query head reads KV head ``rank // 2``)."""
+    h_local = n_heads // model_size
+    g = n_heads // n_kv
+    heads = range(model_rank * h_local, (model_rank + 1) * h_local)
+    if h_local % g == 0:
+        return heads[0] // g, heads[-1] // g + 1, None
+    return 0, 0, [h // g for h in heads]
+
+
+def _mesh_attention(cfg: ModelConfig, q, k, v, *, causal: bool,
+                    window: int, use_rope: bool, attn_chunk: int):
+    """Attention of DTensors q [B,S,H,hd], k/v [B,S,Hkv,hd] on each
+    rank's local batch rows and heads; returns [B,S,H,hd], split as q.
+
+    Query heads split over the model axis when H divides by it, KV heads
+    when Hkv does too (contiguous blocks line up under GQA); where KV
+    heads do not divide, K/V stay replicated while Q is head-split and
+    each rank takes the KV heads its own query heads read
+    (``kv_heads_for``), their gradients then partial sums over the model
+    axis. RoPE and the attention run on plain local tensors: the flash
+    kernels on the card, the plain attention on the CPU."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    ctx = pctx.for_mesh(mesh)
+    m, r = ctx.model_size(), ctx.model_rank()
+    H, Hkv = q.shape[2], k.shape[2]
+    q_split = ctx.model_axis is not None and m > 1 and H % m == 0
+    kv_split = q_split and Hkv % m == 0
+    qp = ctx.placements(Shard(0), Shard(2) if q_split else Replicate())
+    kvp = ctx.placements(Shard(0), Shard(2) if kv_split else Replicate())
+    kv_grad = ctx.placements(Shard(0), Shard(2) if kv_split else
+                             Partial() if q_split else Replicate())
+    q_l = q.redistribute(mesh, qp).to_local(grad_placements=qp)
+    k_l = k.redistribute(mesh, kvp).to_local(grad_placements=kv_grad)
+    v_l = v.redistribute(mesh, kvp).to_local(grad_placements=kv_grad)
+    if q_split and not kv_split:
+        lo, hi, idx = kv_heads_for(H, Hkv, m, r)
+        if idx is None:
+            k_l, v_l = k_l[:, :, lo:hi], v_l[:, :, lo:hi]
+        else:
+            sel = torch.tensor(idx, device=k_l.device)
+            k_l, v_l = k_l.index_select(2, sel), v_l.index_select(2, sel)
+    B, S = q_l.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=q_l.device)[None].expand(B, S)
+    if use_rope:
+        q_l = rope_apply(q_l, positions, cfg.rope_theta)
+        k_l = rope_apply(k_l, positions, cfg.rope_theta)
+    out = _attend(q_l, k_l.contiguous(), v_l.contiguous(), positions,
+                  causal=causal, window=window,
+                  softcap=cfg.attn_logit_softcap, attn_chunk=attn_chunk)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
 def _flash_no_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -355,6 +473,7 @@ def mlp_template(cfg: ModelConfig, d_ff: Optional[int] = None) -> Dict[str, Any]
 
 def mlp_forward(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                 x: torch.Tensor) -> torch.Tensor:
+    x = replicate_seq(x)
     if cfg.act == "silu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     if cfg.act == "gelu_glu":

@@ -150,20 +150,43 @@ def _unstack(tree, n: int):
 @dataclass(frozen=True)
 class CallOptions:
     remat: str = "none"             # none | full
+    # under a device mesh: reshard the residual stream [B,S,D] and the
+    # logits to the plan's placements where the reference constrains
+    # them (after the embedding and after each block's two residual adds)
+    act_constraint: Optional[Callable] = None
+    logit_constraint: Optional[Callable] = None
+
+
+def _maybe(fn: Optional[Callable], x: torch.Tensor) -> torch.Tensor:
+    return x if fn is None else fn(x)
+
+
+def _zero(like: torch.Tensor) -> torch.Tensor:
+    """An f32 scalar zero on ``like``'s device (replicated over its mesh
+    when ``like`` is a DTensor)."""
+    z = torch.zeros((), dtype=torch.float32, device=like.device)
+    if L.is_dtensor(like):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = like.device_mesh
+        return DTensor.from_local(z, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False)
+    return z
 
 
 def _block(cfg: ModelConfig, p, x: torch.Tensor, positions: torch.Tensor,
-           cache) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+           cache, act: Optional[Callable] = None
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder block: (x, its moe aux loss; None for a dense FFN)."""
     h = L.apply_norm(cfg, p["ln1"], x)
     x = x + L.attention_forward(
         cfg, p["attn"], h, positions, window=cfg.attn_window, cache=cache)
+    x = _maybe(act, x)
     h = L.apply_norm(cfg, p["ln2"], x)
     if cfg.n_experts:
         f, aux = MOE.moe_forward(cfg, p["ffn"], h)
     else:
         f, aux = L.mlp_forward(cfg, p["ffn"], h), None
-    return x + f, aux
+    return _maybe(act, x + f), aux
 
 
 def _decoder(cfg: ModelConfig, stacked_params, x: torch.Tensor,
@@ -174,14 +197,14 @@ def _decoder(cfg: ModelConfig, stacked_params, x: torch.Tensor,
     order from an f32 zero); ``cache`` (stacked over layers) is written
     in place. Remat "full" recomputes each layer in the backward pass."""
     layers = _unstack(stacked_params, cfg.n_layers)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = _zero(x)
     for i, p in enumerate(layers):
         c = _layer(cache, i) if cache is not None else None
         if opts.remat == "full" and cache is None:
             x, a = checkpoint(_block, cfg, p, x, positions, None,
-                              use_reentrant=False)
+                              opts.act_constraint, use_reentrant=False)
         else:
-            x, a = _block(cfg, p, x, positions, c)
+            x, a = _block(cfg, p, x, positions, c, opts.act_constraint)
         if a is not None:
             aux = aux + a
     return x, aux
@@ -348,7 +371,7 @@ def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(x, the summed moe aux loss: an f32 zero outside the moe
     family)."""
-    zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = lambda: _zero(x)
     if cfg.family == "ssm":
         return _scan_ssm(cfg, params["layers"], x, cache, opts), zero()
     if cfg.family == "hybrid":
@@ -362,14 +385,49 @@ def _backbone(cfg: ModelConfig, params, x: torch.Tensor,
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    if L.is_dtensor(tokens):
+        return _embed_mesh(params["tok_emb"], tokens)
     return params["tok_emb"][tokens.long()]
 
 
-def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    x = L.apply_norm(cfg, params["final_norm"], x)
+def _embed_mesh(table, tokens):
+    """The vocab-parallel lookup (Megatron's) of DTensor ``tokens``
+    [B, S] in DTensor ``table`` [V, D]: each model rank looks its local
+    batch rows up in its block of the vocabulary, zero where a token
+    lies outside it, and the rows are a partial sum over the model axis.
+    (DTensor's own rules fail here on PyTorch 2.11: advanced indexing's
+    backward, "Shard dim -1 ... must be normalized", and the embedding's
+    masked partial under a reshard.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from repro_torch.parallel import context as pctx
+    mesh = table.device_mesh
+    ctx = pctx.for_mesh(mesh)
+    m, r = ctx.model_size(), ctx.model_rank()
+    split = m > 1 and table.shape[0] % m == 0
+    vocab = Shard(0) if split else Replicate()
+    t_l = table.redistribute(mesh, ctx.placements(Replicate(), vocab)) \
+        .to_local(grad_placements=ctx.placements(Partial(), vocab))
+    ids = tokens.redistribute(mesh, ctx.placements(Shard(0), Replicate())) \
+        .to_local().long()
+    if split:
+        ids = ids - r * t_l.shape[0]
+        mine = (ids >= 0) & (ids < t_l.shape[0])
+        rows = t_l[ids.clamp(0, t_l.shape[0] - 1)] * mine[..., None].to(
+            t_l.dtype)
+    else:
+        rows = t_l[ids]
+    return DTensor.from_local(rows, mesh, ctx.placements(
+        Shard(0), Partial() if split else Replicate()), run_check=False)
+
+
+def _logits(cfg: ModelConfig, params, x: torch.Tensor,
+            opts: CallOptions = CallOptions()) -> torch.Tensor:
+    x = L.replicate_seq(L.apply_norm(cfg, params["final_norm"], x))
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["tok_emb"])
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+        out = torch.einsum("bsd,vd->bsv", x, params["tok_emb"])
+    else:
+        out = torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+    return _maybe(opts.logit_constraint, out)
 
 
 def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
@@ -392,11 +450,15 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     frames = batch.get("frames")
     if cfg.is_encoder_decoder:
         _need_frames(cfg, None, frames)
+    if L.is_dtensor(tokens) and cfg.family not in ("dense", "vlm", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family over a device "
+            "mesh is not ported; the dense and moe decoders are")
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    x, moe_aux = _backbone(cfg, params, _embed(params, tokens), positions,
-                           None, opts, frames)
-    return _logits(cfg, params, x), {"moe_aux": moe_aux}
+    x = _maybe(opts.act_constraint, _embed(params, tokens))
+    x, moe_aux = _backbone(cfg, params, x, positions, None, opts, frames)
+    return _logits(cfg, params, x, opts), {"moe_aux": moe_aux}
 
 
 # --- caches -----------------------------------------------------------------
@@ -512,11 +574,13 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
 
 # --- init --------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+def init_params(cfg: ModelConfig, seed: int = 0, device=None,
+                leaf_fn=None):
     """Random params from per-leaf ``torch.Generator``s seeded by
     ``seed`` (see ``params.init_concrete``), on ``device`` (default: the
-    card)."""
-    return PM.init_concrete(param_template(cfg), cfg.dtype, seed, device)
+    card); ``leaf_fn(path, tensor)`` replaces each leaf as it is drawn."""
+    return PM.init_concrete(param_template(cfg), cfg.dtype, seed, device,
+                            leaf_fn)
 
 
 def init_abstract(cfg: ModelConfig):

@@ -1,5 +1,4 @@
-"""Mixture-of-Experts FFN on one device — the port of
-``repro.models.moe`` (its unsharded branch).
+"""Mixture-of-Experts FFN — the port of ``repro.models.moe``.
 
 Each token picks its top-k experts from an f32 router; every expert
 takes at most ``capacity`` tokens, counted jointly over the k choices in
@@ -18,9 +17,16 @@ So a train step gives the same bits twice on the card, and prefill and
 decode drop exactly the choices the JAX package drops for the same
 routing.
 
-The JAX package spreads the experts over its mesh's model axis
-(``shard_map``); the port runs on one device, and a process group of
-more than one raises, naming ROADMAP A9.
+Under a device mesh (the input a DTensor) the experts are parallel, as
+the reference's ``shard_map`` branch: expert weights split over the
+model axis, tokens over the data axes, and every model rank sees its
+data shard's tokens. The routing runs once per rank on its local tokens
+(identical across the model axis); each rank dispatches only the
+choices that fall on its own ``E / M`` experts (``shard_index``), with
+the capacity counted on its local tokens as the reference counts it,
+and an all-reduce over the model group sums the ranks' outputs (the
+reference's ``psum``). The load-balance loss sums its per-expert counts
+and probabilities over the data axes first, so it is the global batch's.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.numerics import exp_stable
 from repro_torch.models import layers as L
 from repro_torch.models.params import P
+from repro_torch.parallel import context as pctx
 
 
 def moe_template(cfg: ModelConfig) -> Dict[str, Any]:
@@ -56,14 +63,17 @@ def _capacity(n_tokens: int, k: int, n_experts: int, cf: float) -> int:
     return max(8, int(math.ceil(c / 8)) * 8)
 
 
-def _check_one_device() -> None:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "MoE over a process group of "
-            f"{dist.get_world_size()}: the port runs the experts on one "
-            "device; expert parallelism waits for ROADMAP A9")
+def _route_local(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(gates [B,S,K] f32, idx [B,S,K] int64, probs [B,S,E] f32)."""
+    logits = torch.einsum("bsd,de->bse", x.float(), router_w)
+    e = exp_stable(logits - logits.amax(dim=-1, keepdim=True).detach())
+    probs = e / e.sum(dim=-1, keepdim=True)
+    k = cfg.experts_per_token
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = vals[..., :k], order[..., :k]
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    return gates, idx, probs
 
 
 def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
@@ -73,13 +83,7 @@ def route(cfg: ModelConfig, router_w: torch.Tensor, x: torch.Tensor
     probabilities, as ``jax.lax.top_k`` does (a stable descending sort);
     the gates are renormalised over the k choices; ``aux`` is the
     Switch load-balance loss ``E * sum_e f_e * P_e``."""
-    logits = torch.einsum("bsd,de->bse", x.float(), router_w)
-    e = exp_stable(logits - logits.amax(dim=-1, keepdim=True).detach())
-    probs = e / e.sum(dim=-1, keepdim=True)
-    k = cfg.experts_per_token
-    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gates, idx = vals[..., :k], order[..., :k]
-    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    gates, idx, probs = _route_local(cfg, router_w, x)
     n = cfg.n_experts
     dispatch_frac = F.one_hot(idx, n).to(torch.float32).sum(dim=2) \
         .mean(dim=(0, 1))
@@ -121,11 +125,23 @@ def _slots(idx: torch.Tensor, n_experts: int, capacity: int
 def _dispatch_compute_combine(x: torch.Tensor, gates: torch.Tensor,
                               idx: torch.Tensor, w_gate: torch.Tensor,
                               w_up: torch.Tensor, w_down: torch.Tensor,
-                              capacity: int) -> torch.Tensor:
-    """x [T, D], gates [T, K] f32, idx [T, K] expert ids -> [T, D]."""
+                              capacity: int, shard_index: int = 0,
+                              n_shards: int = 1) -> torch.Tensor:
+    """x [T, D], gates [T, K] f32, idx [T, K] global expert ids, the
+    weights of this shard's ``E / n_shards`` experts -> [T, D], the
+    output of the choices that fall on them (all of them on one shard)."""
     t, k = idx.shape
-    drop = w_gate.shape[0] * capacity
-    slots = _slots(idx, w_gate.shape[0], capacity)
+    el = w_gate.shape[0]
+    drop = el * capacity
+    if n_shards == 1:
+        slots = _slots(idx, el, capacity)
+    else:
+        # another shard's choices go to a phantom expert ``el``, which
+        # takes none of this shard's capacity, and then to the drop slot
+        local = idx.long() - shard_index * el
+        mine = (local >= 0) & (local < el)
+        slots = _slots(torch.where(mine, local, torch.full_like(local, el)),
+                       el + 1, capacity).clamp(max=drop)
     flat = slots.reshape(t * k)
     keep = flat < drop
     tok = torch.arange(t * k, device=x.device) // k
@@ -141,16 +157,66 @@ def _dispatch_compute_combine(x: torch.Tensor, gates: torch.Tensor,
 def moe_forward(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, D] -> (y [B, S, D], the weighted aux loss, an f32
-    scalar). Capacity is set by all B * S tokens of the call."""
-    _check_one_device()
-    B, S, D = x.shape
-    gates, idx, aux = route(cfg, p["router"], x)
-    cap = _capacity(B * S, cfg.experts_per_token, cfg.n_experts,
-                    cfg.capacity_factor)
-    y = _dispatch_compute_combine(
-        x.reshape(B * S, D), gates.reshape(B * S, -1),
-        idx.reshape(B * S, -1), p["w_gate"], p["w_up"], p["w_down"],
-        cap).reshape(B, S, D)
+    scalar). Capacity is set by all B * S tokens of the call (under a
+    mesh: by one data shard's tokens)."""
+    if L.is_dtensor(x):
+        y, aux = _moe_forward_mesh(cfg, p, x)
+    else:
+        B, S, D = x.shape
+        gates, idx, aux = route(cfg, p["router"], x)
+        cap = _capacity(B * S, cfg.experts_per_token, cfg.n_experts,
+                        cfg.capacity_factor)
+        y = _dispatch_compute_combine(
+            x.reshape(B * S, D), gates.reshape(B * S, -1),
+            idx.reshape(B * S, -1), p["w_gate"], p["w_up"], p["w_down"],
+            cap).reshape(B, S, D)
     if cfg.n_shared_experts:
         y = y + L.mlp_forward(cfg, p["shared"], x)
     return y, aux * cfg.router_aux_loss
+
+
+def _moe_forward_mesh(cfg: ModelConfig, p: Dict[str, Any], x
+                      ) -> Tuple[Any, Any]:
+    """The expert-parallel forward of DTensor x [B, S, D] (see the module
+    docstring): (y, unweighted aux), both DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    ctx = pctx.for_mesh(mesh)
+    m, r = ctx.model_size(), ctx.model_rank()
+    n, k = cfg.n_experts, cfg.experts_per_token
+    if n % m:
+        raise ValueError(f"{cfg.name}: {n} experts over a model axis of {m}")
+    B, S, D = x.shape
+    rows = ctx.placements(Shard(0), Replicate())
+    rows_partial = ctx.placements(Shard(0), Partial())
+    xr = x.redistribute(mesh, rows)
+
+    # routing: once per rank on its tokens, the same on every model rank
+    full = ctx.placements(Replicate(), Replicate())
+    w_r = p["router"].redistribute(mesh, full).to_local(
+        grad_placements=ctx.placements(Partial(), Replicate()))
+    gates_l, idx_l, probs_l = _route_local(cfg, w_r, xr.to_local(
+        grad_placements=rows))
+    counts = F.one_hot(idx_l, n).to(torch.float32).sum(dim=(0, 1, 2))
+    sums = ctx.placements(Partial(), Replicate())
+    dispatch_frac = DTensor.from_local(counts, mesh, sums) / (B * S)
+    prob_frac = DTensor.from_local(probs_l.sum(dim=(0, 1)), mesh,
+                                   sums) / (B * S)
+    aux = n * torch.sum(dispatch_frac * prob_frac)
+    gates = DTensor.from_local(gates_l, mesh, rows)
+
+    # this rank's experts over its tokens; the model axis sums the parts
+    w = {name: p[name].redistribute(
+        mesh, ctx.placements(Replicate(), Shard(0))).to_local(
+        grad_placements=ctx.placements(Partial(), Shard(0)))
+        for name in ("w_gate", "w_up", "w_down")}
+    x_l = xr.to_local(grad_placements=rows_partial)
+    g_l = gates.to_local(grad_placements=rows_partial)
+    bl = x_l.shape[0]
+    cap = _capacity(bl * S, k, n, cfg.capacity_factor)
+    y_l = _dispatch_compute_combine(
+        x_l.reshape(bl * S, D), g_l.reshape(bl * S, k),
+        idx_l.reshape(bl * S, k), w["w_gate"], w["w_up"], w["w_down"],
+        cap, shard_index=r, n_shards=m).reshape(bl, S, D)
+    y = DTensor.from_local(y_l, mesh, rows_partial).redistribute(mesh, rows)
+    return y, aux

@@ -57,11 +57,13 @@ def stacked(n_layers: int, tree: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def init_concrete(template: Dict[str, Any], default_dtype: str, seed: int,
-                  device=None) -> Dict[str, Any]:
+                  device=None, leaf_fn=None) -> Dict[str, Any]:
     """Materialize real parameters on ``device`` (default: the card).
     Deterministic in ``seed``: each leaf draws from its own
     ``torch.Generator`` seeded from ``seed`` and the hash of its path,
-    so adding/removing params does not perturb sibling initializations."""
+    so adding/removing params does not perturb sibling initializations.
+    ``leaf_fn(path, tensor)``, where given, replaces each leaf as soon as
+    it is drawn (a mesh keeps only its shard of it)."""
     dev = resolve_device(device)
     by_path = {}
     for path, leaf in flatten_with_paths(template):
@@ -92,7 +94,7 @@ def init_concrete(template: Dict[str, Any], default_dtype: str, seed: int,
             arr = torch.log(torch.expm1(-torch.log(u))).to(dt)
         else:
             raise ValueError(f"unknown init {leaf.init!r}")
-        by_path[path] = arr
+        by_path[path] = arr if leaf_fn is None else leaf_fn(path, arr)
     return fill_like(template, by_path)
 
 

@@ -15,6 +15,10 @@ returns new trees. The update is elementwise, so slicing changes no bit;
 what it saves is memory — the largest stacked leaf of starcoder2-3b
 (``ffn.w_in``, 1.13 G elements) would otherwise need 4.5 GB for every
 float32 temporary of the update.
+
+Params that are DTensors (training over a device mesh) carry moments
+with their placements; the global gradient norm sums every leaf's
+squares over the mesh, and the update runs on each rank's local shards.
 """
 from __future__ import annotations
 
@@ -75,7 +79,23 @@ def _q_decode(m: QMoment) -> torch.Tensor:
         shape[:-1] + (nb * BLOCK,))[..., :last]
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _local(x):
+    """A DTensor's local shard (a plain tensor as it is)."""
+    return x.to_local() if _is_dtensor(x) else x
+
+
 def _zeros_moment(p: torch.Tensor, quantize: bool):
+    if _is_dtensor(p):
+        if quantize and p.dim() > 0:
+            raise NotImplementedError(
+                "int8 moments of a param split over a device mesh: their "
+                "blocks run along the last axis, which the mesh may split")
+        return torch.zeros_like(p, dtype=torch.float32)
     if not quantize or p.dim() == 0:
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     nb = _nblocks(p.shape[-1])
@@ -160,11 +180,14 @@ def _slices(p: torch.Tensor, *rest) -> Iterator[Tuple[Any, ...]]:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The 2-norm over every leaf, as a plain f32 tensor (a DTensor
+    leaf's squares summed over the mesh)."""
     parts: List[torch.Tensor] = []
     for _, x in flatten_with_paths(tree):
         sq = [torch.sum(torch.square(s.to(torch.float32)))
               for (s,) in _slices(x)]
-        parts.append(sq[0] if len(sq) == 1 else torch.stack(sq).sum())
+        part = sq[0] if len(sq) == 1 else torch.stack(sq).sum()
+        parts.append(part.full_tensor() if _is_dtensor(part) else part)
     return torch.sqrt(torch.sum(torch.stack(parts)))
 
 
@@ -207,8 +230,9 @@ def apply_updates(params, grads, opt_state, cfg: AdamWConfig, lr):
         for path, p in _dict_leaves(params):
             # weight decay by the stacked leaf's rank, as the reference
             decay = cfg.weight_decay if p.dim() >= 2 else 0.0
-            for ps, gs, ms, ns in _slices(p, flat_g[path], mus[path],
-                                          nus[path]):
+            for ps, gs, ms, ns in _slices(
+                    _local(p), _local(flat_g[path]), _local(mus[path]),
+                    _local(nus[path])):
                 upd(ps, gs, ms, ns, decay)
     new_state = {"mu": opt_state["mu"], "nu": opt_state["nu"],
                  "count": count}

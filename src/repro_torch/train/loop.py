@@ -14,10 +14,28 @@ bit-identical to the uninterrupted run — the step is deterministic (the
 flash and SSD kernels use no atomics), so the same state gives the same
 bits.
 
-The trainer runs on one device: the CUDA card unless the caller passes
-``device="cpu"``. Its params and moments are updated in place by every
-step (``optim.apply_updates``); the snapshot pipeline keys its identity
-skip on tensor version counters, so in-place updates are always seen.
+The trainer runs on the CUDA card unless the caller passes
+``device="cpu"``: on one device for a mesh of one, else on a
+``DeviceMesh`` of ``mesh_shape`` over the process group's ranks (one
+rank a device; ``launch.mesh.spawn_ranks`` starts them). Its params and
+moments are updated in place by every step (``optim.apply_updates``);
+the snapshot pipeline keys its identity skip on tensor version
+counters, so in-place updates are always seen.
+
+Over a mesh every rank builds the same trainer: the params and moments
+are DTensors with the plan's placements, each rank drawing every leaf
+from the seed and keeping its block; the data stream is the mesh's
+business nowhere (every rank reads the full batch; the step splits it).
+A snapshot is collective: each leaf's shards are gathered, one leaf at
+a time, onto rank 0 alone (``collectives.gather_to``; the other ranks
+write their blocks to the staging area and wait), and rank 0 hands the
+whole state to its manager — the capture kernels, encode and commit
+then run as they do for one device, so the manifest's leaves and blobs
+are those of a one-device trainer holding the same values. Rank 0's
+device holds that whole copy until the capture has staged it
+(``planner.card_plan`` counts it). The digests hash the leaves gathered
+the same way, one at a time, so they compare across meshes and across
+packages.
 """
 from __future__ import annotations
 
@@ -25,7 +43,7 @@ import hashlib
 import json
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -38,11 +56,14 @@ from repro_torch.core.oplog import OpLog
 from repro_torch.core.split_state import LowerHalf, UpperHalf
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.host import host_array, resolve_device
+from repro_torch.launch.mesh import is_device_mesh, make_mesh, mesh_device
 from repro_torch.models import model as M
 from repro_torch.optim import (abstract_opt_state, init_opt_state,
                                opt_logical_specs)
+from repro_torch.parallel.collectives import gather_to
+from repro_torch.parallel.sharding import leaf_placements, shard_tensor
 from repro_torch.train import step as step_lib
-from repro_torch.tree import flatten_with_paths
+from repro_torch.tree import flatten_with_paths, tree_map
 
 
 @dataclass
@@ -69,15 +90,21 @@ class Trainer:
 
         if _restored is None:
             dev = resolve_device(device)
-            self.lower = LowerHalf(mesh_factory=lambda: dev)
+            if int(np.prod(mesh_shape)) == 1:
+                factory = lambda: dev
+            else:
+                factory = lambda: make_mesh(mesh_shape, mesh_axes, dev)
+            self.lower = LowerHalf(mesh_factory=factory)
             self.lower.mesh_create(mesh_shape, mesh_axes)
             self.vexec = self.lower.compile_step(
                 "train_step", job.arch, job.shape_key, job.plan_key)
         else:
             self.lower, self.vexec = _restored
-        self.device = self.lower.mesh
+        self.mesh = self.lower.mesh
+        self.device = mesh_device(self.mesh)
+        self.on_mesh = is_device_mesh(self.mesh)
 
-        self.plan = step_lib.plan_from_key(self.cfg, self.shape, self.device,
+        self.plan = step_lib.plan_from_key(self.cfg, self.shape, self.mesh,
                                            job.plan_key)
         self.opt_cfg = step_lib.default_opt_config(self.cfg)
 
@@ -100,10 +127,17 @@ class Trainer:
     def init_state(self) -> None:
         """Fresh start: seeded params and zero moments on the device,
         registered in the upper half."""
-        params = M.init_params(self.cfg, seed=self.job.init_seed,
-                               device=self.device)
-        opt_state = init_opt_state(params, self.opt_cfg)
         logical = M.logical_specs(self.cfg)
+        leaf_fn = None
+        if self.on_mesh:
+            places = leaf_placements(self.plan, M.param_template(self.cfg),
+                                     self.mesh)
+
+            def leaf_fn(path, t):
+                return shard_tensor(t, self.mesh, places[path])
+        params = M.init_params(self.cfg, seed=self.job.init_seed,
+                               device=self.device, leaf_fn=leaf_fn)
+        opt_state = init_opt_state(params, self.opt_cfg)
         self.upper.register("params", "params", params, logical)
         self.upper.register("opt_state", "opt_state", opt_state,
                             opt_logical_specs(logical, self.opt_cfg))
@@ -142,8 +176,22 @@ class Trainer:
 
     # --- CheckpointableApp protocol (repro_torch.api) ----------------------
 
-    def checkpoint_state(self) -> UpperHalf:
-        return self.upper
+    def checkpoint_state(self) -> Optional[UpperHalf]:
+        """The upper half; over a mesh (collective: every rank calls it)
+        rank 0's copy whose DTensor leaves are gathered whole, leaf by
+        leaf, and None on the other ranks."""
+        if not self.on_mesh:
+            return self.upper
+        out = UpperHalf() if self._writes() else None
+        for name, e in self.upper.items():
+            tree = tree_map(lambda v: gather_to(v, 0), e.tree)
+            if out is not None:
+                out.register(name, e.kind, tree, e.logical)
+        return out
+
+    def _writes(self) -> bool:
+        """Whether this rank commits snapshots: rank 0 of a mesh."""
+        return not self.on_mesh or torch.distributed.get_rank() == 0
 
     def checkpoint_step(self) -> int:
         return int(self.upper.get("step"))
@@ -168,12 +216,14 @@ class Trainer:
         inc = restore.incarnation()
         ab_params = M.init_abstract(self.cfg)
         logical = M.logical_specs(self.cfg)
-        params = inc.bind("params", ab_params)
+        olog = opt_logical_specs(logical, self.opt_cfg)
+        params = inc.bind("params", ab_params, plan=self.plan,
+                          logical=logical)
         opt_state = inc.bind("opt_state",
-                             abstract_opt_state(ab_params, self.opt_cfg))
+                             abstract_opt_state(ab_params, self.opt_cfg),
+                             plan=self.plan, logical=olog)
         self.upper.register("params", "params", params, logical)
-        self.upper.register("opt_state", "opt_state", opt_state,
-                            opt_logical_specs(logical, self.opt_cfg))
+        self.upper.register("opt_state", "opt_state", opt_state, olog)
         self.upper.register("step", "step", np.int64(inc.scalar("step")))
         self.upper.register("data_cursor", "data_cursor",
                             np.int64(inc.scalar("data_cursor")))
@@ -185,10 +235,12 @@ class Trainer:
     # --- checkpoint ----------------------------------------------------------
 
     def save(self, block: bool = True) -> None:
-        assert self.manager is not None
-        self.manager.save(self.checkpoint_step(), self.checkpoint_state(),
-                          self.runtime_log(), block=block,
-                          job_meta=self.job_meta())
+        state = self.checkpoint_state()
+        if self._writes():
+            assert self.manager is not None
+            self.manager.save(self.checkpoint_step(), state,
+                              self.runtime_log(), block=block,
+                              job_meta=self.job_meta())
 
     def snapshot(self):
         """Non-blocking checkpoint at the current step boundary: pays
@@ -196,9 +248,11 @@ class Trainer:
         next steps. Returns the SnapshotHandle (None if dropped under
         "skip" backpressure). The trainer holds no session of its own:
         one session owns an app's lifecycle, and it is the caller's."""
+        state = self.checkpoint_state()
+        if not self._writes():
+            return None
         assert self.manager is not None
-        return self.manager.save(self.checkpoint_step(),
-                                 self.checkpoint_state(),
+        return self.manager.save(self.checkpoint_step(), state,
                                  self.runtime_log(), block=False,
                                  job_meta=self.job_meta())
 
@@ -217,27 +271,54 @@ class Trainer:
             if snapshot_every and self.manager is not None \
                     and i % snapshot_every == 0:
                 self.snapshot()
-        if self.manager is not None and snapshot_every:
+        if self.manager is not None and snapshot_every and self._writes():
             self.manager.wait()
         return metrics
+
+    @classmethod
+    def restore(cls, manager, mesh_factory=None, step=None, device=None,
+                **kw) -> "Trainer":
+        """Restore through the public session API
+        (``CheckpointSession.restore``), onto ``mesh_factory()``'s mesh or
+        device where given (elastic: any mesh reads any checkpoint),
+        else onto ``device`` (default: the card)."""
+        from repro_torch.api.session import CheckpointSession
+        extra = {} if mesh_factory is not None else {"device": device}
+        return CheckpointSession.from_manager(manager).restore(
+            step=step, expect_kind="train", mesh_factory=mesh_factory,
+            **extra, **kw)
 
     # --- observability ---------------------------------------------------------
 
     def params_digest(self) -> str:
         """blake2b over the params' paths and bytes (the JAX package's
-        digest; bfloat16 hashed as its bits)."""
+        digest; bfloat16 hashed as its bits). Over a mesh, collective:
+        each leaf gathered onto rank 0 in turn and hashed there, every
+        rank returns rank 0's digest."""
+        leaves = sorted(flatten_with_paths(self.upper.get("params")),
+                        key=lambda pv: pv[0])
         h = hashlib.blake2b(digest_size=16)
-        for path, arr in sorted(flatten_with_paths(self.upper.get("params")),
-                                key=lambda pv: pv[0]):
-            h.update(path.encode())
-            h.update(np.ascontiguousarray(host_array(arr)).tobytes())
-        return h.hexdigest()
+        for path, arr in leaves:
+            whole = gather_to(arr, 0) if self.on_mesh else arr
+            if whole is not None:
+                h.update(path.encode())
+                h.update(np.ascontiguousarray(host_array(whole)).tobytes())
+        return self._from_rank0(h.hexdigest())
+
+    def _from_rank0(self, value: str) -> str:
+        """``value`` as rank 0 of the mesh has it (one device: itself)."""
+        if not self.on_mesh:
+            return value
+        box = [value]
+        torch.distributed.broadcast_object_list(box, src=0)
+        return box[0]
 
     def state_digest(self, workers: int = 8) -> str:
         """The complete semantic state — params, optimizer moments and
         count, step and data cursor — as one digest: blake2b over each
         leaf's path and the blake2b of its bytes, leaves hashed in
-        parallel (hashlib releases the GIL on large buffers)."""
+        parallel (hashlib releases the GIL on large buffers). Over a
+        mesh, collective, as ``params_digest``."""
         leaves = [(f"['{e}']{p}", v) for e in ("params", "opt_state")
                   for p, v in flatten_with_paths(self.upper.get(e))]
 
@@ -245,15 +326,25 @@ class Trainer:
             return hashlib.blake2b(np.ascontiguousarray(
                 host_array(v)).tobytes(), digest_size=16).digest()
 
+        # one leaf at a time (collective on a mesh): rank 0 gathers a
+        # leaf and hands its host copy to the pool while the next gathers
+        hashes: List[Any] = []
         with ThreadPoolExecutor(max_workers=workers) as ex:
-            hashes = list(ex.map(leaf_hash, [v for _, v in leaves]))
+            for _, v in leaves:
+                whole = gather_to(v, 0) if self.on_mesh else v
+                if whole is not None:
+                    hashes.append(ex.submit(leaf_hash, host_array(whole)))
+                    del whole
+        if not self._writes():
+            return self._from_rank0("")
         h = hashlib.blake2b(digest_size=16)
         for (path, _), lh in zip(leaves, hashes):
             h.update(path.encode())
-            h.update(lh)
+            h.update(lh.result())
         h.update(str(int(self.upper.get("step"))).encode())
         h.update(str(int(self.upper.get("data_cursor"))).encode())
-        return h.hexdigest()
+        return self._from_rank0(h.hexdigest())
+
 
 
 @register_app_kind("train")

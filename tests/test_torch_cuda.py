@@ -1051,3 +1051,81 @@ def test_router_one_row_against_four_rows(cuda_device):
     for r in range(4):
         for part, whole in zip(MOE.route(cfg, w, x[r:r + 1])[:2], full):
             assert torch.equal(part, whole[r:r + 1]), r
+
+
+# --- training over a device mesh: four ranks share the card (A9a) -------------
+
+def _mesh_collectives_rank(rank, world):
+    """DTensor's reshards on a (2, 2) mesh of the card through the
+    collective shim, and the shim's gather onto rank 0, against the
+    whole tensors they must give."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.parallel import collectives
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    a = torch.arange(8 * 70000, dtype=torch.float32,
+                     device="cuda").reshape(8, -1) % 977
+    d = distribute_tensor(a, mesh, [Shard(0), Shard(1)], src_data_rank=None)
+    ok = {"gather": torch.equal(d.full_tensor(), a)}
+    p = DTensor.from_local(a + rank, mesh, [Partial(), Replicate()])
+    ok["reduce_scatter"] = torch.equal(
+        p.redistribute(mesh, [Shard(0), Replicate()]).full_tensor(),
+        2 * a + (2 if rank in (0, 2) else 4))
+    t = distribute_tensor(a, mesh, [Shard(0), Replicate()],
+                          src_data_rank=None)
+    ok["reshard"] = torch.equal(
+        t.redistribute(mesh, [Shard(1), Replicate()]).full_tensor(), a)
+    x = torch.full((5,), float(rank), device="cuda")
+    y = torch.empty(5, device="cuda")
+    collectives.send_recv(x, (rank + 1) % world, y, (rank - 1) % world)
+    ok["ring"] = torch.equal(y, torch.full((5,), float((rank - 1) % world),
+                                           device="cuda"))
+    ok["staged"] = collectives.STATS["all_gather"]["staged"]
+    whole = collectives.gather_to(d, 0)
+    ok["gather_to"] = torch.equal(whole, a) if rank == 0 else whole is None
+    return ok
+
+
+def test_staged_collectives_on_the_card(cuda_device):
+    from repro_torch.launch.mesh import spawn_ranks
+    for r in spawn_ranks(_mesh_collectives_rank, 4, device="cuda"):
+        assert all(r.values()), r
+
+
+def _mesh_step_rank(rank, world):
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.train.loop import Trainer, TrainJob
+    plain = starcoder2_3b.smoke_config
+    starcoder2_3b.smoke_config = lambda: plain().replace(dtype="float32")
+    torch.use_deterministic_algorithms(True)
+    t = Trainer(TrainJob("starcoder2-3b-smoke", "train_s128_b4"), (2, 2),
+                ("data", "model"))
+    t.init_state()
+    fa_ops.reset_counts()
+    losses = [t.train_steps(1)["loss"] for _ in range(2)]
+    return losses, t.params_digest(), fa_ops.counts("cuda")
+
+
+def test_mesh_step_on_the_card_matches_one_device(cuda_device, monkeypatch):
+    """starcoder2-3b-smoke in f32 on a (2, 2) mesh of four ranks on the
+    card, through the flash kernels on each rank's local heads: its
+    losses within 1e-5 of the one-device trainer's on the card."""
+    import os
+    from repro_torch.configs import starcoder2_3b
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.train.loop import Trainer, TrainJob
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") is None:
+        pytest.skip("needs CUBLAS_WORKSPACE_CONFIG for deterministic steps")
+    runs = spawn_ranks(_mesh_step_rank, 4, device="cuda")
+    plain = starcoder2_3b.smoke_config
+    monkeypatch.setattr(starcoder2_3b, "smoke_config",
+                        lambda: plain().replace(dtype="float32"))
+    t = Trainer(TrainJob("starcoder2-3b-smoke", "train_s128_b4"))
+    t.init_state()
+    want = [t.train_steps(1)["loss"] for _ in range(2)]
+    assert len({r[1] for r in runs}) == 1
+    for losses, _, counts in runs:
+        np.testing.assert_allclose(losses, want, rtol=1e-5)
+        assert counts["flash_fwd"] > 0 and counts["flash_dkv"] > 0

@@ -1,0 +1,309 @@
+"""Training over a device mesh and elastic restore across meshes, on gloo
+CPU ranks (ROADMAP A9a).
+
+Two ``spawn_ranks`` launches of four ranks each run side by side in one
+module fixture (``torch_mesh_ranks`` holds their functions); each test
+reads one scenario's results. Both launches' collectives go through
+the collective shim's staging area (``parallel.collectives``, the
+card's path) on CPU tensors, as every launch's do.
+starcoder2-3b-smoke and kimi-k2-1t-a32b-smoke are float32 in both
+packages here.
+
+- Sharded steps at (2, 2), (4, 1) and (1, 4) against the port's
+  one-device step: losses within 1e-5 relative, params within 1e-6
+  absolute after two steps (the sums over the mesh reduce in another
+  order; AdamW's first steps move a param by at most about the learning
+  rate, 3e-5 or less at these steps of the warmup).
+- The (2, 2) checkpoint (a base and a chain link, rank 0's commit)
+  restored onto (4, 1), (1, 4), (2, 2), one device here, and by the JAX
+  package's ``Trainer.restore`` on its one-device mesh: every params
+  digest the saved one, bit for bit, and each restore steps on. The
+  same-mesh continuation gives the uninterrupted run's loss and state
+  digest bit for bit. The checkpoint's params are the ranks' values
+  gathered whole, byte for byte.
+- A checkpoint the JAX package wrote restores onto (2, 2) with the JAX
+  params' digest.
+- kimi-k2's MoE layer at capacity factor 16 (nothing drops),
+  expert-parallel at (2, 2), against the JAX package's local
+  ``moe_forward`` within 1e-5 of the output's largest element.
+- ``compressed_psum`` over the four ranks within 2 x scale of the exact
+  mean (the reference's bound), its error carry the local residual.
+- The GPipe pipeline (L 8, M 6, mb 4, D 16) over four stages against a
+  jnp layer loop within 1e-6.
+"""
+import hashlib
+import threading
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import kimi_k2_1t_a32b as jkimi
+from repro.configs import registry as jreg
+from repro.configs import starcoder2_3b as jsc
+from repro.core.backends.localfs import LocalFSBackend as JBackend
+from repro.core.checkpoint import CheckpointManager as JManager
+from repro.models import moe as JMOE
+from repro.optim.compression import BLOCK as JBLOCK
+from repro.train import loop as jloop
+from repro_torch.api import CheckpointSession
+from repro_torch.configs import kimi_k2_1t_a32b as tkimi
+from repro_torch.configs import registry as treg
+from repro_torch.configs import starcoder2_3b as tsc
+from repro_torch.core.backends.localfs import LocalFSBackend
+from repro_torch.core.checkpoint import CheckpointManager
+from repro_torch.host import host_array
+from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.train.loop import Trainer, TrainJob
+from repro_torch.models.moe import moe_template
+from repro_torch.tree import flatten_with_paths, tree_from_paths
+
+import torch_mesh_ranks as R
+
+STEPS = 2
+SHAPES = ((2, 2), (4, 1), (1, 4))
+
+
+def _auto_mesh(shape, axes, **_):
+    return jax.sharding.Mesh(
+        np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape), axes)
+
+
+def _digest(params) -> str:
+    """The trainers' params digest of a {path: array} map."""
+    h = hashlib.blake2b(digest_size=16)
+    for path in sorted(params):
+        h.update(path.encode())
+        h.update(np.ascontiguousarray(params[path]).tobytes())
+    return h.hexdigest()
+
+
+def _moe_inputs():
+    """kimi-k2-smoke's MoE layer (its template's shapes, numpy draws
+    scaled by fan-in) and an input [4, 8, D], float32: (config, params
+    tree, x, {path: array})."""
+    cfg = jreg.resolve_config(R.MOE_ARCH).replace(capacity_factor=16.0)
+    rng = np.random.RandomState(3)
+    flat = {p: (rng.randn(*leaf.shape) / np.sqrt(leaf.fan_in or 1))
+            .astype(np.float32)
+            for p, leaf in flatten_with_paths(moe_template(
+                treg.resolve_config(R.MOE_ARCH)))}
+    x = rng.randn(4, 8, cfg.d_model).astype(np.float32)
+    return cfg, tree_from_paths(flat), x, flat
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    store = tmp_path_factory.mktemp("mesh_ckpt")
+    jax_store = tmp_path_factory.mktemp("jax_ckpt")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax, "make_mesh", _auto_mesh)
+        for mod in (jsc, jkimi, tsc, tkimi):
+            plain = mod.smoke_config
+            mp.setattr(mod, "smoke_config",
+                       lambda plain=plain: plain().replace(dtype="float32"))
+        cfg, layer, x, flat = _moe_inputs()
+        rng = np.random.RandomState(0)
+        ef_in = {"g": rng.randn(4, 8, 1024).astype(np.float32)}
+        pipe_in = {"W": (rng.randn(8, 16, 16) * 0.2).astype(np.float32),
+                   "X": rng.randn(6, 4, 16).astype(np.float32)}
+        out = {}
+
+        def launch(key, fn, args):
+            try:
+                out[key] = spawn_ranks(fn, 4, device="cpu", args=args,
+                                       threads=1, timeout_s=300)
+            except BaseException as e:      # read in the test thread
+                out[key] = e
+
+        threads = [
+            threading.Thread(target=launch, args=(
+                "train", R.train_and_restore,
+                (str(store), str(jax_store), STEPS,
+                 {"params": flat, "x": x}))),
+            threading.Thread(target=launch, args=(
+                "others", R.others,
+                (SHAPES[1:], STEPS, str(store), ef_in, pipe_in)))]
+        for t in threads:
+            t.start()
+        # meanwhile: the JAX package's checkpoint (its trainer, two
+        # steps, one save), the one-device reference run, the JAX MoE
+        try:
+            jm = JManager(JBackend(str(jax_store)), async_save=False)
+            jt = jloop.Trainer(jloop.TrainJob(R.ARCH, R.SHAPE), (1, 1),
+                               ("data", "model"), manager=jm)
+            jt.init_state()
+            jt.train_steps(2)
+            jt.save(block=True)
+            jax_digest = jt.params_digest()
+            jm.close()
+        finally:
+            (jax_store / "READY").touch()
+        one = Trainer(TrainJob(R.ARCH, R.SHAPE), device="cpu")
+        one.init_state()
+        one_losses = [one.train_steps(1)["loss"] for _ in range(STEPS)]
+        one_params = {p: host_array(v)
+                      for p, v in flatten_with_paths(one.upper.get("params"))}
+        moe_want = JMOE.moe_forward(cfg, jax.tree.map(jnp.asarray, layer),
+                                    jnp.asarray(x))
+        for t in threads:
+            t.join(400)
+            assert not t.is_alive()
+        for v in out.values():
+            if isinstance(v, BaseException):
+                raise v
+        # the (2, 2) checkpoint on one device, in both packages
+        sess = CheckpointSession(f"localfs:{store}")
+        t1 = Trainer.restore(sess.manager, device="cpu")
+        on_one = dict(digest=t1.params_digest(), step=t1.checkpoint_step(),
+                      loss=t1.train_steps(1)["loss"])
+        sess.close()
+        jm = JManager(JBackend(str(store)))
+        with pytest.warns(DeprecationWarning):
+            jt = jloop.Trainer.restore(
+                jm, mesh_factory=lambda: _auto_mesh((1, 1), ("data",
+                                                             "model")))
+        in_jax = dict(digest=jt.params_digest(),
+                      step=int(jt.upper.get("step")))
+        jm.close()
+        tm = CheckpointManager(LocalFSBackend(str(store)))
+        saved = tm.restore(None)
+        entries = {p: np.asarray(v) for p, v in
+                   saved.entries["params"].items()}
+        tm.close()
+    return dict(one_losses=one_losses, one_params=one_params,
+                train=out["train"], others=out["others"], on_one=on_one,
+                in_jax=in_jax, jax_digest=jax_digest, entries=entries,
+                moe_want=moe_want, ef_in=ef_in, pipe_in=pipe_in)
+
+
+def _mesh_run(runs, shape):
+    if shape == (2, 2):
+        r = runs["train"][0]
+        return r["losses"], r["params"]
+    r = runs["others"][0]["steps"][shape]
+    return r["losses"], r["params"]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_sharded_steps_match_one_device(runs, shape):
+    losses, params = _mesh_run(runs, shape)
+    np.testing.assert_allclose(losses, runs["one_losses"], rtol=1e-5)
+    assert sorted(params) == sorted(runs["one_params"])
+    for path, want in runs["one_params"].items():
+        np.testing.assert_allclose(params[path], want, rtol=0, atol=1e-6,
+                                   err_msg=path)
+
+
+def test_ranks_agree_and_the_plan_is_the_references(runs):
+    r = runs["train"]
+    assert len({x["digest"] for x in r}) == 1
+    assert len({tuple(x["losses"]) for x in r}) == 1
+    plan = r[0]["plan"]
+    assert plan.seq_shard and plan.rules["embed"] == ("data",)
+    assert plan.batch_axes == ("data",) and plan.model_axis == "model"
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (1, 4)])
+def test_checkpoint_restores_onto_another_mesh(runs, shape):
+    r = runs["train"][0]
+    got = runs["others"][0]["restores"][shape]
+    assert got["digest"] == r["digest"] and got["step"] == r["step"]
+    np.testing.assert_allclose(got["loss"], r["next_loss"], rtol=1e-5)
+
+
+def test_checkpoint_restores_onto_one_device(runs):
+    r = runs["train"][0]
+    got = runs["on_one"]
+    assert got["digest"] == r["digest"] and got["step"] == r["step"]
+    np.testing.assert_allclose(got["loss"], r["next_loss"], rtol=1e-5)
+
+
+def test_checkpoint_restores_in_the_jax_package(runs):
+    r = runs["train"][0]
+    got = runs["in_jax"]
+    assert got["digest"] == r["digest"] and got["step"] == r["step"]
+
+
+def test_same_mesh_continuation_is_bit_identical(runs):
+    r = runs["train"][0]
+    got = r["restores"][(2, 2)]
+    assert got["loss"] == r["next_loss"]
+    assert got["state_digest"] == r["state_digest"]
+
+
+def test_checkpoint_holds_the_gathered_params(runs):
+    r = runs["train"][0]
+    assert sorted(runs["entries"]) == sorted(r["params"])
+    for path, v in r["params"].items():
+        assert runs["entries"][path].tobytes() == v.tobytes(), path
+    assert _digest(runs["entries"]) == r["digest"]
+
+
+def test_jax_checkpoint_restores_onto_a_mesh(runs):
+    got = runs["train"][0]["jax_restore"]
+    assert got["digest"] == runs["jax_digest"] and got["step"] == 2
+    assert np.isfinite(got["loss"])
+
+
+def test_expert_parallel_moe_matches_jax_local(runs):
+    y_want, aux_want = runs["moe_want"]
+    got = runs["train"][0]["moe"]
+    assert got["local_experts"] < tkimi.smoke_config().n_experts
+    y_want = np.asarray(y_want)
+    np.testing.assert_allclose(got["y"], y_want, rtol=0,
+                               atol=1e-5 * np.abs(y_want).max())
+    np.testing.assert_allclose(got["aux"], float(aux_want), rtol=1e-5)
+
+
+def test_compressed_psum_within_two_scales(runs):
+    g = runs["ef_in"]["g"]
+    exact = g.mean(axis=0)
+    scale = np.abs(g).max() / 127
+    for r in runs["others"]:
+        err = np.abs(r["compress"]["red"] - exact).max()
+        assert err < 2 * scale, (err, scale)
+    # the carry is each rank's own quantization residual, under a block
+    r0 = runs["others"][0]["compress"]["ef"]
+    assert np.abs(r0).max() <= np.abs(g[0]).reshape(-1, JBLOCK).max() / 127
+
+
+def test_pipeline_matches_layer_loop(runs):
+    W, X = runs["pipe_in"]["W"], runs["pipe_in"]["X"]
+    ref = jnp.asarray(X)
+    for w in W:
+        ref = jnp.tanh(ref @ jnp.asarray(w))
+    for r in runs["others"]:
+        np.testing.assert_allclose(r["pipeline"], np.asarray(ref), rtol=0,
+                                   atol=1e-6)
+
+
+def test_the_staged_launch_went_through_the_shim(runs):
+    """Both launches: DTensor's collectives staged, the snapshot's and
+    the digests' leaves gathered onto rank 0 alone, broadcast gloo's."""
+    for key in ("train", "others"):
+        stats = runs[key][0]["stats"]
+        for name in ("all_gather", "reduce_scatter", "all_reduce",
+                     "gather"):
+            assert stats[name]["calls"] > 0 and stats[name]["staged"], \
+                (key, name)
+    # the pipeline's result broadcast: gloo's, as it is
+    assert not runs["others"][0]["stats"]["broadcast"]["staged"]
+
+
+def test_snapshot_state_is_gathered_onto_rank_zero_alone(runs):
+    """checkpoint_state is rank 0's whole copy and None elsewhere, and
+    ``gather_to`` places every block of each placement (sharded,
+    replicated, a dim split over both mesh axes) on rank 0 only."""
+    r = runs["train"]
+    assert [x["checkpoint_state"] for x in r] == [True, False, False,
+                                                   False]
+    want = runs["others"][0]["gather_want"]
+    for rank, x in enumerate(runs["others"]):
+        for name, got in x["gather"].items():
+            if rank == 0:
+                assert got.tobytes() == want.tobytes(), name
+            else:
+                assert got is None, (rank, name)

@@ -361,13 +361,28 @@ def test_moe_forward_gradients_match_jax_grad(arch, part):
 
 
 def test_more_than_one_device_raises_naming_a9():
+    """ROADMAP A9a lifted the MoE's one-device refusal: under a process
+    group of two a plain tensor's MoE runs on its device, to the same
+    bits (expert parallelism takes DTensors, ``test_torch_mesh.py``).
+    What still names A9 is attention with a cache under a mesh — serving
+    over a mesh waits for A9b."""
     _, tcfg, _, tp = _pair(SMOKES[0])
+    p = _layer0(tp["layers"]["ffn"])
+    x = torch.randn(1, 4, tcfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    want = MOE.moe_forward(tcfg, p, x)
     dist = torch.distributed
     with mock.patch.object(dist, "is_initialized", lambda: True), \
             mock.patch.object(dist, "get_world_size", lambda *a: 2):
-        with pytest.raises(NotImplementedError, match="A9"):
-            MOE.moe_forward(tcfg, _layer0(tp["layers"]["ffn"]),
-                            torch.zeros(1, 4, tcfg.d_model))
+        got = MOE.moe_forward(tcfg, p, x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    from repro_torch.models import layers as L
+    attn = _layer0(tp["layers"]["attn"])
+    cache = M.init_cache(tcfg, 1, 8, device="cpu")
+    with mock.patch.object(L, "is_dtensor", lambda t: True):
+        with pytest.raises(NotImplementedError, match="A9b"):
+            L.attention_forward(tcfg, attn, x, torch.zeros(
+                (1, 4), dtype=torch.int32), cache=_layer0(cache))
 
 
 # --- the model ---------------------------------------------------------------
