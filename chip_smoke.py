@@ -194,6 +194,28 @@ Phases, each reported on its own line:
    the GPipe toy pipeline against the layer loop. Per-rank step ms,
    the staged collectives' seconds and bytes, the snapshot's gather and
    encode, each restore's seconds and peak memory per rank are logged.
+   Serving over the mesh in the same two launches (``MESH_SERVE``):
+   phi4-mini-3.8b at full width, 2 of 32 layers, bf16, 4 slots x 1,024,
+   the serving path's six prompts, 12 new tokens; in the first launch
+   served to the end on (2, 2) (the slots split over data, the 8 KV
+   heads over model) with a snapshot every 4 steps (rank 0's session,
+   chained, sparse), the cache digest of step 8's snapshot kept, then
+   step 8 restored onto (2, 2) and decoded to the end: every request's
+   tokens bit for bit (the restored engine snapshotting on, dense, into
+   a store of its own: its chain links XOR on the card, where the sparse
+   links XOR their dirty chunks on the host); in the second launch
+   restored eagerly onto (1, 4)
+   and streamed onto (4, 1); in this process onto one device. Every
+   target's restored cache digest is the saved one, every rank emits the
+   same tokens, the first restored step's logits lie within 2e-2 of the
+   uninterrupted run's in the relative 2-norm (bf16 sums in another
+   order, ROADMAP C8) and each target's count of requests that finish
+   token for token is logged; rank 0's capture kernels must launch. Each
+   rank's decode step (wall and device ms), the staged collectives of
+   one decode step, each restore's seconds (materialize, replay,
+   rebind) and first token, and each rank's peak memory are logged; the
+   second launch's peak is read before llama4-scout's forward and reset
+   between them.
    Every phase logs its seconds and the run's running total of snapshot
    bytes written.
 
@@ -3233,6 +3255,15 @@ MESH_MOE = dict(arch="llama4-scout-17b-a16e-layers1", mesh=(1, 4),
 MESH_COMPRESS = (1536, 50280)
 MESH_PIPELINE = dict(L=8, M=6, mb=4, D=16)
 MESH_AXES = ("data", "model")
+# serving over the mesh: phi4-mini-3.8b at full width, depth cut from 32
+# to 2 (ROADMAP C17: the script's time), the serving path's prompts on
+# 4 slots x 1,024, 12 new tokens; snapshots every 4 steps, step 8 (mid
+# first wave) restored onto each target
+MESH_SERVE = dict(arch=f"{ARCH}-layers2", mesh=(2, 2), n_slots=N_SLOTS,
+                  max_seq=MAX_SEQ, max_new=12,
+                  policy=dict(interval=4, chain=4), at=8,
+                  targets=(((1, 4), False), ((4, 1), True)),
+                  logits_rel=2e-2)
 
 
 def _rank_counts(device):
@@ -3276,11 +3307,174 @@ class _Marks:
         self.at.append((name, round(time.time() - self.spawned, 2)))
 
 
-def mesh_train_rank(rank, world, device, store, cell, spawned):
+def _timed_step(torch, eng, device, profile=False):
+    """One engine step: (wall ms, device ms of its kernels from
+    torch.profiler when ``profile`` on the card, else None, the staged
+    collectives it ran {name: [calls, bytes, seconds]})."""
+    from repro_torch.parallel import collectives
+    before = {k: dict(v) for k, v in collectives.STATS.items()}
+    prof = None
+    if profile and device == "cuda":
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        prof = prof_ctx(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+        prof.__enter__()
+    _sync(torch, device)
+    t0 = time.monotonic()
+    eng.step()
+    _sync(torch, device)
+    wall = (time.monotonic() - t0) * 1e3
+    dev_ms = None
+    if prof is not None:
+        from torch.autograd import DeviceType
+        prof.__exit__(None, None, None)
+        dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == DeviceType.CUDA) / 1e3
+    coll = {}
+    for k, v in collectives.STATS.items():
+        b = before.get(k, {"calls": 0, "bytes": 0, "seconds": 0.0})
+        if v["calls"] > b["calls"]:
+            coll[k] = [v["calls"] - b["calls"], v["bytes"] - b["bytes"],
+                       round(v["seconds"] - b["seconds"], 4)]
+    return wall, dev_ms, coll
+
+
+def mesh_serve_restore(torch, store, cell, params, device, *, mesh=None,
+                       streaming=False, resnap=False, manager=None):
+    """The serving checkpoint of ``cell["at"]`` restored onto ``mesh``
+    (or one device) and decoded to the end: its return time and phases,
+    the first token's time (the restore, the landing of a streamed cache
+    and the first engine step; the digest read between them is not
+    counted), the restored cache digest, the first step's logits
+    (whole), every live request's tokens and each later step's wall
+    ms. With ``resnap`` the restored engine goes on snapshotting every
+    interval steps, into ``manager`` (rank 0's; the other ranks join
+    the cache's gather)."""
+    from repro_torch.api import CheckpointSession
+    sess = CheckpointSession(f"localfs:{store}")
+    kw = {"mesh_factory": lambda: mesh} if mesh is not None else \
+        {"device": device}
+    _sync(torch, device)
+    t0 = time.monotonic()
+    eng = sess.restore(cell["at"], params=params, streaming=streaming, **kw)
+    eng._ensure_cache()
+    _sync(torch, device)
+    restore_s = time.monotonic() - t0
+    live = eng.live_requests()
+    digest = eng.cache_digest()
+    first_s = restore_s + _timed_step(torch, eng, device)[0] / 1e3
+    logits = eng.last_logits.float().cpu()
+    steps_ms = []
+    if manager is not None:
+        eng.manager = manager
+    while eng.queue or any(eng.slot_req):
+        steps_ms.append(_timed_step(torch, eng, device)[0])
+        if resnap and eng.steps % cell["policy"]["interval"] == 0:
+            eng.snapshot()
+    out = dict(restore_s=restore_s, first_s=first_s, digest=digest,
+               logits=logits, timings=dict(eng.incarnation.timings),
+               tokens={r.rid: list(r.out) for r in live},
+               step_ms=steps_ms, streamed=streaming)
+    sess.close()
+    del eng, sess
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serve_rank(torch, rank, device, store, cell, mark):
+    """One rank of the serving cell's first launch: ``cell["arch"]``
+    served on ``cell["mesh"]`` to the end, a snapshot every
+    ``cell["policy"]["interval"]`` steps (rank 0 holds the session), the
+    cache digest at ``cell["at"]`` and the next step's logits kept, one
+    decode step profiled; then ``cell["at"]`` restored onto the same
+    mesh and decoded to the end."""
+    import numpy as np
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.configs import resolve_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Request, ServingEngine
+    cfg = resolve_config(cell["arch"])
+    params = M.init_params(cfg, seed=0, device=device)      # whole
+    prompts = serving_prompts(np, cfg.vocab_size)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _rank_reset()
+    sess = CheckpointSession(f"localfs:{store}", Policy(**cell["policy"])) \
+        if rank == 0 else None
+    eng = ServingEngine.create(cell["arch"], params, cell["mesh"],
+                               MESH_AXES, n_slots=cell["n_slots"],
+                               max_seq=cell["max_seq"],
+                               manager=sess and sess.manager, device=device)
+    mark("serve: engine built")
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=cell["max_new"])
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    every = cell["policy"]["interval"]
+    step_ms, snap_s, out = [], [], {}
+    while eng.queue or any(eng.slot_req):
+        # step 6: a first-wave decode step (all four slots, no admission)
+        wall, dev_ms, coll = _timed_step(torch, eng, device,
+                                         profile=eng.steps == 5)
+        step_ms.append(wall)
+        if eng.steps == 6:
+            out.update(profiled=dict(wall_ms=wall, device_ms=dev_ms,
+                                     collectives=coll))
+        if eng.steps == cell["at"] + 1:
+            out["next_logits"] = eng.last_logits.float().cpu()
+        if eng.steps % every == 0:
+            t0 = time.monotonic()
+            eng.snapshot()
+            snap_s.append(time.monotonic() - t0)
+            if eng.steps == cell["at"]:
+                out["digest"] = eng.cache_digest()
+    mark("serve: uninterrupted")
+    t0 = time.monotonic()
+    if sess is not None:
+        sess.wait()
+        out["encode_s"] = sess.stats["encode_commit_seconds"]
+        out["bytes_written"] = sess.stats["bytes_written"]
+        sess.close()
+    torch.distributed.barrier()          # rank 0's commits are readable
+    out.update(drain_s=time.monotonic() - t0, step_ms=step_ms,
+               snap_s=snap_s, tokens={r.rid: list(r.out) for r in reqs},
+               plan=str(eng.plan),
+               local_k=tuple(eng.cache["k"].to_local().shape))
+    del eng
+    mark("serve: drained")
+    # the restored engine goes on snapshotting, dense (its chain links
+    # XOR on the card; the sparse links XOR their dirty chunks on the
+    # host), into a store of its own
+    dense = store.rstrip("/") + "-dense"
+    resnap = CheckpointSession(f"localfs:{dense}", Policy(
+        **cell["policy"], sparse=False)) if rank == 0 else None
+    out["restore"] = mesh_serve_restore(
+        torch, store, cell, params, device,
+        mesh=make_mesh(cell["mesh"], MESH_AXES, device), resnap=True,
+        manager=resnap and resnap.manager)
+    out["counts"] = _rank_counts(device)
+    if resnap is not None:
+        resnap.wait()
+        out["resnap"] = dict(resnap.stats)
+        resnap.close()
+        shutil.rmtree(dense, ignore_errors=True)
+    if rank:
+        out["restore"]["logits"] = out["next_logits"] = None
+    mark("serve: restored, decoded")
+    out["peak"] = _peak(torch, device)
+    del params
+    return out
+
+
+def mesh_train_rank(rank, world, device, store, cell, spawned,
+                    serve_store=None, serve=None):
     """One rank of the mesh path's uninterrupted run: ``cell["steps"]``
     steps on ``cell["mesh"]``, a snapshot after each (a base, then its
-    links; rank 0 commits them in the background), then one more
-    step."""
+    links; rank 0 commits them in the background), then one more step;
+    then, given ``serve``, ``mesh_serve_rank`` into ``serve_store``."""
     import torch
     from repro_torch.api import CheckpointSession, Policy
     from repro_torch.train.loop import Trainer, TrainJob
@@ -3329,6 +3523,13 @@ def mesh_train_rank(rank, world, device, store, cell, spawned):
                counts=_rank_counts(device), stats=_rank_stats(),
                peak=_peak(torch, device), plan=str(tr.plan),
                step=cell["steps"])
+    if serve is not None:
+        del tr
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["serve"] = mesh_serve_rank(torch, rank, device, serve_store,
+                                       serve, mark)
     return out
 
 
@@ -3480,21 +3681,28 @@ def mesh_pipeline(torch, device, rank, world):
                 bubble=bubble_fraction(world, c["M"]))
 
 
-def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned):
+def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned,
+                      serve_store=None, serve=None):
     """One rank of the mesh path's second launch: the checkpoint restored
     onto each of ``cell["elastic"]`` and stepped once (the state digest
-    read after the step on the uninterrupted run's mesh), then the
-    expert-parallel forward, the compressed all-reduce and the
+    read after the step on the uninterrupted run's mesh); given
+    ``serve``, its serving checkpoint restored onto each of
+    ``serve["targets"]`` and decoded to the end (``mesh_serve_restore``);
+    then the expert-parallel forward, the compressed all-reduce and the
     pipeline."""
     import gc
     import torch
     from repro_torch.configs import resolve_config
     mark = _Marks(spawned)
     torch.use_deterministic_algorithms(True)
-    out = {"restores": [], "marks": mark.at}
+    out = {"restores": [], "marks": mark.at, "serve": []}
     from repro_torch.launch.mesh import make_mesh
-    meshes = {shape: make_mesh(shape, MESH_AXES, device)
-              for shape in cell["elastic"]}
+    shapes = list(cell["elastic"]) + ([t for t, _ in serve["targets"]]
+                                      if serve is not None else [])
+    meshes = {}
+    for shape in shapes:
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, MESH_AXES, device)
     _rank_reset()
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -3521,6 +3729,25 @@ def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned):
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
+    if serve is not None:
+        from repro_torch.models import model as M
+        params = M.init_params(resolve_config(serve["arch"]), seed=0,
+                               device=device)
+        for shape, streaming in serve["targets"]:
+            res = mesh_serve_restore(torch, serve_store, serve, params,
+                                     device, mesh=meshes[shape],
+                                     streaming=streaming)
+            res["shape"] = shape
+            if rank:
+                res["logits"] = None          # every rank's are the same
+            out["serve"].append(res)
+            mark(f"serve restore {shape}")
+        del params
+    out["peak_before_moe"] = _peak(torch, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     cfg = resolve_config(moe["arch"]).replace(
         capacity_factor=moe["capacity_factor"])
     if device != "cuda":
@@ -3545,7 +3772,95 @@ def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned):
     return out
 
 
-def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None):
+def _rel_norm(torch, a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def mesh_serve_report(torch, runs, runs2, one, cell, world, device):
+    """The serving cell's checks and lines (``MESH_SERVE``): raises
+    unless every rank emits the same tokens, every target's restored
+    cache digest is the saved one, the same-mesh continuation gives
+    every request's tokens and rank 0's capture kernels launched, and
+    the first restored step's logits lie within ``cell["logits_rel"]``
+    of the uninterrupted run's elsewhere. Returns rank 0's launches."""
+    sv = [r["serve"] for r in runs]
+    s0 = sv[0]
+    if len({repr(sorted(x["tokens"].items())) for x in sv}) != 1 or \
+            len({repr(sorted(x["restore"]["tokens"].items()))
+                 for x in sv}) != 1:
+        raise AssertionError("mesh serving: the ranks' tokens differ")
+    want, digest = s0["tokens"], s0["digest"]
+    if any(len(t) != cell["max_new"] for t in want.values()):
+        raise AssertionError(f"mesh serving: unfinished requests {want}")
+    same = s0["restore"]
+    if same["digest"] != digest or same["tokens"] != want:
+        raise AssertionError(
+            f"mesh serving: {cell['mesh']} continuation: digest "
+            f"{same['digest']} vs saved {digest}, tokens equal "
+            f"{same['tokens'] == want}")
+    missing = [k for k in CAPTURE_KERNELS if not s0["counts"].get(k)]
+    if device == "cuda" and missing:
+        raise AssertionError(f"mesh serving: rank 0's snapshots missed "
+                             f"{missing}: {s0['counts']}")
+    targets = [(tuple(t["shape"]), t) for t in runs2[0]["serve"]]
+    for r in runs2[1:]:
+        if [x["tokens"] for x in r["serve"]] != \
+                [t["tokens"] for _, t in targets]:
+            raise AssertionError("mesh serving: the second launch's ranks' "
+                                 "tokens differ")
+    targets.append(("one device", one))
+    lines = []
+    for name, t in [(cell["mesh"], same)] + targets:
+        rel = _rel_norm(torch, t["logits"], s0["next_logits"])
+        ok = sum(t["tokens"][k] == want[k] for k in t["tokens"])
+        if t["digest"] != digest:
+            raise AssertionError(f"mesh serving: {name}: restored cache "
+                                 f"digest {t['digest']} != saved {digest}")
+        if name != cell["mesh"] and rel > cell["logits_rel"]:
+            raise AssertionError(f"mesh serving: {name}: first restored "
+                                 f"step's logits {rel:.3e} off (limit "
+                                 f"{cell['logits_rel']})")
+        tm = t["timings"]
+        lines.append(
+            f"{name}{' streamed' if t['streamed'] else ''}: restore "
+            f"{t['restore_s']:.2f} s (materialize "
+            f"{tm.get('materialize_s', 0):.2f}, replay "
+            f"{tm.get('replay_s', 0):.2f}, rebind {tm.get('rebind_s', 0):.2f})"
+            f", first token {t['first_s']:.2f} s, first step's logits "
+            f"{rel:.3e} off, {ok} of {len(t['tokens'])} requests token for "
+            f"token, decode {_median(t['step_ms']):.0f} ms a step")
+    prof = [x["profiled"] for x in sv]
+    log(f"mesh serving: {cell['arch']} on {cell['mesh']} x {world} ranks, "
+        f"plan {s0['plan']}, local k block {s0['local_k']}; "
+        f"{len(s0['step_ms'])} steps, decode ms a step (median per rank) "
+        + str([round(_median(x["step_ms"]), 1) for x in sv])
+        + "; one first-wave step per rank: wall ms "
+        + str([round(p["wall_ms"], 1) for p in prof]) + ", device ms "
+        + str([None if p["device_ms"] is None else round(p["device_ms"], 2)
+               for p in prof])
+        + f"; its staged collectives on rank 0 (calls, bytes, s): "
+        f"{prof[0]['collectives']}; snapshots (gather onto rank 0 and "
+        f"capture) {[round(x, 2) for x in s0['snap_s']]} s, rank 0's "
+        f"encode + commit {s0.get('encode_s', 0):.2f} s, "
+        f"{s0.get('bytes_written', 0)} bytes written; the restored engine's "
+        f"dense snapshots {s0['resnap']['saves']} ("
+        f"{s0['resnap']['chain_links']} links, "
+        f"{s0['resnap']['bytes_written']} bytes); launches rank 0 "
+        f"{ {k: v for k, v in s0['counts'].items() if v} }; peak device "
+        f"memory per rank GB {[round(x['peak'] / 1e9, 2) for x in sv]}")
+    log("mesh serving: the saved cache digest restored on every target; "
+        "same-mesh tokens bit for bit; " + "; ".join(lines))
+    return s0["counts"]
+
+
+def _median(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else 0.0
+
+
+def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None,
+              serve=None):
     """Training over a device mesh and elastic restore across meshes
     (ROADMAP A9a), four ranks on the one card: (a) ``MESH_TRAIN`` on a
     (2, 2) mesh through the flash kernels on each rank's local heads, a
@@ -3561,11 +3876,15 @@ def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None):
     pipeline against the plain layer loop. Returns the ranks' flash and
     codec launches summed."""
     from repro_torch.api import CheckpointSession
+    from repro_torch.configs import resolve_config
     from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import model as M
     from repro_torch.train.loop import Trainer
     cell, moe = cell or MESH_TRAIN, moe or MESH_MOE
+    serve = serve or MESH_SERVE
     world = int(np.prod(cell["mesh"]))
     store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    serve_store = tempfile.mkdtemp(prefix="chip_smoke_mesh_serve_")
     total = {}
 
     def add(counts):
@@ -3580,7 +3899,8 @@ def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None):
     try:
         t0 = time.monotonic()
         runs = spawn_ranks(mesh_train_rank, world, device=device,
-                           args=(device, store, cell, time.time()),
+                           args=(device, store, cell, time.time(),
+                                 serve_store, serve),
                            timeout_s=600)
         train_s = time.monotonic() - t0         # the group is torn down
         t0 = time.monotonic()
@@ -3595,12 +3915,24 @@ def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None):
         if device == "cuda":
             torch.cuda.empty_cache()
         t0 = time.monotonic()
+        params = M.init_params(resolve_config(serve["arch"]), seed=0,
+                               device=device)
+        one_serve = mesh_serve_restore(torch, serve_store, serve, params,
+                                       device)
+        one_serve_s = time.monotonic() - t0
+        del params
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.monotonic()
         runs2 = spawn_ranks(mesh_elastic_rank, world, device=device,
-                            args=(device, store, cell, moe, time.time()),
+                            args=(device, store, cell, moe, time.time(),
+                                  serve_store, serve),
                             timeout_s=600)
         elastic_s = time.monotonic() - t0
     finally:
         shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(serve_store, ignore_errors=True)
     r0 = runs[0]
     for r in runs:
         add(r["counts"])
@@ -3668,9 +4000,18 @@ def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None):
         + f"; (1, 1) in this process {one_s:.2f} s, loss {one_loss}; every "
         f"params digest the saved {r0['digest']}; {cell['mesh']}'s loss and "
         f"state digest bit-identical to the uninterrupted run's, the other "
-        f"losses within {cell['loss_rtol']} relative; peak device "
-        f"memory per rank GB {[round(r['peak'] / 1e9, 2) for r in runs2]}")
+        f"losses within {cell['loss_rtol']} relative")
     log(f"mesh path: rank 0's second run, s from its spawn: {e0['marks']}")
+    for r in runs:
+        add(r["serve"]["counts"])
+    mesh_serve_report(torch, runs, runs2, one_serve, serve, world, device)
+    log(f"mesh serving: one device in this process {one_serve_s:.2f} s "
+        f"(params made included); peak device memory per rank GB in the "
+        f"second launch before llama4-scout's forward (training and "
+        f"serving restores) "
+        f"{[round(r['peak_before_moe'] / 1e9, 2) for r in runs2]}, and "
+        f"from its forward on (reset between) "
+        f"{[round(r['peak'] / 1e9, 2) for r in runs2]}")
     m = e0["moe"]
     # bf16 (ROADMAP C8): the mesh sums the attention's and the shared
     # expert's parts in another order, so a token whose top-1 choice is

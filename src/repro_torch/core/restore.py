@@ -13,8 +13,6 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional
 
-import numpy as np
-
 from repro_torch.core.checkpoint import RestoredState
 from repro_torch.host import to_tensor
 from repro_torch.parallel.sharding import shard_tensor
@@ -55,23 +53,20 @@ def materialize_entry(restored: RestoredState, name: str, template,
     (``logical``) then bind through ``spec_for_axes`` under ``plan`` onto
     that mesh, and each rank keeps only its block, as a DTensor (a leaf
     with no axes, or a 0-d one, replicated). The checkpoint holds whole
-    leaves, whatever mesh wrote it, so any mesh can read it."""
+    leaves, whatever mesh wrote it, so any mesh can read it; a streamed
+    entry is waited for whole first, then sharded, as the reference
+    does."""
     by_path = restored.entries[name]
     # a streaming restore hands us a LazyLeaves Mapping: binding a whole
     # entry is a bulk page-in, so wait for it as one promoted batch
     # instead of faulting leaf-by-leaf through fill_like
     waiter = getattr(by_path, "wait", None)
-    from repro_torch.launch.mesh import is_device_mesh
-    if is_device_mesh(device):
-        if callable(waiter):
-            raise NotImplementedError(
-                "a streamed restore onto a mesh of "
-                f"{int(np.prod(list(device.shape)))} ranks waits for "
-                "ROADMAP A9b")
-        return _materialize_on_mesh(fill_like(template, by_path), template,
-                                    device, plan, logical)
     if callable(waiter):
         waiter()
+    from repro_torch.launch.mesh import is_device_mesh
+    if is_device_mesh(device):
+        return _materialize_on_mesh(fill_like(template, by_path), template,
+                                    device, plan, logical)
     host_tree = fill_like(template, by_path)
     return tree_map(lambda t, v: to_tensor(v, t.dtype, device),
                     template, host_tree)

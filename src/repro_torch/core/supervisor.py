@@ -52,7 +52,7 @@ the same device — an engine re-slotted onto as many slots as its
 restore hook asks for (``launch/serve.py`` gives it slots in proportion
 to the surviving hosts). The device mesh stays ``(1, 1)``: a restore
 hook that hands the runner a mesh of more than one device raises
-``NotImplementedError`` (``one_device_mesh``) until ROADMAP A9b.
+``NotImplementedError`` (``one_device_mesh``) until ROADMAP A9b step 2.
 """
 from __future__ import annotations
 
@@ -120,9 +120,9 @@ def one_device_mesh(mesh_factory: Callable[[], Any]) -> Callable[[], Any]:
     """Wrap a restore hook's ``mesh_factory``: the port's runners live on
     one device, so a factory that builds a mesh of more than one device
     (a sequence or array of devices, or anything with a ``shape``) raises
-    ``NotImplementedError`` naming ROADMAP A9b instead of restoring onto
-    a topology the supervisor cannot drive yet (a trainer itself
-    restores onto any mesh, ``train.loop``)."""
+    ``NotImplementedError`` naming ROADMAP A9b step 2 instead of
+    restoring onto a topology the supervisor cannot drive yet (a trainer
+    or an engine itself restores onto any mesh)."""
     def factory():
         mesh = mesh_factory()
         shape = getattr(mesh, "shape", None)
@@ -137,7 +137,7 @@ def one_device_mesh(mesh_factory: Callable[[], Any]) -> Callable[[], Any]:
             raise NotImplementedError(
                 f"a restore onto a device mesh of {n} devices: the port's "
                 "supervisor rebuilds runners on one device until ROADMAP "
-                "A9b")
+                "A9b step 2")
         return mesh[0] if isinstance(mesh, (list, tuple)) else mesh
     return factory
 

@@ -117,7 +117,7 @@ def main(argv=None) -> int:
     if mesh != (1, 1):
         if args.supervise:
             print("[launch] --supervise over a mesh of more than one rank "
-                  "waits for ROADMAP A9b", file=sys.stderr)
+                  "waits for ROADMAP A9b step 2", file=sys.stderr)
             return 2
         spawn_ranks(_mesh_rank, mesh[0] * mesh[1], device=str(device),
                     args=(args, spec, resume, resume_step, mesh))
@@ -181,6 +181,7 @@ def _mesh_rank(rank, world, args, spec, resume, resume_step, mesh):
     factory = lambda: make_mesh(mesh, ("data", "model"), device)
     if sess.latest_step() is not None:
         tr = sess.restore(step=resume_step, expect_kind="train",
+                          streaming=args.streaming_restore or None,
                           mesh_factory=factory)
         say(f"[launch] RESUMED {args.arch} at step {tr.checkpoint_step()} "
             f"from {spec} onto mesh {mesh} "

@@ -21,15 +21,23 @@ which keeps one cache allocation alive instead of two. A snapshot of the
 cache therefore has to copy it (``core.async_snapshot._StagingSlot``)
 and cannot assume an unchanged object holds unchanged bytes.
 
-Under a device mesh (``parallel.context``) the training forward's
-tensors are DTensors: projections, norms and the MLP run through
-DTensor's sharding propagation, and attention drops to each rank's
-local heads (``_mesh_attention``) so the flash kernels — or the plain
-attention on the CPU — only ever see plain tensors.
+Under a device mesh (``parallel.context``) the training forward's and
+the serving steps' tensors are DTensors: projections, norms and the MLP
+run through DTensor's sharding propagation, and attention drops to each
+rank's local heads (``_mesh_attention``; with a cache,
+``_mesh_cached_attention``) so the flash kernels — or the plain
+attention — only ever see plain tensors. A cache over a mesh comes in
+as each layer's ``CacheBlock``: this rank's blocks of k, v and pos,
+written in place. Where the plan splits the cache's sequence over the
+model axis, each rank writes the positions that fall in its block and a
+decode query attends to that block alone; the ranks then combine their
+partial softmaxes in rank order (``combine_partials``), so every run on
+one mesh gives the same bits.
 """
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -186,18 +194,28 @@ def dense_attention(
 ) -> torch.Tensor:
     """One-shot softmax attention (decode and short-seq paths). Shapes
     as chunked_attention."""
+    _, l, acc = partial_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                  window=window, softcap=softcap)
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def partial_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
+                      window: int = 0, softcap: float = 0.0):
+    """``dense_attention`` before its normalisation, over the keys given
+    (all of them, or one block of them): (the row max m [B,Sq,Hkv,G],
+    the sum of exp l, the exp-weighted values acc [B,Sq,Hkv,G,hd]), all
+    f32. A block where a row sees no key gives m = -1e30, which
+    ``combine_partials`` weighs by 0."""
     hd = q.shape[-1]
-    scale = 1.0 / math.sqrt(hd)
-    s = _per_row("bqkgd,bckd->bqkgc", q.float() * scale, k.float())
+    s = _per_row("bqkgd,bckd->bqkgc", q.float() * (1.0 / math.sqrt(hd)),
+                 k.float())
     if softcap > 0.0:
         s = torch.tanh(s / softcap) * softcap
     valid = _mask(q_pos, kv_pos, causal, window)
     s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = exp_stable(s - m)
-    out = _per_row("bqkgc,bckd->bqkgd", p, v.float())
-    out = out / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
-    return out.to(q.dtype)
+    m = s.amax(dim=-1)
+    p = exp_stable(s - m[..., None])
+    return m, p.sum(dim=-1), _per_row("bqkgc,bckd->bqkgd", p, v.float())
 
 
 def _per_row(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -241,10 +259,10 @@ def attention_forward(
     nh, nkv = cfg.n_heads, cfg.n_kv_heads
     g = nh // nkv
 
-    if is_dtensor(x) and (cache is not None or cross_kv is not None):
+    if is_dtensor(x) and cross_kv is not None:
         raise NotImplementedError(
-            "attention with a cache or cross k/v under a device mesh: "
-            "serving over a mesh waits for ROADMAP A9b")
+            "cross-attention under a device mesh: the encoder-decoder over "
+            "a mesh waits for ROADMAP A9b step 4")
     x = replicate_seq(x)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if "bq" in p:
@@ -260,6 +278,12 @@ def attention_forward(
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         if cross_kv is None:
             k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if is_dtensor(q) and cache is not None:
+        out = _mesh_cached_attention(cfg, q, k, v, positions, cache,
+                                     window=window, causal=causal,
+                                     use_rope=use_rope,
+                                     attn_chunk=attn_chunk)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if is_dtensor(q):
         out = _mesh_attention(cfg, q, k, v, causal=causal, window=window,
                               use_rope=use_rope, attn_chunk=attn_chunk)
@@ -284,27 +308,9 @@ def attention_forward(
     qg = q.reshape(B, S, nkv, g, h)
     softcap = cfg.attn_logit_softcap
     if cache is not None:
-        smax = cache["k"].shape[1]
-        if window > 0 and S > smax:
-            # prefill into a ring buffer: only the trailing `window`
-            # positions can ever be attended to — write just those.
-            pos_w = positions[:, -smax:]
-            slot = pos_w % smax
-            _scatter_rows_(cache["k"], slot, k[:, -smax:])
-            _scatter_rows_(cache["v"], slot, v[:, -smax:])
-            _scatter_rows_(cache["pos"], slot, pos_w)
-        else:
-            slot = positions % smax if window > 0 else positions
-            _scatter_rows_(cache["k"], slot, k)
-            _scatter_rows_(cache["v"], slot, v)
-            _scatter_rows_(cache["pos"], slot, positions)
-        if S == 1:
-            # decode: attend over the (just updated) cache
-            att_k, att_v, att_pos = cache["k"], cache["v"], cache["pos"]
-        else:
-            # prefill: attend over the inputs (a ring cache only holds the
-            # trailing window; every query still sees its own context here)
-            att_k, att_v, att_pos = k, v, positions
+        blk = CacheBlock.whole(cache)
+        _write_block_(blk, positions, k, v, window)
+        att_k, att_v, att_pos = _attended(blk, positions, k, v)
     else:
         return torch.einsum("bshk,hkd->bsd", _attend(
             q, k, v, positions, causal=causal, window=window,
@@ -419,6 +425,211 @@ def _mesh_attention(cfg: ModelConfig, q, k, v, *, causal: bool,
     out = _attend(q_l, k_l.contiguous(), v_l.contiguous(), positions,
                   causal=causal, window=window,
                   softcap=cfg.attn_logit_softcap, attn_chunk=attn_chunk)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+# ---------------------------------------------------------------------------
+# attention with a cache over a mesh
+# ---------------------------------------------------------------------------
+
+@dataclass
+class CacheBlock:
+    """One layer's KV cache as this rank holds it (on one device, all of
+    it: ``whole``): its blocks k, v [B_l, S_l, Hkv_l, hd] and pos
+    [B_l, Smax] (the positions split only with the slots, so every model
+    rank holds and writes them all), plain tensors that alias the
+    cache's DTensors, so writes land in place; and where they lie in the whole layer: the first slot and
+    sequence position of the block (``rows``, ``seq``), the whole
+    cache's sequence length and KV head count, and whether its slots are
+    split over the data axes."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    rows: int
+    seq: int
+    smax: int
+    n_kv: int
+    batch_split: bool
+
+    @classmethod
+    def whole(cls, cache: Dict[str, torch.Tensor]) -> "CacheBlock":
+        """One layer's cache on one device: the block is all of it."""
+        k = cache["k"]
+        return cls(k=k, v=cache["v"], pos=cache["pos"], rows=0, seq=0,
+                   smax=int(k.shape[1]), n_kv=int(k.shape[2]),
+                   batch_split=False)
+
+    @property
+    def seq_split(self) -> bool:
+        return self.k.shape[1] < self.smax
+
+    @property
+    def pos_block(self) -> torch.Tensor:
+        """The positions of this rank's block of the sequence."""
+        return self.pos[:, self.seq:self.seq + self.k.shape[1]]
+
+    @property
+    def kv_split(self) -> bool:
+        return self.k.shape[2] < self.n_kv
+
+
+def local_of(t):
+    """A DTensor's local block, aliasing its storage (writes land in
+    the DTensor)."""
+    with torch.no_grad():
+        return t.to_local()
+
+
+def cache_block(cache: Dict[str, Any], i: int) -> CacheBlock:
+    """Layer ``i`` of a cache of DTensors stacked over layers (k, v
+    [L, B, Smax, Hkv, hd], pos [L, B, Smax]) as this rank's
+    ``CacheBlock``."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.parallel.sharding import block_narrows
+    k = cache["k"]
+    mesh = k.device_mesh
+    coord = [int(mesh.get_local_rank(d)) for d in range(mesh.ndim)]
+    start = [0] * k.ndim
+    for d, lo, _ in block_narrows(tuple(k.shape), tuple(mesh.shape), coord,
+                                  k.placements):
+        start[d] = lo
+    return CacheBlock(k=local_of(k)[i], v=local_of(cache["v"])[i],
+                      pos=local_of(cache["pos"])[i], rows=start[1],
+                      seq=start[2], smax=int(k.shape[2]),
+                      n_kv=int(k.shape[3]), batch_split=any(
+                          isinstance(p, Shard) and p.dim == 1 and n > 1
+                          for p, n in zip(k.placements, mesh.shape)))
+
+
+def _cache_slots(positions: torch.Tensor, smax: int, window: int):
+    """(positions, slots) a cache write takes: every position, at its
+    slot (``% smax`` in a ring buffer); with a window shorter than the
+    input, only the trailing ``smax`` positions."""
+    if window > 0 and positions.shape[1] > smax:
+        positions = positions[:, -smax:]
+    return positions, (positions % smax if window > 0 else positions)
+
+
+def _write_block_(blk: CacheBlock, positions: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, window: int) -> None:
+    """Write this rank's part of k/v [B_l, S, Hkv_l, hd] at
+    ``positions`` [B_l, S] into ``blk`` in place: every row where the
+    block holds the whole sequence, else only the rows whose slot falls
+    in the block."""
+    s = positions.shape[1]
+    pos_w, slot = _cache_slots(positions, blk.smax, window)
+    k, v = k[:, s - pos_w.shape[1]:], v[:, s - pos_w.shape[1]:]
+    _scatter_rows_(blk.pos, slot, pos_w)
+    if not blk.seq_split:
+        _scatter_rows_(blk.k, slot, k)
+        _scatter_rows_(blk.v, slot, v)
+        return
+    local = slot.long() - blk.seq
+    mine = (local >= 0) & (local < blk.k.shape[1])
+    b_idx, s_idx = mine.nonzero(as_tuple=True)
+    at = (b_idx, local[b_idx, s_idx])
+    blk.k.index_put_(at, k[b_idx, s_idx].to(blk.k.dtype))
+    blk.v.index_put_(at, v[b_idx, s_idx].to(blk.v.dtype))
+
+
+def _attended(blk: CacheBlock, positions: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor):
+    """(k, v, positions) a step attends over once it has written them:
+    a decode step (one token) the cache's block, just updated; a prefill
+    its own inputs (a ring cache only holds the trailing window, and
+    every query still sees its own context here)."""
+    if positions.shape[1] == 1:
+        return blk.k, blk.v, blk.pos_block
+    return k, v, positions
+
+
+def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor
+                     ) -> torch.Tensor:
+    """Softmax attention from the partial results of n key blocks,
+    stacked on a leading dim in block order (m, l [n, ...], acc
+    [n, ..., hd]): each block's sum and values rescaled to the largest
+    row max and added in block order."""
+    top = m.amax(dim=0)
+    tot = torch.zeros_like(l[0])
+    out = torch.zeros_like(acc[0])
+    for r in range(m.shape[0]):
+        w = exp_stable(m[r] - top)
+        tot = tot + l[r] * w
+        out = out + acc[r] * w[..., None]
+    return out / torch.clamp(tot, min=1e-30)[..., None]
+
+
+def _gather_model(x: torch.Tensor, ctx, batch) -> torch.Tensor:
+    """Every model rank's ``x`` (this rank's rows [B_l, ...]) stacked on
+    a new leading dim in model-rank order, on every rank."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    rows = Shard(1) if isinstance(batch, Shard) else Replicate()
+    d = DTensor.from_local(x[None], ctx.mesh, ctx.placements(rows, Shard(0)),
+                           run_check=False)
+    return d.redistribute(ctx.mesh, ctx.placements(rows, Replicate())) \
+        .to_local()
+
+
+def _mesh_cached_attention(cfg: ModelConfig, q, k, v, positions, blk,
+                           *, window: int, causal: bool, use_rope: bool,
+                           attn_chunk: int):
+    """Attention with a cache of DTensors q [B,S,H,hd], k/v [B,S,Hkv,hd]
+    on each rank's slots: returns [B,S,H,hd] (heads over the model axis
+    where the queries split). ``positions`` [B, S] is whole on every
+    rank; ``blk`` is this layer's ``CacheBlock``.
+
+    The batch takes the cache's split over the data axes. Where the cache
+    splits its KV heads, q and k/v split theirs the same way; where it
+    does not, k/v stay whole and each rank's query heads read the KV
+    heads they need (``kv_heads_for``). RoPE and the cache write run on
+    the local blocks. A prefill attends over its own inputs; a decode
+    step over the cache: where the cache's sequence is split, with every
+    query head, over this rank's block, then ``combine_partials`` over
+    the model axis in rank order."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    ctx = pctx.for_mesh(mesh)
+    m, r = ctx.model_size(), ctx.model_rank()
+    H, Hkv, S = q.shape[2], k.shape[2], q.shape[1]
+    batch = Shard(0) if blk.batch_split else Replicate()
+    combine = blk.seq_split and S == 1
+    q_split = m > 1 and H % m == 0 and not combine
+    qp = ctx.placements(batch, Shard(2) if q_split else Replicate())
+    kvp = ctx.placements(batch, Shard(2) if blk.kv_split else Replicate())
+    q_l = local_of(q.redistribute(mesh, qp))
+    k_l = local_of(k.redistribute(mesh, kvp))
+    v_l = local_of(v.redistribute(mesh, kvp))
+    pos_l = positions[blk.rows:blk.rows + q_l.shape[0]]
+    if use_rope:
+        q_l = rope_apply(q_l, pos_l, cfg.rope_theta)
+        k_l = rope_apply(k_l, pos_l, cfg.rope_theta)
+    _write_block_(blk, pos_l, k_l, v_l, window)
+    att_k, att_v, att_pos = _attended(blk, pos_l, k_l, v_l)
+    if q_split and not blk.kv_split:
+        lo, hi, idx = kv_heads_for(H, Hkv, m, r)
+        if idx is None:
+            att_k, att_v = att_k[:, :, lo:hi], att_v[:, :, lo:hi]
+        else:
+            sel = torch.tensor(idx, device=att_k.device)
+            att_k, att_v = att_k.index_select(2, sel), \
+                att_v.index_select(2, sel)
+    b_l, hd = q_l.shape[0], q_l.shape[-1]
+    qg = q_l.reshape(b_l, S, att_k.shape[2], -1, hd)
+    softcap = cfg.attn_logit_softcap
+    if combine:
+        pm, pl, pacc = partial_attention(qg, att_k, att_v, pos_l, att_pos,
+                                         causal=causal, window=window,
+                                         softcap=softcap)
+        every = _gather_model(torch.cat([pm[..., None], pl[..., None], pacc],
+                                        dim=-1), ctx, batch)
+        out = combine_partials(every[..., 0], every[..., 1],
+                               every[..., 2:]).to(q_l.dtype)
+    else:
+        out = _attend_positions(qg, att_k.contiguous(), att_v.contiguous(),
+                                pos_l, att_pos, causal=causal,
+                                window=window, softcap=softcap,
+                                attn_chunk=attn_chunk)
+    out = out.reshape(b_l, S, q_l.shape[2], hd)
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
 

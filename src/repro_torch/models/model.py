@@ -41,6 +41,7 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import params as PM
 from repro_torch.models import ssm as SSM
 from repro_torch.models.params import P, stacked
+from repro_torch.parallel.sharding import contiguous_strides
 from repro_torch.tree import fill_like, flatten_with_paths, tree_map
 
 
@@ -199,7 +200,8 @@ def _decoder(cfg: ModelConfig, stacked_params, x: torch.Tensor,
     layers = _unstack(stacked_params, cfg.n_layers)
     aux = _zero(x)
     for i, p in enumerate(layers):
-        c = _layer(cache, i) if cache is not None else None
+        c = None if cache is None else L.cache_block(cache, i) \
+            if L.is_dtensor(cache["k"]) else _layer(cache, i)
         if opts.remat == "full" and cache is None:
             x, a = checkpoint(_block, cfg, p, x, positions, None,
                               opts.act_constraint, use_reentrant=False)
@@ -405,19 +407,20 @@ def _embed_mesh(table, tokens):
     m, r = ctx.model_size(), ctx.model_rank()
     split = m > 1 and table.shape[0] % m == 0
     vocab = Shard(0) if split else Replicate()
+    rows = pctx.batch_placement(tokens)
     t_l = table.redistribute(mesh, ctx.placements(Replicate(), vocab)) \
         .to_local(grad_placements=ctx.placements(Partial(), vocab))
-    ids = tokens.redistribute(mesh, ctx.placements(Shard(0), Replicate())) \
+    ids = tokens.redistribute(mesh, ctx.placements(rows, Replicate())) \
         .to_local().long()
     if split:
         ids = ids - r * t_l.shape[0]
         mine = (ids >= 0) & (ids < t_l.shape[0])
-        rows = t_l[ids.clamp(0, t_l.shape[0] - 1)] * mine[..., None].to(
+        out = t_l[ids.clamp(0, t_l.shape[0] - 1)] * mine[..., None].to(
             t_l.dtype)
     else:
-        rows = t_l[ids]
-    return DTensor.from_local(rows, mesh, ctx.placements(
-        Shard(0), Partial() if split else Replicate()), run_check=False)
+        out = t_l[ids]
+    return DTensor.from_local(out, mesh, ctx.placements(
+        rows, Partial() if split else Replicate()), run_check=False)
 
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor,
@@ -453,7 +456,8 @@ def forward_train(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     if L.is_dtensor(tokens) and cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family!r} family over a device "
-            "mesh is not ported; the dense and moe decoders are")
+            "mesh is not ported; the dense and moe decoders are (the rest "
+            "waits for ROADMAP A9b step 4)")
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     x = _maybe(opts.act_constraint, _embed(params, tokens))
@@ -542,34 +546,78 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None):
 
 # --- prefill / decode --------------------------------------------------------
 
+def _check_mesh_serving(cfg: ModelConfig, tokens) -> None:
+    if L.is_dtensor(tokens) and cfg.family not in ("dense", "vlm", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: serving the {cfg.family!r} family over a device "
+            "mesh is not ported; the dense and moe decoders are (the ssm, "
+            "hybrid and encoder-decoder families wait for ROADMAP A9b step "
+            "4)")
+
+
+def _positions_at(x, sl: slice):
+    """``x[:, sl]`` of a [B, S, ...] tensor; on a DTensor, taken from each
+    rank's block (the sequence is never split while serving)."""
+    if not L.is_dtensor(x):
+        return x[:, sl]
+    from torch.distributed.tensor import DTensor
+    local = L.local_of(x)[:, sl]
+    shape = (x.shape[0], local.shape[1]) + tuple(x.shape[2:])
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def _first_token(logits):
+    """[B, 1, V] -> [B, V]; a DTensor's vocab split moves down a dim."""
+    if not L.is_dtensor(logits):
+        return logits[:, 0]
+    from torch.distributed.tensor import DTensor, Shard
+    local = L.local_of(logits)[:, 0]
+    pl = tuple(Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1
+               else p for p in logits.placements)
+    shape = (logits.shape[0], logits.shape[2])
+    return DTensor.from_local(local, logits.device_mesh, pl,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
 @torch.no_grad()
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, cache,
-            frames: Optional[torch.Tensor] = None):
+            frames: Optional[torch.Tensor] = None,
+            opts: CallOptions = CallOptions()):
     """Run the full prompt, filling ``cache`` in place. Returns
     (last_logits [B, V], cache). The encoder-decoder needs ``frames``
     [B, Senc, D]: the encoder runs over them and each decoder layer's
-    cross k/v land in ``cache["cross"]``."""
+    cross k/v land in ``cache["cross"]``. Over a mesh (``tokens``, the
+    params and the cache DTensors; the dense and moe decoders) the
+    logits are vocab-parallel DTensors."""
     _check_family(cfg)
+    _check_mesh_serving(cfg, tokens)
     if cfg.is_encoder_decoder:
         _need_frames(cfg, cache, frames)
     B, S = tokens.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    x, _ = _backbone(cfg, params, _embed(params, tokens), positions, cache,
-                     frames=frames)
-    return _logits(cfg, params, x[:, -1:])[:, 0], cache
+    x = _maybe(opts.act_constraint, _embed(params, tokens))
+    x, _ = _backbone(cfg, params, x, positions, cache, opts, frames=frames)
+    return _first_token(_logits(cfg, params, _positions_at(
+        x, slice(S - 1, S)), opts)), cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
-                pos: torch.Tensor):
-    """One token for every sequence. tokens: [B,1]; pos: [B] int32.
-    Returns (logits [B,V], cache), the cache updated in place (the
-    encoder-decoder's ``cross`` is read, not written)."""
+                pos: torch.Tensor, opts: CallOptions = CallOptions()):
+    """One token for every sequence. tokens: [B,1]; pos: [B] int32 (a
+    plain tensor, whole on every rank over a mesh). Returns (logits
+    [B,V], cache), the cache updated in place (the encoder-decoder's
+    ``cross`` is read, not written)."""
     _check_family(cfg)
+    _check_mesh_serving(cfg, tokens)
     positions = pos[:, None].to(torch.int32)
-    x, _ = _backbone(cfg, params, _embed(params, tokens), positions, cache)
-    return _logits(cfg, params, x)[:, 0], cache
+    x = _maybe(opts.act_constraint, _embed(params, tokens))
+    x, _ = _backbone(cfg, params, x, positions, cache, opts)
+    return _first_token(_logits(cfg, params, x, opts)), cache
 
 
 # --- init --------------------------------------------------------------------

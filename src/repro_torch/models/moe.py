@@ -27,6 +27,9 @@ the capacity counted on its local tokens as the reference counts it,
 and an all-reduce over the model group sums the ranks' outputs (the
 reference's ``psum``). The load-balance loss sums its per-expert counts
 and probabilities over the data axes first, so it is the global batch's.
+Serving takes the same branch: a decode step's few tokens split over
+the data axes with the slots, a batch-1 admission prefill's tokens
+replicated over them (every data rank then routes them all).
 """
 from __future__ import annotations
 
@@ -187,18 +190,22 @@ def _moe_forward_mesh(cfg: ModelConfig, p: Dict[str, Any], x
     if n % m:
         raise ValueError(f"{cfg.name}: {n} experts over a model axis of {m}")
     B, S, D = x.shape
-    rows = ctx.placements(Shard(0), Replicate())
-    rows_partial = ctx.placements(Shard(0), Partial())
+    bp = pctx.batch_placement(x)
+    # every data rank's tokens are its own (summed over the data axes)
+    # unless the batch is replicated there (a batch-1 admission prefill)
+    over_data = Partial() if isinstance(bp, Shard) else Replicate()
+    rows = ctx.placements(bp, Replicate())
+    rows_partial = ctx.placements(bp, Partial())
     xr = x.redistribute(mesh, rows)
 
     # routing: once per rank on its tokens, the same on every model rank
     full = ctx.placements(Replicate(), Replicate())
     w_r = p["router"].redistribute(mesh, full).to_local(
-        grad_placements=ctx.placements(Partial(), Replicate()))
+        grad_placements=ctx.placements(over_data, Replicate()))
     gates_l, idx_l, probs_l = _route_local(cfg, w_r, xr.to_local(
         grad_placements=rows))
     counts = F.one_hot(idx_l, n).to(torch.float32).sum(dim=(0, 1, 2))
-    sums = ctx.placements(Partial(), Replicate())
+    sums = ctx.placements(over_data, Replicate())
     dispatch_frac = DTensor.from_local(counts, mesh, sums) / (B * S)
     prob_frac = DTensor.from_local(probs_l.sum(dim=(0, 1)), mesh,
                                    sums) / (B * S)
@@ -208,7 +215,7 @@ def _moe_forward_mesh(cfg: ModelConfig, p: Dict[str, Any], x
     # this rank's experts over its tokens; the model axis sums the parts
     w = {name: p[name].redistribute(
         mesh, ctx.placements(Replicate(), Shard(0))).to_local(
-        grad_placements=ctx.placements(Partial(), Shard(0)))
+        grad_placements=ctx.placements(over_data, Shard(0)))
         for name in ("w_gate", "w_up", "w_down")}
     x_l = xr.to_local(grad_placements=rows_partial)
     g_l = gates.to_local(grad_placements=rows_partial)

@@ -82,6 +82,20 @@ def for_mesh(mesh) -> MeshContext:
                        "model" if "model" in names else None)
 
 
+def batch_placement(x):
+    """The placement of DTensor ``x``'s batch dim over the data axes:
+    ``Shard(0)`` where its rows are split (training; a decode whose slots
+    divide the data axes), ``Replicate()`` where every data rank holds
+    them all (a batch-1 admission prefill)."""
+    from torch.distributed.tensor import Replicate, Shard
+    ctx = for_mesh(x.device_mesh)
+    names = tuple(x.device_mesh.mesh_dim_names)
+    split = any(isinstance(x.placements[names.index(a)], Shard)
+                and x.placements[names.index(a)].dim == 0
+                for a in ctx.data_axes)
+    return Shard(0) if split else Replicate()
+
+
 @contextlib.contextmanager
 def mesh_context(mesh, data_axes=("data",), model_axis="model"):
     tok = _ctx.set(MeshContext(mesh, tuple(data_axes), model_axis))

@@ -1,36 +1,46 @@
-"""Training planner — the port of the train branch of
-``repro.parallel.planner``: choose the sharding rules, remat and
-gradient accumulation of one (arch, shape, mesh) cell from an analytic
-memory estimate against the device's budget.
+"""The planner — the port of ``repro.parallel.planner``: choose the
+sharding rules, remat and gradient accumulation (training) or the
+weight-sharding depth and KV-cache layout (serving) of one (arch,
+shape, mesh) cell from an analytic memory estimate against the
+device's budget.
 
 ``make_plan`` takes one device (``None``, a ``torch.device``) or a mesh
 (a ``DeviceMesh`` with ``mesh_dim_names``, or any object whose ``shape``
 maps axis names to sizes, as the reference's tests pass). One device is
 the reference's 1x1 mesh.
 
-On the CPU the estimate and the plan are the reference's, term for
-term: per-chip params and two optimizer moments at ``moments_bytes``
-each (1: int8 block-quantized, the reference's default), sharded over
-model x data (ZeRO-3 FSDP), a gradient accumulator when accumulating,
-and activations under full remat (one residual per layer boundary,
-divided by the model axis under sequence sharding, plus 3x the logits
-divided by it) for the local batch, against 0.9 x the JAX package's TPU
-v5e constant (16 GiB); the notes are the reference's strings. Its params
-come from ``ModelConfig.n_params()``, which counts 6,611,185,664 for
+On the CPU the estimates and the plans are the reference's, term for
+term. Training: per-chip params and two optimizer moments at
+``moments_bytes`` each (1: int8 block-quantized, the reference's
+default), sharded over model x data (ZeRO-3 FSDP), a gradient
+accumulator when accumulating, and activations under full remat (one
+residual per layer boundary, divided by the model axis under sequence
+sharding, plus 3x the logits divided by it) for the local batch.
+Serving: params over the model axis (depth 1) or model x data (depth 2,
+2D weight sharding), the decode state of the local slots (the KV cache
+divided by the model axis where its heads or, escalated, its sequence
+split; the ssm and hybrid states; the encoder-decoder's cross cache)
+and four residuals of the local tokens; the search escalates depth 1
+-> 2 -> 2 with the cache's sequence over the model axis, and the cache
+takes the sequence split wherever the KV heads do not divide the model
+axis. Both against 0.9 x the JAX package's TPU v5e constant (16 GiB);
+the notes are the reference's strings. Params come from
+``ModelConfig.n_params()``, which counts 6,611,185,664 for
 recurrentgemma-9b against 8,524,206,080 template leaves.
 
-On a CUDA card (``card_plan``) the estimate counts what the port
-stores, a port-only divergence (ROADMAP C9, C14): params from the
-template's leaves, AdamW's moments as the f32 they are below 5e10
-params (8 bytes a param), the gradients in the params' dtype (autograd
-holds them all before the update), each divided by the rank's share of
-the mesh, against 0.9 x the card's ``total_memory``, less the whole
-state a snapshot gathers onto rank 0 of a mesh, divided among the
-ranks that share the card; where params and moments alone exceed that
-budget the plan raises before anything is allocated, naming the bytes
-and ROADMAP A9 (sharding over cards). Serving plans wait for ROADMAP
-A9b; of the serving estimate only the ssm and hybrid branches (params,
-the decode state, activations) are here.
+On a CUDA card (``card_plan``) the estimates count what the port
+stores, a port-only divergence (ROADMAP C9, C14), against 0.9 x the
+card's ``total_memory`` less what a snapshot gathers onto rank 0 of a
+mesh, divided among the ranks that share the card. Training: params
+from the template's leaves, AdamW's moments as the f32 they are below
+5e10 params (8 bytes a param), the gradients in the params' dtype
+(autograd holds them all before the update), each divided by the rank's
+share of the mesh; where params and moments alone exceed the budget the
+plan raises before anything is allocated, naming the bytes and ROADMAP
+A9 (sharding over cards). Serving: each template leaf's and each cache
+leaf's block under the candidate plan's placements, the reference's
+activation term, and rank 0's gather of the whole cache; it raises
+``MemoryError`` the same way where no depth fits.
 """
 from __future__ import annotations
 
@@ -42,7 +52,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.parallel.sharding import (ParallelPlan, axis_sizes,
-                                           train_rules)
+                                           cache_specs, serve_rules,
+                                           spec_for_axes, train_rules)
 
 HBM_BYTES = 16 * 1024**3       # the reference's per-chip budget (TPU v5e)
 
@@ -191,7 +202,9 @@ def card_plan(cfg: ModelConfig, shape: ShapeConfig, total_memory: float,
     (``snapshot_gather_bytes``), divided among the ranks sharing the
     card, with the port's own count (``estimate_card_train_memory``).
     Raises ``MemoryError`` where params and moments alone exceed the
-    budget."""
+    budget. A prefill or decode shape takes ``card_serve_plan``."""
+    if shape.kind != "train":
+        return card_serve_plan(cfg, shape, total_memory, mesh)
     sizes = _sizes(mesh)
     gather = snapshot_gather_bytes(cfg, mesh)
     budget = (0.9 * total_memory - gather) / _ranks_per_card(mesh)
@@ -222,29 +235,29 @@ def card_plan(cfg: ModelConfig, shape: ShapeConfig, total_memory: float,
         notes=f"train OVERBUDGET est={est.total / 1e9:.1f}GB (card)")
 
 
-def estimate_serve_memory(cfg: ModelConfig,
-                          shape: ShapeConfig) -> MemoryEstimate:
-    """Bytes of an ssm or hybrid serving cell on the one device — those
-    branches of the reference's ``estimate_serve_memory`` with no
-    sharding: params, the decode state and activations. The ssm state is
-    the f32 scan state plus the conv windows; the hybrid's, the windowed
-    KV caches of its attention layers plus each recurrent layer's f32
-    state and conv window. The other families wait for ROADMAP A9b."""
-    if cfg.family not in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port estimates serving memory for the ssm "
-            "and hybrid families only; the rest waits for ROADMAP A9b")
+def estimate_serve_memory(cfg: ModelConfig, shape: ShapeConfig, mesh=None,
+                          depth: int = 1,
+                          cache_seq_shard: bool = False) -> MemoryEstimate:
+    """Per-chip bytes of the reference's serving branch on ``mesh``
+    (default: one device), term for term: params over the model axis
+    (and the data axes at ``depth`` 2), the decode state of the local
+    slots, four residuals of the local tokens."""
+    pod, dp, tp = _mesh_sizes(_sizes(mesh))
     n = cfg.n_params()
     bp = _bytes_per_param(cfg.dtype)
-    params = n * bp
-    b_eff = max(shape.global_batch, 1)
+    pshards = tp * ((pod * dp) if depth >= 2 else 1)
+    params = n * bp / pshards
+
+    # KV cache / recurrent state
+    data_shards = pod * dp
+    b_eff = max(shape.global_batch / data_shards, 1)
     if cfg.family == "ssm":
         d_in = cfg.ssm_expand * cfg.d_model
         nh = d_in // cfg.ssm_head_dim
-        per_layer = b_eff * (nh * cfg.ssm_head_dim * cfg.ssm_state * 4
+        per_layer = b_eff * (nh * cfg.ssm_head_dim * cfg.ssm_state * 4 / tp
                              + 3 * d_in * bp)
         cache = per_layer * cfg.n_layers
-    else:
+    elif cfg.family == "hybrid":
         w = cfg.rglru_width or cfg.d_model
         period = len(cfg.block_pattern)
         n_attn = sum(1 for i in range(cfg.n_layers)
@@ -253,21 +266,141 @@ def estimate_serve_memory(cfg: ModelConfig,
         win = min(cfg.attn_window or shape.seq_len, shape.seq_len)
         kv = b_eff * win * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * bp
         cache = n_attn * kv + n_rec * b_eff * w * (4 + 3 * bp)
+    else:
+        smax = min(cfg.attn_window, shape.seq_len) if cfg.attn_window \
+            else shape.seq_len
+        seq_div = tp if cache_seq_shard else (
+            tp if cfg.n_kv_heads % tp == 0 else 1)
+        kv = b_eff * smax * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * bp \
+            / seq_div
+        cache = kv * cfg.n_layers
+        if cfg.is_encoder_decoder:
+            cache += (b_eff * cfg.encoder_seq * cfg.n_kv_heads *
+                      cfg.resolved_head_dim * 2 * bp) * cfg.n_layers
+
     acts = b_eff * max(shape.seq_len if shape.kind == "prefill" else 1, 1) \
         * cfg.d_model * bp * 4
     return MemoryEstimate(params, 0.0, acts, params + cache + acts, cache)
 
 
+SERVE_DEPTHS = ((1, False), (2, False), (2, True))   # (depth, cache_seq)
+
+
+def _serve_plan(cfg: ModelConfig, sizes: Dict[str, int], depth: int,
+                cache_seq: bool, note: str) -> ParallelPlan:
+    """The serving plan at ``depth``: the cache's sequence over the model
+    axis when escalated to it or when the KV heads do not divide it."""
+    _, _, tp = _mesh_sizes(sizes)
+    batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    cache_axis = "model" if (
+        cache_seq or (cfg.n_kv_heads and tp and cfg.n_kv_heads % tp != 0
+                      and cfg.family not in ("ssm",))) else None
+    return ParallelPlan(
+        rules=serve_rules(depth, batch_axes), batch_axes=batch_axes,
+        remat="none", seq_shard=False, cache_seq_axis=cache_axis,
+        notes=f"serve depth={depth} cache_seq={cache_axis} {note}")
+
+
+def _leaf_bytes(shape, axes_spec, sizes: Dict[str, int], esize: int
+                ) -> float:
+    """Bytes of one rank's block of a leaf of ``shape`` under the
+    partition spec ``axes_spec``."""
+    div = 1
+    for tgt in axes_spec:
+        for a in (() if tgt is None else (tgt,) if isinstance(tgt, str)
+                  else tgt):
+            div *= sizes[a]
+    return float(np.prod(shape)) * esize / div
+
+
+def serve_gather_bytes(cfg: ModelConfig, shape: ShapeConfig,
+                       mesh=None) -> float:
+    """Bytes a serving snapshot or a cache digest adds on rank 0 of a
+    mesh of more than one rank (0 on one device): the whole decode state
+    gathered onto its device, plus one leaf's blocks while that leaf is
+    placed (``collectives.gather_to``)."""
+    pod, dp, tp = _mesh_sizes(_sizes(mesh))
+    if pod * dp * tp == 1:
+        return 0.0
+    from repro_torch.models.model import cache_spec
+    from repro_torch.tree import flatten_with_paths
+    leaves = [float(np.prod(s.shape)) * torch.empty(
+        (), dtype=s.dtype).element_size() for _, s in flatten_with_paths(
+        cache_spec(cfg, shape.global_batch, shape.seq_len))]
+    return sum(leaves) + max(leaves)
+
+
+def estimate_card_serve_memory(cfg: ModelConfig, shape: ShapeConfig,
+                               plan: ParallelPlan,
+                               mesh=None) -> MemoryEstimate:
+    """Bytes on one rank as the port stores them under ``plan``: its
+    block of every template leaf (``spec_for_axes``; a split that does
+    not divide replicates), of every decode-state leaf
+    (``cache_specs``), and the reference's activation term for the local
+    slots."""
+    from repro_torch.models.model import (batch_axes, cache_spec,
+                                          param_template)
+    from repro_torch.tree import flatten_with_paths
+    sizes = _sizes(mesh)
+    pod, dp, tp = _mesh_sizes(sizes)
+    fake = _AxisSizes(sizes)
+    params = sum(_leaf_bytes(
+        leaf.shape, spec_for_axes(plan, leaf.axes, leaf.shape, fake), sizes,
+        _bytes_per_param(leaf.dtype or cfg.dtype))
+        for _, leaf in flatten_with_paths(param_template(cfg)))
+    tree = cache_spec(cfg, shape.global_batch, shape.seq_len)
+    specs = cache_specs(plan, fake, tree, batch_axes(cfg))
+    cache = sum(_leaf_bytes(s.shape, specs[p], sizes, torch.empty(
+        (), dtype=s.dtype).element_size())
+        for p, s in flatten_with_paths(tree))
+    b_eff = max(shape.global_batch / (pod * dp), 1)
+    acts = b_eff * max(shape.seq_len if shape.kind == "prefill" else 1, 1) \
+        * cfg.d_model * _bytes_per_param(cfg.dtype) * 4
+    return MemoryEstimate(params, 0.0, acts, params + cache + acts, cache)
+
+
+class _AxisSizes:
+    """A mesh's axis sizes as the spec functions read them."""
+
+    def __init__(self, sizes: Dict[str, int]) -> None:
+        self.shape = dict(sizes)
+
+
+def card_serve_plan(cfg: ModelConfig, shape: ShapeConfig,
+                    total_memory: float, mesh=None) -> ParallelPlan:
+    """The serving plan on a CUDA card of ``total_memory`` bytes for one
+    rank of ``mesh`` (default: one device): the reference's escalation
+    (depth 1 -> 2 -> 2 with the cache's sequence split) against 0.9 x
+    that, less rank 0's gather of the whole cache
+    (``serve_gather_bytes``), divided among the ranks sharing the card,
+    with the port's own count (``estimate_card_serve_memory``). Raises
+    ``MemoryError`` before anything is allocated where no depth fits."""
+    sizes = _sizes(mesh)
+    gather = serve_gather_bytes(cfg, shape, mesh)
+    budget = (0.9 * total_memory - gather) / _ranks_per_card(mesh)
+    for depth, cache_seq in SERVE_DEPTHS:
+        plan = _serve_plan(cfg, sizes, depth, cache_seq, "")
+        est = estimate_card_serve_memory(cfg, shape, plan, mesh)
+        if est.fits(budget):
+            return plan.with_(notes=plan.notes + f"est="
+                              f"{est.total / 1e9:.1f}GB (card)")
+    raise MemoryError(
+        f"{cfg.name} at {shape.name}: {est.params / 1e9:.1f} GB of params "
+        f"and {est.kv_cache / 1e9:.1f} GB of decode state a rank at the "
+        f"deepest serving split, past 0.9 x the card's "
+        f"{total_memory / 1e9:.1f} GB less rank 0's {gather / 1e9:.1f} GB "
+        f"cache gather, shared by {_ranks_per_card(mesh)} rank(s) "
+        f"({budget / 1e9:.1f} GB); serving it needs cards beyond this one "
+        "(ROADMAP A9) or a depth cut (<arch>-layers<N>)")
+
+
 def make_plan(cfg: ModelConfig, shape: ShapeConfig,
               mesh=None) -> ParallelPlan:
-    """Escalating search over gradient accumulation 1 -> 4 -> 16 for a
-    plan whose estimate fits the budget of one rank of ``mesh`` (one
-    device by default): on a CUDA card ``card_plan``'s, elsewhere the
-    reference's train branch, term for term."""
-    if shape.kind != "train":
-        raise NotImplementedError(
-            f"{shape.name}: the port plans training only; serving plans "
-            "wait for ROADMAP A9b")
+    """The plan of one rank of ``mesh`` (one device by default): on a
+    CUDA card ``card_plan``'s or ``card_serve_plan``'s, elsewhere the
+    reference's, term for term — for training the escalating search over
+    gradient accumulation 1 -> 4 -> 16, for serving (a prefill or decode
+    shape) over weight-sharding depth and the cache's sequence split."""
     if _on_card(mesh):
         dev = mesh if not is_mesh(mesh) else torch.device(
             "cuda", torch.cuda.current_device())
@@ -275,6 +408,13 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig,
             dev).total_memory, mesh if is_mesh(mesh) else None)
     sizes = _sizes(mesh)
     budget = 0.9 * HBM_BYTES
+    if shape.kind != "train":
+        for depth, cache_seq in SERVE_DEPTHS:
+            est = estimate_serve_memory(cfg, shape, mesh, depth, cache_seq)
+            if est.fits(budget):
+                break
+        return _serve_plan(cfg, sizes, depth, cache_seq,
+                           f"est={est.total/2**30:.1f}GiB")
     est1 = estimate_train_memory(cfg, shape, 1, mesh=mesh)
     static = est1.params + est1.opt_state
     if static > budget:

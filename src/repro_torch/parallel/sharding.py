@@ -245,6 +245,58 @@ def cache_entry_spec(plan: ParallelPlan, entry_shape, kv_heads: int, mesh
     return PartitionSpec(b, None, None, None)
 
 
+def cache_specs(plan: ParallelPlan, mesh, spec_tree, slot_axes
+                ) -> Dict[str, PartitionSpec]:
+    """{leaf path: PartitionSpec} of a decode-state tree ``spec_tree``
+    (``models.model.cache_spec``'s), one entry per dim, whose leaves
+    have their slot axis ``b`` at ``slot_axes``' leaf of the same path
+    (``models.model.batch_axes``'s tree). Relative to ``b``:
+
+      k/v, cross k/v  [.., B, S, Hkv, hd] -> heads over model when they
+                      divide and the plan splits no cache sequence, else
+                      the sequence over ``cache_seq_axis`` when it
+                      divides
+      pos             [.., B, S]          -> batch only
+      ssm state       [.., B, H, hd, ds]  -> heads over model
+      rg state        [.., B, W]          -> width over model
+      conv windows    [...]               -> batch only
+
+    and the batch over the data axes wherever the slots divide — the
+    reference's ``serving.kv_cache.cache_shardings``, leaf by leaf."""
+    import re
+    from repro_torch.tree import flatten_with_paths
+    sizes = axis_sizes(mesh)
+    b_axes = _batch_target(plan)
+    m = plan.model_axis
+    bdiv = 1
+    for a in plan.batch_axes:
+        bdiv *= int(sizes[a])
+    msize = int(sizes[m]) if m else 1
+    axes_of = dict(flatten_with_paths(slot_axes))
+
+    def leaf_spec(path: str, leaf) -> PartitionSpec:
+        shape, bx = tuple(leaf.shape), axes_of[path]
+        rest = len(shape) - bx            # dims from the slot axis on
+        keys = re.findall(r"'(\w+)'", path)
+        name = keys[-1] if keys else ""
+        out = [None] * len(shape)
+        out[bx] = b_axes if shape[bx] % bdiv == 0 else None
+        if name == "state" and rest in (2, 4):       # ssm, rg
+            if m and shape[bx + 1] % msize == 0:
+                out[bx + 1] = m
+        elif name == "pos":
+            pass
+        elif name in ("k", "v") or rest == 4:        # [B, S, Hkv, hd]
+            if m and shape[bx + 2] % msize == 0 \
+                    and plan.cache_seq_axis is None:
+                out[bx + 2] = m
+            elif plan.cache_seq_axis and shape[bx + 1] % msize == 0:
+                out[bx + 1] = plan.cache_seq_axis
+        return PartitionSpec(*out)
+
+    return {p: leaf_spec(p, leaf) for p, leaf in flatten_with_paths(spec_tree)}
+
+
 # ---------------------------------------------------------------------------
 # binding to a DeviceMesh
 # ---------------------------------------------------------------------------
@@ -264,6 +316,16 @@ def block_narrows(shape, mesh_shape, coord, placements
         out.append((d, int(coord[i]) * size, size))
         sizes[d] = size
     return out
+
+
+def contiguous_strides(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor built
+    from its blocks is given its whole shape's)."""
+    out, n = [], 1
+    for d in reversed(tuple(shape)):
+        out.append(n)
+        n *= int(d)
+    return tuple(reversed(out))
 
 
 def local_shard(full, mesh, placements):

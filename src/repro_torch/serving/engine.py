@@ -27,14 +27,36 @@ attention families, through batch-1 decode steps for the recurrent ones
 encoder-decoder, as the JAX engine does: it never runs the encoder, so
 its cross-attention cache stays at its zero init (ROADMAP C21).
 
-The engine runs on one device: the CUDA card unless the caller passes
-``device="cpu"``. Its KV cache is updated in place by every decode step
-and admission (``models.layers``), never reallocated.
+The engine runs on one device — the CUDA card unless the caller passes
+``device="cpu"`` — or over a ``DeviceMesh`` (``create(mesh_shape=...)``
+in every rank ``launch.mesh.spawn_ranks`` starts, or a restore through a
+``mesh_factory``), for the dense and moe decoders. Its KV cache is
+updated in place by every decode step and admission
+(``models.layers``), never reallocated.
+
+Over a mesh every rank builds the same engine and keeps the same host
+bookkeeping (slots, positions, pending tokens, queue). The params are
+DTensors with the serving plan's placements (``parallel.planner``,
+placed here from whole tensors where the caller holds them), the cache
+DTensors with ``serving.kv_cache.cache_shardings``' (each rank allocates
+its own block), and the steps are plain callables bound to the plan and
+the mesh context (``sharded_prefill``, ``sharded_decode_step``): a
+decode's slots split over the data axes where they divide, a batch-1
+admission prefill replicated over them;
+attention runs on each rank's heads or cache block; the vocab-parallel
+logits are gathered whole before the argmax, so every rank picks the
+same token. An admitted or carried column lands only in the data rank
+that owns its slot, a restored cache as each rank's block
+(``parallel.sharding.local_shard``). A snapshot or a cache digest
+gathers the cache onto rank 0 one leaf at a time
+(``collectives.gather_to``); rank 0 alone holds the session and commits,
+so the manifest's leaves are a one-device engine's.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import re
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
@@ -46,12 +68,21 @@ from repro_torch.api import register_app_kind
 from repro_torch.api.app import RestoreContext
 from repro_torch.api.errors import MigrationError, RestoreError
 from repro_torch.configs import registry as cfg_registry
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.oplog import CacheAlloc, Compile, OpLog
 from repro_torch.core.split_state import (LowerHalf, UpperHalf,
                                           register_step_fn)
-from repro_torch.host import resolve_device, to_tensor
+from repro_torch.host import host_array, resolve_device, to_tensor
+from repro_torch.launch.mesh import is_device_mesh, make_mesh, mesh_device
 from repro_torch.models import model as M
+from repro_torch.models.layers import is_dtensor, local_of
+from repro_torch.parallel import context as pctx
+from repro_torch.parallel.collectives import gather_to
+from repro_torch.parallel.planner import make_plan
+from repro_torch.parallel.sharding import (ParallelPlan, axis_sizes,
+                                           block_narrows, leaf_placements,
+                                           local_shard, shard_tensor)
+from repro_torch.serving.kv_cache import abstract_cache, sharded_cache
 from repro_torch.tree import (fill_like, flatten_with_paths,
                                tree_from_paths, tree_map)
 
@@ -60,19 +91,159 @@ def _resolve_cfg(arch: str) -> ModelConfig:
     return cfg_registry.resolve_config(arch)
 
 
+# ---------------------------------------------------------------------------
+# serving steps over a mesh (the reference's jit_prefill / jit_decode_step)
+# ---------------------------------------------------------------------------
+
+def serve_param_placements(cfg: ModelConfig, plan: ParallelPlan, mesh):
+    """{param path: DTensor placements} under the serving ``plan``."""
+    return leaf_placements(plan, M.param_template(cfg), mesh)
+
+
+def place_params(cfg: ModelConfig, params, plan: ParallelPlan, mesh):
+    """``params`` as DTensors with the serving plan's placements on
+    ``mesh``: a whole tensor (on any device; the same on every rank) is
+    cut to this rank's block on the mesh's device, a DTensor of ``mesh``
+    is resharded where its placements differ."""
+    places = serve_param_placements(cfg, plan, mesh)
+    dev = mesh_device(mesh)
+
+    def one(path, t):
+        if not is_dtensor(t):
+            return shard_tensor(t, mesh, places[path], dev)
+        if t.device_mesh != mesh:
+            raise ValueError(f"{path} lives on another mesh; pass whole "
+                             "params or DTensors of the engine's mesh")
+        return t if tuple(t.placements) == tuple(places[path]) \
+            else t.redistribute(mesh, places[path])
+    return fill_like(params, {p: one(p, t)
+                              for p, t in flatten_with_paths(params)})
+
+
+def _data_size(plan: ParallelPlan, mesh) -> int:
+    sizes = axis_sizes(mesh)
+    return int(np.prod([sizes[a] for a in plan.batch_axes]))
+
+
+@dataclass(frozen=True)
+class ShardedStep:
+    """A serving step bound to a serving plan and a mesh: the counterpart
+    of the reference's jitted steps (there is no jit). The tokens come
+    whole on every rank and split over the data axes where the batch
+    divides them (else every data rank takes them all, as a batch-1
+    admission prefill does); the residual stream keeps that split with
+    its model axis whole; the step runs under the mesh context and
+    returns the vocab-parallel logits gathered whole [B, V] on every
+    rank, and the cache written in place."""
+    cfg: ModelConfig
+    mesh: Any
+    plan: ParallelPlan
+
+    def _run(self, tokens, step):
+        """``step(tokens as a DTensor, CallOptions)`` under the mesh
+        context, its logits gathered whole."""
+        from torch.distributed.tensor import Replicate, Shard, \
+            distribute_tensor
+        n = _data_size(self.plan, self.mesh)
+        # a data axis of one replicates: DTensor refuses to reshape a dim
+        # sharded even over one rank
+        rows = Shard(0) if n > 1 and tokens.shape[0] % n == 0 \
+            else Replicate()
+        with pctx.mesh_context(self.mesh, self.plan.batch_axes,
+                               self.plan.model_axis) as ctx:
+            act = ctx.placements(rows, Replicate())
+            opts = M.CallOptions(act_constraint=lambda x: x.redistribute(
+                self.mesh, act))
+            logits, cache = step(distribute_tensor(
+                tokens, self.mesh, act, src_data_rank=None), opts)
+            return logits.full_tensor(), cache
+
+
+class ShardedPrefill(ShardedStep):
+    """(params, tokens [B, S], cache) -> (logits, cache)"""
+
+    def __call__(self, params, tokens, cache):
+        return self._run(tokens, lambda toks, opts: M.prefill(
+            self.cfg, params, toks, cache, opts=opts))
+
+
+class ShardedDecode(ShardedStep):
+    """(params, cache, tokens [B, 1], pos [B]) -> (logits, cache)"""
+
+    def __call__(self, params, cache, tokens, pos):
+        return self._run(tokens, lambda toks, opts: M.decode_step(
+            self.cfg, params, cache, toks, pos, opts))
+
+
+def sharded_prefill(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                    plan: Optional[ParallelPlan] = None) -> ShardedPrefill:
+    """The prefill step over ``mesh`` under ``plan`` (default: the
+    serving plan of ``shape``)."""
+    return ShardedPrefill(cfg, mesh, plan or make_plan(cfg, shape, mesh))
+
+
+def sharded_decode_step(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                        plan: Optional[ParallelPlan] = None) -> ShardedDecode:
+    """The decode step over ``mesh`` under ``plan`` (default: the
+    serving plan of ``shape``)."""
+    return ShardedDecode(cfg, mesh, plan or make_plan(cfg, shape, mesh))
+
+
+def serve_input_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """Meta-device stand-ins for a serving step's inputs."""
+    b = shape.global_batch
+
+    def meta(s):
+        return torch.empty(s.shape, dtype=s.dtype, device="meta")
+    if shape.kind == "prefill":
+        specs = {"tokens": torch.empty((b, shape.seq_len), dtype=torch.int32,
+                                       device="meta"),
+                 "cache": tree_map(meta, abstract_cache(cfg, b,
+                                                        shape.seq_len))}
+        if cfg.is_encoder_decoder:
+            specs["frames"] = torch.empty(
+                (b, cfg.encoder_seq, cfg.frontend_dim), dtype=torch.float32,
+                device="meta")
+        return specs
+    return {"tokens": torch.empty((b, 1), dtype=torch.int32, device="meta"),
+            "pos": torch.empty((b,), dtype=torch.int32, device="meta"),
+            "cache": tree_map(meta, abstract_cache(cfg, b, shape.seq_len))}
+
+
+def _no_plan_override(plan_key: str) -> None:
+    """Over a mesh the cache a logged ``CacheAlloc`` allocates takes the
+    serving plan ``make_plan`` gives, so a step may not take another."""
+    if plan_key:
+        raise ValueError(f"a serving step over a mesh takes the serving "
+                         f"plan of its shape, not {plan_key!r}: the "
+                         "cache's layout follows that plan")
+
+
 @register_step_fn("prefill_step")
 def _build_prefill(arch, shape_key, plan_key, lower):
-    """The prefill step function a logged ``Compile`` binds: the model's
-    eager ``prefill`` for the arch — (params, tokens, cache) -> (last
-    logits, cache filled in place)."""
-    return functools.partial(M.prefill, _resolve_cfg(arch))
+    """The prefill step function a logged ``Compile`` binds: on one
+    device the model's eager ``prefill`` for the arch — (params, tokens,
+    cache) -> (last logits, cache filled in place); over a mesh
+    ``sharded_prefill``'s."""
+    cfg = _resolve_cfg(arch)
+    if not is_device_mesh(lower.mesh):
+        return functools.partial(M.prefill, cfg)
+    _no_plan_override(plan_key)
+    return sharded_prefill(cfg, cfg_registry.get_shape(shape_key),
+                           lower.mesh)
 
 
 @register_step_fn("decode_step")
 def _build_decode(arch, shape_key, plan_key, lower):
-    """The decode step function a logged ``Compile`` binds: the model's
-    eager ``decode_step`` for the arch — (params, cache, tokens, pos)."""
-    return functools.partial(M.decode_step, _resolve_cfg(arch))
+    """The decode step function a logged ``Compile`` binds: on one
+    device the model's eager ``decode_step`` for the arch — (params,
+    cache, tokens, pos); over a mesh ``sharded_decode_step``'s."""
+    cfg = _resolve_cfg(arch)
+    if not is_device_mesh(lower.mesh):
+        return functools.partial(M.decode_step, cfg)
+    _no_plan_override(plan_key)
+    return sharded_decode_step(cfg, cfg_registry.get_shape(shape_key),
+                               lower.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -150,13 +321,25 @@ class ServingEngine:
                  max_seq: int, manager=None, lower=None,
                  arch: Optional[str] = None,
                  _adopt: Optional[Dict[str, Any]] = None):
+        """``device``: one device, or a ``DeviceMesh`` to serve over (the
+        params are then placed by the serving plan)."""
         self.cfg = cfg
+        self.mesh = device if is_device_mesh(device) else None
+        self.device = mesh_device(device)
+        self.plan = None
+        self._admit_prefill = None
+        if self.mesh is not None:
+            shape = ShapeConfig("engine", max_seq, n_slots, "decode")
+            self.plan = getattr((_adopt or {}).get("decode"), "plan",
+                                None) or make_plan(cfg, shape, self.mesh)
+            params = place_params(cfg, params, self.plan, self.mesh)
+            self._admit_prefill = sharded_prefill(
+                cfg, ShapeConfig("admit", max_seq, 1, "prefill"), self.mesh,
+                self.plan)
+        elif not _on(params["tok_emb"], self.device):
+            raise ValueError(f"params live on {params['tok_emb'].device}, "
+                             f"the engine on {self.device}; move them first")
         self.params = params
-        self.device = torch.device(device)
-        emb = params["tok_emb"]
-        if not _on(emb, self.device):
-            raise ValueError(f"params live on {emb.device}, the engine on "
-                             f"{self.device}; move them first")
         self.arch = arch
         if _adopt is not None:
             # runtime resources already exist (built or replayed through
@@ -165,10 +348,17 @@ class ServingEngine:
             self.cache = _adopt["cache"]
             self.vexec = _adopt.get("vexec")
             self.vcache = _adopt.get("vcache")
+        elif self.mesh is not None:
+            self.decode = sharded_decode_step(cfg, shape, self.mesh,
+                                              self.plan)
+            self.cache = self._new_cache(n_slots, max_seq)
+            self.vexec = self.vcache = None
         else:
             self.decode = functools.partial(M.decode_step, cfg)
             self.cache = M.init_cache(cfg, n_slots, max_seq, self.device)
             self.vexec = self.vcache = None
+        # the last decode step's logits [n_slots, V], whole on every rank
+        self.last_logits: Optional[torch.Tensor] = None
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.slot_req: List[Optional[Request]] = [None] * n_slots
@@ -206,9 +396,15 @@ class ServingEngine:
         decode Compile + CacheAlloc all flow through a LowerHalf, so a
         snapshot of this engine carries the op-log a restore replays.
         ``device`` defaults to the CUDA card; pass ``"cpu"`` to run on
-        the CPU."""
+        the CPU. A ``mesh_shape`` of more than one device serves over a
+        ``DeviceMesh`` of the process group's ranks (every rank calls
+        this; ``manager`` only on rank 0, which commits)."""
         dev = resolve_device(device)
-        lower = LowerHalf(mesh_factory=lambda: dev)
+        if int(np.prod(mesh_shape)) == 1:
+            factory = lambda: dev
+        else:
+            factory = lambda: make_mesh(mesh_shape, mesh_axes, dev)
+        lower = LowerHalf(mesh_factory=factory)
         lower.mesh_create(mesh_shape, mesh_axes)
         vexec = lower.compile_step("decode_step", arch,
                                    f"decode_s{max_seq}_b{n_slots}")
@@ -229,8 +425,14 @@ class ServingEngine:
         in it carry (an entry only while one waits). Params are the
         trainer's job, not ours."""
         self._ensure_cache()   # never snapshot a half-paged-in cache
+        cache = self.cache
+        if self.mesh is not None:
+            # collective: every rank gathers, rank 0 alone keeps the leaves
+            cache = tree_map(lambda t: gather_to(t, 0), cache)
+            if not self._writes():
+                return None
         up = UpperHalf()
-        up.register("kv_cache", "cache", self.cache)
+        up.register("kv_cache", "cache", cache)
         up.register("sessions", "sessions", {
             "slot_pos": np.array(self.slot_pos),
             "slot_tok": np.array(self.slot_tok),
@@ -252,6 +454,30 @@ class ServingEngine:
         return {"kind": "serving", "arch": self.arch,
                 "n_slots": self.n_slots, "max_seq": self.max_seq}
 
+    def _writes(self) -> bool:
+        """Whether this rank commits snapshots: rank 0 of a mesh."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
+    def cache_digest(self) -> str:
+        """blake2b over the cache's leaf paths and bytes (bfloat16 hashed
+        as its bits), the same for a cache of one device and one of any
+        mesh holding the same values. Over a mesh, collective: each leaf
+        gathered onto rank 0 in turn, every rank returns rank 0's
+        digest."""
+        self._ensure_cache()
+        h = hashlib.blake2b(digest_size=16)
+        for path, t in sorted(flatten_with_paths(self.cache),
+                              key=lambda pv: pv[0]):
+            whole = t if self.mesh is None else gather_to(t, 0)
+            if whole is not None:
+                h.update(path.encode())
+                h.update(np.ascontiguousarray(host_array(whole)).tobytes())
+        if self.mesh is None:
+            return h.hexdigest()
+        box = [h.hexdigest()]
+        torch.distributed.broadcast_object_list(box, src=0)
+        return box[0]
+
     # --- CheckpointableApp protocol (repro_torch.api) ------------------
 
     def checkpoint_state(self) -> UpperHalf:
@@ -269,13 +495,18 @@ class ServingEngine:
         """Snapshot of live sessions at an engine-step boundary;
         non-blocking by default — decode keeps running while the
         pipeline encodes and writes. Returns the SnapshotHandle (None
-        when blocking, or if dropped under "skip" backpressure)."""
-        if self.manager is None:
+        when blocking, or if dropped under "skip" backpressure). Over a
+        mesh every rank calls it (the cache is gathered onto rank 0) and
+        only rank 0 needs the manager; the others return None."""
+        if self.manager is None and self._writes():
             raise RuntimeError("construct the engine with manager= to "
                                "snapshot it")
-        return self.manager.save(self.checkpoint_step(),
-                                 self.session_state(), self.runtime_log(),
-                                 block=block, job_meta=self.job_meta())
+        state = self.session_state()
+        if not self._writes():
+            return None
+        return self.manager.save(self.checkpoint_step(), state,
+                                 self.runtime_log(), block=block,
+                                 job_meta=self.job_meta())
 
     # --- restore (the Incarnation lifecycle, serving flavor) -----------
 
@@ -313,10 +544,9 @@ class ServingEngine:
                 self._pending_cache = kv
                 self._touched_slots = set()
             else:
-                host = fill_like(self.cache, kv)
-                tree_map(lambda t, v: t.copy_(to_tensor(v, t.dtype,
-                                                        t.device)),
-                         self.cache, host)
+                tree_map(lambda t, v, ax: self._land(t, v, ax, ()),
+                         self.cache, fill_like(self.cache, kv),
+                         self._batch_axes)
             sess = tree_from_paths(inc.entry_paths("sessions"))
             self.slot_pos = np.asarray(sess["slot_pos"], np.int32).copy()
             self.slot_tok = np.asarray(
@@ -377,6 +607,10 @@ class ServingEngine:
         the slots. (The JAX package's move carries no cache and
         re-prefills each history, which need not give the decode steps'
         bits, ROADMAP C23.)"""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "moving sessions off an engine that serves over a mesh "
+                "waits for ROADMAP A9b step 2")
         self._ensure_cache()
         chosen = range(self.n_slots) if slots is None else slots
         out: Dict[int, Any] = {}
@@ -503,10 +737,19 @@ class ServingEngine:
                              f"max_seq={self.max_seq}")
         toks = np.zeros((1, width), np.int32)
         toks[0, :len(hist)] = hist
-        one = M.init_cache(self.cfg, 1, self.max_seq, self.device)
-        M.prefill(self.cfg, self.params,
-                  torch.tensor(toks, device=self.device), one)
+        toks = torch.tensor(toks, device=self.device)
+        if self.mesh is None:
+            one = M.init_cache(self.cfg, 1, self.max_seq, self.device)
+            M.prefill(self.cfg, self.params, toks, one)
+        else:
+            # batch 1, replicated over the data axes
+            one = self._new_cache(1, self.max_seq)
+            self._admit_prefill(self.params, toks, one)
         self._merge_slot(s, one)
+
+    def _new_cache(self, batch: int, max_seq: int):
+        """An empty cache laid out by the engine's plan on its mesh."""
+        return sharded_cache(self.cfg, batch, max_seq, self.mesh, self.plan)
 
     def replay(self, hist: np.ndarray):
         """Recurrent families (ssm, hybrid): the state is order-sensitive,
@@ -527,9 +770,58 @@ class ServingEngine:
 
     def _merge_slot(self, s: int, one) -> None:
         """Land a single-slot cache in slot ``s`` of the engine cache, in
-        place, along each leaf's batch axis (``M.batch_axes``)."""
-        tree_map(lambda full, sl, ax: full.narrow(ax, s, 1).copy_(sl),
+        place, along each leaf's batch axis (``M.batch_axes``). Over a
+        mesh only the data rank that holds slot ``s`` writes it, each
+        model rank its block: ``one``'s own (a DTensor column laid out by
+        the same plan) or the block of a whole column (a carried one)."""
+        tree_map(lambda full, col, ax: self._put_column(full, col, ax, s),
                  self.cache, one, self._batch_axes)
+
+    def _narrows(self, t):
+        """This rank's (dim, start, size) narrows of DTensor ``t``."""
+        coord = [int(self.mesh.get_local_rank(i))
+                 for i in range(self.mesh.ndim)]
+        return block_narrows(tuple(t.shape), tuple(self.mesh.shape), coord,
+                             t.placements)
+
+    def _rows(self, t, ax: int):
+        """(first slot, slots) of this rank's block of cache leaf ``t``."""
+        for d, start, size in self._narrows(t):
+            if d == ax:
+                return start, size
+        return 0, int(t.shape[ax])
+
+    def _put_column(self, full, col, ax: int, s: int) -> None:
+        if self.mesh is None:
+            full.narrow(ax, s, 1).copy_(col)
+            return
+        lo, n = self._rows(full, ax)
+        if not lo <= s < lo + n:
+            return
+        if is_dtensor(col):
+            block = local_of(col)
+        else:
+            block = col
+            for d, start, size in self._narrows(full):
+                if d != ax:
+                    block = block.narrow(d, start, size)
+        local_of(full).narrow(ax, s - lo, 1).copy_(block)
+
+    def _land(self, cur, v, ax: int, keep) -> None:
+        """Land the whole host leaf ``v`` in cache leaf ``cur`` in place
+        (over a mesh, this rank's block of it), except the slot columns
+        ``keep``, which hold fresh admission state."""
+        if self.mesh is None:
+            loc, lo, whole = cur, 0, to_tensor(v, cur.dtype, cur.device)
+        else:
+            loc, (lo, n) = local_of(cur), self._rows(cur, ax)
+            keep = [s for s in keep if lo <= s < lo + n]
+            whole = local_shard(to_tensor(v, cur.dtype, None), self.mesh,
+                                cur.placements)
+        kept = [loc.narrow(ax, s - lo, 1).clone() for s in keep]
+        loc.copy_(whole)
+        for s, col in zip(keep, kept):
+            loc.narrow(ax, s - lo, 1).copy_(col)
 
     def _ensure_cache(self) -> None:
         """Land the streamed KV cache (first-touch page-in of the cold
@@ -544,16 +836,11 @@ class ServingEngine:
             return
         pending, self._pending_cache = self._pending_cache, None
         pending.wait()
-        host = fill_like(self.cache, pending)
         touched = sorted(self._touched_slots)
         self._touched_slots = set()
-
-        def land(cur, v, ax):
-            keep = [cur.narrow(ax, s, 1).clone() for s in touched]
-            cur.copy_(to_tensor(v, cur.dtype, cur.device))
-            for s, col in zip(touched, keep):
-                cur.narrow(ax, s, 1).copy_(col)
-        tree_map(land, self.cache, host, self._batch_axes)
+        tree_map(lambda cur, v, ax: self._land(cur, v, ax, touched),
+                 self.cache, fill_like(self.cache, pending),
+                 self._batch_axes)
 
     def step(self) -> int:
         """One engine iteration; returns #active slots."""
@@ -565,6 +852,7 @@ class ServingEngine:
         toks = torch.tensor(self.slot_tok, device=self.device)
         poss = torch.tensor(self.slot_pos, device=self.device)
         logits, self.cache = self.decode(self.params, self.cache, toks, poss)
+        self.last_logits = logits
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         for s in active:
             req = self.slot_req[s]
@@ -580,10 +868,12 @@ class ServingEngine:
 
     def run_until_drained(self, max_steps: int = 10_000,
                           snapshot_every: Optional[int] = None) -> None:
+        # over a mesh the ranks without a manager still join the gather
+        snaps = self.manager is not None or not self._writes()
         while (self.queue or any(self.slot_req)) and max_steps > 0:
             self.step()
             if snapshot_every and self.steps % snapshot_every == 0 \
-                    and self.manager is not None:
+                    and snaps:
                 self.snapshot()
             max_steps -= 1
         if snapshot_every and self.manager is not None:
@@ -596,11 +886,12 @@ def _restore_engine(restore: RestoreContext, params,
                     device=None) -> ServingEngine:
     """The "serving" restore binder: the Incarnation lifecycle, serving
     flavor. ``device`` is where the engine comes back (default: the
-    card). On a re-slot restore the slot bookkeeping is rebuilt from the
-    requests, so its entry is skipped at decode, and the KV cache's
-    columns travel with their requests; the op-log replays with
-    CacheAlloc/Compile rewritten to the new slot count (composed with
-    any session-level rewrite)."""
+    card), or the ``mesh_factory``'s mesh: any mesh reads any serving
+    checkpoint, whose leaves are whole. On a re-slot restore the slot
+    bookkeeping is rebuilt from the requests, so its entry is skipped
+    at decode, and the KV cache's columns travel with their requests;
+    the op-log replays with CacheAlloc/Compile rewritten to the new slot
+    count (composed with any session-level rewrite)."""
     job = restore.job
     arch = job.get("arch")
     if arch is None:
@@ -627,7 +918,12 @@ def _restore_engine(restore: RestoreContext, params,
     inc.materialize()
     lower = inc.build_lower()
     cfg = _resolve_cfg(arch)
-    use_device = inc.mesh_or_none() or dev
+    use_device = inc.mesh_or_none()
+    if use_device is None:
+        # an op-log that bound no device (an engine built outside the
+        # logged runtime): the caller's mesh or device
+        use_device = restore.mesh_factory() \
+            if restore.mesh_factory is not None else dev
     if use_device is None:
         raise RestoreError("op-log bound no device (engine was built "
                            "outside the logged runtime); pass device=")
@@ -635,10 +931,14 @@ def _restore_engine(restore: RestoreContext, params,
     adopt = None
     if vexec is not None:
         vcache = inc.last_cache_alloc()
-        adopt = {"decode": lower.executable(vexec),
-                 "cache": (lower.cache(vcache) if vcache is not None
-                           else M.init_cache(cfg, n_new, max_seq,
-                                             use_device)),
+        if vcache is not None:
+            cache = lower.cache(vcache)
+        elif is_device_mesh(use_device):
+            from repro_torch.serving.kv_cache import allocate_cache
+            cache = allocate_cache(arch, n_new, max_seq, lower)
+        else:
+            cache = M.init_cache(cfg, n_new, max_seq, use_device)
+        adopt = {"decode": lower.executable(vexec), "cache": cache,
                  "vexec": vexec, "vcache": vcache}
     eng = ServingEngine(cfg, params, use_device, n_slots=n_new,
                         max_seq=max_seq, manager=restore.manager,

@@ -1129,3 +1129,72 @@ def test_mesh_step_on_the_card_matches_one_device(cuda_device, monkeypatch):
     for losses, _, counts in runs:
         np.testing.assert_allclose(losses, want, rtol=1e-5)
         assert counts["flash_fwd"] > 0 and counts["flash_dkv"] > 0
+
+
+# --- serving over a device mesh: four ranks share the card (A9b step 1) ------
+
+def _mesh_serve_rank(rank, world, store):
+    """phi4-mini-3.8b-smoke served on a (2, 2) mesh of the card: a
+    snapshot at step 6 (rank 0's session), the run to the end; then step
+    6 restored onto a new (2, 2) mesh and run to the end."""
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import collectives
+    arch = "phi4-mini-3.8b-smoke"
+    params = M.init_params(get_smoke_config("phi4-mini-3.8b"), seed=3,
+                           device="cuda")
+    sess = CheckpointSession(f"localfs:{store}", Policy(
+        chain=4, sparse_chunk_bytes=CB, sparse_min_bytes=2 * CB)) \
+        if rank == 0 else None
+    eng = ServingEngine.create(arch, params, (2, 2), n_slots=4, max_seq=64,
+                               manager=sess and sess.manager)
+    rng = np.random.RandomState(9)
+    reqs = [Request(rid=i, prompt=rng.randint(0, 256, size=rng.randint(
+        3, 14)).astype(np.int32), max_new=8) for i in range(6)]
+    for r in reqs:
+        eng.submit(r)
+    logits, digest = {}, None
+    while eng.queue or any(eng.slot_req):
+        eng.step()
+        logits[eng.steps] = eng.last_logits.cpu()
+        if eng.steps == 6:
+            eng.snapshot(block=True)
+            digest = eng.cache_digest()
+    if sess is not None:
+        sess.close()
+    torch.distributed.barrier()
+    sess = CheckpointSession(f"localfs:{store}")
+    back = sess.restore(6, params=params, mesh_factory=lambda: make_mesh(
+        (2, 2), ("data", "model")))
+    live, got = back.live_requests(), {"digest": back.cache_digest()}
+    got["logits"] = {}
+    while back.queue or any(back.slot_req):
+        back.step()
+        got["logits"][back.steps] = back.last_logits.cpu()
+    got["tokens"] = {r.rid: list(r.out) for r in live}
+    sess.close()
+    return dict(tokens={r.rid: list(r.out) for r in reqs}, logits=logits,
+                digest=digest, back=got,
+                staged=collectives.STATS["all_reduce"]["staged"])
+
+
+def test_mesh_serving_on_the_card_restores_bit_for_bit(cuda_device,
+                                                       tmp_path):
+    """Four ranks serve phi4-mini-3.8b-smoke on a (2, 2) mesh of the card
+    through the collective shim; kill -> restore of step 6 onto (2, 2)
+    gives the saved cache digest, every request's tokens and every later
+    step's logits bit for bit, the same on every rank."""
+    from repro_torch.launch.mesh import spawn_ranks
+    runs = spawn_ranks(_mesh_serve_rank, 4, device="cuda",
+                       args=(str(tmp_path),))
+    r0 = runs[0]
+    assert all(len(t) == 8 for t in r0["tokens"].values())
+    for r in runs:
+        assert r["staged"]
+        assert r["tokens"] == r0["tokens"] and r["digest"] == r0["digest"]
+        back = r["back"]
+        assert back["digest"] == r0["digest"]
+        assert back["tokens"] == r0["tokens"]
+        for step, v in back["logits"].items():
+            assert torch.equal(v, r0["logits"][step]), step

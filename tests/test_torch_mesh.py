@@ -1,5 +1,5 @@
-"""Training over a device mesh and elastic restore across meshes, on gloo
-CPU ranks (ROADMAP A9a).
+"""Training and serving over a device mesh and elastic restore across
+meshes, on gloo CPU ranks (ROADMAP A9a, A9b step 1).
 
 Two ``spawn_ranks`` launches of four ranks each run side by side in one
 module fixture (``torch_mesh_ranks`` holds their functions); each test
@@ -15,8 +15,9 @@ packages here.
   order; AdamW's first steps move a param by at most about the learning
   rate, 3e-5 or less at these steps of the warmup).
 - The (2, 2) checkpoint (a base and a chain link, rank 0's commit)
-  restored onto (4, 1), (1, 4), (2, 2), one device here, and by the JAX
-  package's ``Trainer.restore`` on its one-device mesh: every params
+  restored onto (4, 1) eagerly and streamed, (1, 4), (2, 2), one device
+  here, and by the JAX package's ``Trainer.restore`` on its one-device
+  mesh: every params
   digest the saved one, bit for bit, and each restore steps on. The
   same-mesh continuation gives the uninterrupted run's loss and state
   digest bit for bit. The checkpoint's params are the ranks' values
@@ -30,32 +31,59 @@ packages here.
   mean (the reference's bound), its error carry the local residual.
 - The GPipe pipeline (L 8, M 6, mb 4, D 16) over four stages against a
   jnp layer loop within 1e-6.
+- phi4-mini-3.8b-smoke (float32, 2 KV heads) served on (2, 2) — slots
+  and KV heads split — gives the one-device port engine's and the JAX
+  engine's tokens on the same converted params and prompts, each
+  step's logits within 1e-5 of the one-device engine's, the same on
+  every rank. Its checkpoint of step 6 restores onto (2, 2) bit for bit
+  (tokens, logits, cache digest), onto (1, 4) eagerly (the cache's
+  sequence split over the model axis, decode combining the ranks'
+  partial softmaxes) and onto (4, 1) streamed with the uninterrupted
+  tokens and the saved cache digest, re-slotted onto 3 slots of (2, 2)
+  carrying each session's column (C23), and in the JAX engine on one
+  device; the JAX engine's checkpoint restores onto (2, 2) and goes on
+  with the JAX engine's tokens. The sequence-split combine matches
+  plain attention over the whole cache within 1e-6. kimi-k2-smoke served
+  on (2, 2), expert-parallel, gives the one-device port engine's tokens,
+  its logits within 1e-5.
+- ``prefill`` and ``decode_step`` of mamba2, recurrentgemma and whisper
+  on DTensor tokens raise, naming ROADMAP A9b step 4.
 """
 import hashlib
 import threading
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
 
 from repro.configs import kimi_k2_1t_a32b as jkimi
+from repro.configs import phi4_mini_3_8b as jphi
 from repro.configs import registry as jreg
 from repro.configs import starcoder2_3b as jsc
 from repro.core.backends.localfs import LocalFSBackend as JBackend
 from repro.core.checkpoint import CheckpointManager as JManager
+from repro.models import model as JM
 from repro.models import moe as JMOE
 from repro.optim.compression import BLOCK as JBLOCK
+from repro.serving.engine import Request as JRequest
+from repro.serving.engine import ServingEngine as JEngine
 from repro.train import loop as jloop
+from repro_torch import convert
 from repro_torch.api import CheckpointSession
 from repro_torch.configs import kimi_k2_1t_a32b as tkimi
+from repro_torch.configs import phi4_mini_3_8b as tphi
 from repro_torch.configs import registry as treg
 from repro_torch.configs import starcoder2_3b as tsc
 from repro_torch.core.backends.localfs import LocalFSBackend
 from repro_torch.core.checkpoint import CheckpointManager
 from repro_torch.host import host_array
 from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.models import model as TM
+from repro_torch.models.layers import dense_attention
+from repro_torch.serving.engine import Request, ServingEngine
 from repro_torch.train.loop import Trainer, TrainJob
 from repro_torch.models.moe import moe_template
 from repro_torch.tree import flatten_with_paths, tree_from_paths
@@ -94,13 +122,77 @@ def _moe_inputs():
     return cfg, tree_from_paths(flat), x, flat
 
 
+def _serve_prompts():
+    rng = np.random.RandomState(9)
+    return [rng.randint(0, 256, size=rng.randint(3, 14)).astype(np.int32)
+            for _ in range(6)]
+
+
+def _combine_case():
+    """A decode query against a 64-slot cache with empty slots and a
+    window, for ``combine_case``'s (1, 4) split: q [2, 1, 2, 2, 16]
+    (B, Sq, Hkv, G, hd), k/v [2, 64, 2, 16], positions."""
+    rng = np.random.RandomState(5)
+    kv_pos = np.tile(np.arange(64, dtype=np.int32), (2, 1))
+    kv_pos[0, 40:] = -1                 # row 0 has filled 40 slots
+    kv_pos[1, 20:30] = -1
+    return dict(q=rng.randn(2, 1, 2, 2, 16).astype(np.float32),
+                k=rng.randn(2, 64, 2, 16).astype(np.float32),
+                v=rng.randn(2, 64, 2, 16).astype(np.float32),
+                q_pos=np.array([[39], [63]], np.int32), kv_pos=kv_pos,
+                window=np.int32(48))
+
+
+def _jax_serving(jparams, prompts, jax_serve_store):
+    """The JAX engine on one device: the prompts to the end with a
+    snapshot every ``R.SERVE_EVERY`` steps into ``jax_serve_store``
+    (then ``READY``). Returns each request's tokens."""
+    cfg = jreg.resolve_config(R.SERVE_ARCH)
+    jm = JManager(JBackend(str(jax_serve_store)), async_save=False)
+    eng = JEngine(cfg, jparams, _auto_mesh((1, 1), R.AXES), manager=jm,
+                  arch=R.SERVE_ARCH, **R.SERVE)
+    reqs = [JRequest(rid=i, prompt=p.copy(), max_new=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    while eng.queue or any(eng.slot_req):
+        eng.step()
+        if eng.steps % R.SERVE_EVERY == 0:
+            eng.snapshot()
+    jm.wait()
+    jm.close()
+    (jax_serve_store / "READY").touch()
+    return {r.rid: list(r.out) for r in reqs}
+
+
+def _port_one_device(params, prompts, cfg=None, max_new=None, **sizes):
+    """The port's engine on one device (phi4-mini-3.8b-smoke at
+    ``R.SERVE`` by default): (tokens, {step: logits})."""
+    eng = ServingEngine(cfg or tphi.smoke_config(), params, "cpu",
+                        **(sizes or R.SERVE))
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=max_new or SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    logits = {}
+    while eng.queue or any(eng.slot_req):
+        eng.step()
+        logits[eng.steps] = eng.last_logits.numpy().copy()
+    return {r.rid: list(r.out) for r in reqs}, logits
+
+
+SERVE_NEW = 8
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     store = tmp_path_factory.mktemp("mesh_ckpt")
     jax_store = tmp_path_factory.mktemp("jax_ckpt")
+    serve_store = tmp_path_factory.mktemp("mesh_serve")
+    jax_serve_store = tmp_path_factory.mktemp("jax_serve")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax, "make_mesh", _auto_mesh)
-        for mod in (jsc, jkimi, tsc, tkimi):
+        for mod in (jsc, jkimi, jphi, tsc, tkimi, tphi):
             plain = mod.smoke_config
             mp.setattr(mod, "smoke_config",
                        lambda plain=plain: plain().replace(dtype="float32"))
@@ -109,6 +201,18 @@ def runs(tmp_path_factory):
         ef_in = {"g": rng.randn(4, 8, 1024).astype(np.float32)}
         pipe_in = {"W": (rng.randn(8, 16, 16) * 0.2).astype(np.float32),
                    "X": rng.randn(6, 4, 16).astype(np.float32)}
+        jparams = JM.init_params(jreg.resolve_config(R.SERVE_ARCH),
+                                 jax.random.PRNGKey(0))
+        jparams_np = jax.tree.map(np.asarray, jparams)
+        prompts = _serve_prompts()
+        serve_in = dict(params=jparams_np, prompts=prompts,
+                        max_new=SERVE_NEW, store=str(serve_store),
+                        jax_store=str(jax_serve_store))
+        case = _combine_case()
+        moe_params = TM.init_params(tkimi.smoke_config(), seed=0,
+                                    device="cpu")
+        moe_in = dict(params=convert.tree_to_numpy(moe_params),
+                      prompts=prompts[:3])
         out = {}
 
         def launch(key, fn, args):
@@ -122,14 +226,25 @@ def runs(tmp_path_factory):
             threading.Thread(target=launch, args=(
                 "train", R.train_and_restore,
                 (str(store), str(jax_store), STEPS,
-                 {"params": flat, "x": x}))),
+                 {"params": flat, "x": x}, serve_in))),
             threading.Thread(target=launch, args=(
                 "others", R.others,
-                (SHAPES[1:], STEPS, str(store), ef_in, pipe_in)))]
+                (SHAPES[1:], STEPS, str(store), ef_in, pipe_in, serve_in,
+                 case, moe_in)))]
         for t in threads:
             t.start()
-        # meanwhile: the JAX package's checkpoint (its trainer, two
-        # steps, one save), the one-device reference run, the JAX MoE
+        # meanwhile: the JAX engine's tokens and checkpoint, the JAX
+        # package's training checkpoint (its trainer, two steps, one
+        # save), the one-device reference runs, the JAX MoE
+        try:
+            jax_tokens = _jax_serving(jparams, prompts, jax_serve_store)
+        finally:
+            (jax_serve_store / "READY").touch()
+        one_tokens, one_logits = _port_one_device(
+            convert.params_from_numpy(jparams_np, "cpu"), prompts)
+        moe_one = _port_one_device(moe_params, prompts[:3],
+                                   cfg=tkimi.smoke_config(), n_slots=2,
+                                   max_seq=32, max_new=4)
         try:
             jm = JManager(JBackend(str(jax_store)), async_save=False)
             jt = jloop.Trainer(jloop.TrainJob(R.ARCH, R.SHAPE), (1, 1),
@@ -173,10 +288,22 @@ def runs(tmp_path_factory):
         entries = {p: np.asarray(v) for p, v in
                    saved.entries["params"].items()}
         tm.close()
+        # the mesh's serving checkpoint in the JAX engine, one device
+        jm = JManager(JBackend(str(serve_store)))
+        with pytest.warns(DeprecationWarning):
+            jeng = JEngine.restore(jm, jparams, step=R.SERVE_AT,
+                                   mesh=_auto_mesh((1, 1), R.AXES))
+        live = jeng.live_requests()
+        jeng.run_until_drained()
+        serve_in_jax = {r.rid: list(r.out) for r in live}
+        jm.close()
     return dict(one_losses=one_losses, one_params=one_params,
                 train=out["train"], others=out["others"], on_one=on_one,
                 in_jax=in_jax, jax_digest=jax_digest, entries=entries,
-                moe_want=moe_want, ef_in=ef_in, pipe_in=pipe_in)
+                moe_want=moe_want, ef_in=ef_in, pipe_in=pipe_in,
+                jax_tokens=jax_tokens, one_tokens=one_tokens,
+                one_logits=one_logits, serve_in_jax=serve_in_jax, case=case,
+                moe_one=moe_one)
 
 
 def _mesh_run(runs, shape):
@@ -206,7 +333,7 @@ def test_ranks_agree_and_the_plan_is_the_references(runs):
     assert plan.batch_axes == ("data",) and plan.model_axis == "model"
 
 
-@pytest.mark.parametrize("shape", [(4, 1), (1, 4)])
+@pytest.mark.parametrize("shape", [(4, 1), (1, 4), "(4, 1) streamed"])
 def test_checkpoint_restores_onto_another_mesh(runs, shape):
     r = runs["train"][0]
     got = runs["others"][0]["restores"][shape]
@@ -307,3 +434,113 @@ def test_snapshot_state_is_gathered_onto_rank_zero_alone(runs):
                 assert got.tobytes() == want.tobytes(), name
             else:
                 assert got is None, (rank, name)
+
+
+# --- serving over a mesh (A9b step 1) ----------------------------------------
+
+def test_mesh_engine_gives_the_one_device_and_jax_tokens(runs):
+    """(2, 2): the one-device port engine's and the JAX engine's tokens,
+    every step's logits within 1e-5 of the one-device engine's; the
+    slots split over data and the KV heads over model."""
+    got = runs["train"][0]["serve"]
+    assert all(len(t) == SERVE_NEW for t in runs["jax_tokens"].values())
+    assert got["tokens"] == runs["one_tokens"] == runs["jax_tokens"]
+    assert sorted(got["logits"]) == sorted(runs["one_logits"])
+    for step, want in runs["one_logits"].items():
+        np.testing.assert_allclose(got["logits"][step], want, rtol=0,
+                                   atol=1e-5, err_msg=str(step))
+    assert got["plan"].cache_seq_axis is None
+    n_layers = tphi.smoke_config().n_layers
+    assert got["local_k"] == (n_layers, 2, 64, 1, 16)
+
+
+def test_mesh_engine_ranks_agree(runs):
+    ranks = [r["serve"] for r in runs["train"]]
+    for r in ranks[1:]:
+        assert r["tokens"] == ranks[0]["tokens"]
+        assert r["digests"] == ranks[0]["digests"]
+        for step, v in ranks[0]["logits"].items():
+            assert r["logits"][step].tobytes() == v.tobytes(), step
+    for r in runs["others"][1:]:
+        assert {k: v["tokens"] for k, v in r["serve"].items()} == \
+            {k: v["tokens"] for k, v in runs["others"][0]["serve"].items()}
+
+
+def test_serving_restore_on_the_same_mesh_is_bit_identical(runs):
+    """Kill -> restore of step 6 onto (2, 2): the saved cache digest,
+    every request's tokens and every later step's logits bit for bit."""
+    run = runs["train"][0]["serve"]
+    got = run["restore"]
+    assert got["step"] == R.SERVE_AT
+    assert got["digest"] == run["digests"][R.SERVE_AT]
+    assert got["tokens"] == run["tokens"]
+    assert sorted(got["logits"]) == [s for s in sorted(run["logits"])
+                                     if s > R.SERVE_AT]
+    for step, v in got["logits"].items():
+        assert v.tobytes() == run["logits"][step].tobytes(), step
+
+
+@pytest.mark.parametrize("target", ["(1, 4) eager", "(4, 1) streamed"])
+def test_serving_checkpoint_restores_onto_another_mesh(runs, target):
+    """The (2, 2) checkpoint of step 6 onto (1, 4) — 2 KV heads over 4
+    model ranks: the cache's sequence splits and decode combines the
+    ranks' partial softmaxes — and onto (4, 1), streamed, one slot a data
+    rank: the saved cache digest, the uninterrupted tokens."""
+    run = runs["train"][0]["serve"]
+    got = runs["others"][0]["serve"][target]
+    assert got["step"] == R.SERVE_AT
+    assert got["digest"] == run["digests"][R.SERVE_AT]
+    assert len(got["tokens"]) == len(run["tokens"])
+    assert got["tokens"] == run["tokens"]
+
+
+def test_reslot_onto_a_mesh_carries_each_sessions_column(runs):
+    """4 -> 3 slots on (2, 2) (3 slots do not split over 2 data ranks:
+    every data rank holds them all): each former session lands with its
+    checkpointed column and finishes with the uninterrupted tokens."""
+    got = runs["others"][0]["serve"]["(2, 2) re-slotted"]
+    assert got["n_slots"] == 3
+    assert got["tokens"] == runs["train"][0]["serve"]["tokens"]
+
+
+def test_jax_serving_checkpoint_restores_onto_a_mesh(runs):
+    got = runs["others"][0]["serve"]["jax"]
+    assert got["step"] == R.SERVE_AT
+    assert got["tokens"] == runs["jax_tokens"]
+
+
+def test_mesh_serving_checkpoint_restores_in_the_jax_engine(runs):
+    want = runs["train"][0]["serve"]["tokens"]
+    assert runs["serve_in_jax"] == want
+
+
+def test_sequence_split_combine_matches_whole_cache_attention(runs):
+    c = {k: torch.from_numpy(np.asarray(v)) for k, v in runs["case"].items()}
+    want = dense_attention(c["q"], c["k"], c["v"], c["q_pos"], c["kv_pos"],
+                           window=int(runs["case"]["window"])).numpy()
+    for r in runs["others"]:
+        np.testing.assert_allclose(r["combine"], want, rtol=0, atol=1e-6)
+
+
+def test_moe_engine_over_a_mesh_gives_the_one_device_tokens(runs):
+    """The moe decoder's decode and admission prefill through the
+    expert-parallel branch (``moe._moe_forward_mesh``): the one-device
+    engine's tokens, every step's logits within 1e-5."""
+    tokens, logits = runs["moe_one"]
+    for r in runs["others"]:
+        got = r["moe_serve"]
+        assert got["local_experts"] == tkimi.smoke_config().n_experts // 2
+        assert got["tokens"] == tokens
+        assert sorted(got["logits"]) == sorted(logits)
+        for step, want in logits.items():
+            np.testing.assert_allclose(got["logits"][step], want, rtol=0,
+                                       atol=1e-5, err_msg=str(step))
+
+
+@pytest.mark.parametrize("fn", ["prefill", "decode_step"])
+@pytest.mark.parametrize("arch", R.FAMILY_ARCHS)
+def test_other_families_refuse_serving_over_a_mesh(runs, arch, fn):
+    """The ssm, hybrid and encoder-decoder families raise on DTensor
+    tokens, naming the ROADMAP step they wait for."""
+    msg = runs["others"][0]["family_raises"][(arch, fn)]
+    assert msg is not None and "A9b step 4" in msg, msg

@@ -364,8 +364,9 @@ def test_more_than_one_device_raises_naming_a9():
     """ROADMAP A9a lifted the MoE's one-device refusal: under a process
     group of two a plain tensor's MoE runs on its device, to the same
     bits (expert parallelism takes DTensors, ``test_torch_mesh.py``).
-    What still names A9 is attention with a cache under a mesh — serving
-    over a mesh waits for A9b."""
+    What still names A9 is cross-attention under a mesh — the
+    encoder-decoder over a mesh waits for A9b step 4 (attention with a
+    cache runs over a mesh since A9b step 1, ``test_torch_mesh.py``)."""
     _, tcfg, _, tp = _pair(SMOKES[0])
     p = _layer0(tp["layers"]["ffn"])
     x = torch.randn(1, 4, tcfg.d_model, generator=torch.Generator()
@@ -378,11 +379,11 @@ def test_more_than_one_device_raises_naming_a9():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     from repro_torch.models import layers as L
     attn = _layer0(tp["layers"]["attn"])
-    cache = M.init_cache(tcfg, 1, 8, device="cpu")
+    kv = torch.zeros(1, 4, tcfg.n_kv_heads, tcfg.resolved_head_dim)
     with mock.patch.object(L, "is_dtensor", lambda t: True):
-        with pytest.raises(NotImplementedError, match="A9b"):
+        with pytest.raises(NotImplementedError, match="A9b step 4"):
             L.attention_forward(tcfg, attn, x, torch.zeros(
-                (1, 4), dtype=torch.int32), cache=_layer0(cache))
+                (1, 4), dtype=torch.int32), cross_kv=(kv, kv))
 
 
 # --- the model ---------------------------------------------------------------

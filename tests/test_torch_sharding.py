@@ -195,10 +195,137 @@ def test_block_narrows_tile_the_tensor_as_dtensor_splits_it(places):
     assert torch.equal(out, full)
 
 
-def test_serving_plans_wait_for_a9b():
-    with pytest.raises(NotImplementedError, match="A9b"):
-        TP.make_plan(treg.get_config("starcoder2-3b"),
-                     treg.get_shape("decode_32k"), FakeMesh(MESHES["2x2"]))
+# --- the serving plan, its estimate and the cache's layout (A9b step 1) ------
+
+SERVE_MESHES = {"1x1": (1, 1), "2x2": (2, 2), "1x4": (1, 4), "4x1": (4, 1),
+                "16x16": (16, 16)}
+SERVE_SHAPES = ["prefill_32k", "decode_32k", "decode_s1024_b4"]
+
+
+def _rem_block(path: str) -> bool:
+    """A hybrid remainder block's leaf: its slot axis is 0 in the port
+    (``M.batch_axes``), 1 in the reference's rank rule (ROADMAP C25)."""
+    return path.startswith("['rem")
+
+
+@pytest.mark.parametrize("mesh", list(SERVE_MESHES))
+@pytest.mark.parametrize("arch", list(jreg.ARCH_IDS))
+def test_serve_plan_estimate_and_cache_specs_equal_the_references(arch,
+                                                                  mesh):
+    """For a prefill and two decode shapes: the serving plan field by
+    field, the per-chip estimate at every escalation step, and every
+    cache leaf's partition spec by path, against the reference's on an
+    ``AbstractMesh`` (no devices) — a remainder block of the hybrid
+    aside, whose slots the port splits where the reference's rank rule
+    splits its second axis (C25)."""
+    from jax.sharding import AbstractMesh
+    from repro.serving.kv_cache import cache_shardings as jcache_shardings
+    from repro_torch.parallel.sharding import cache_specs
+    import jax
+    am = AbstractMesh(SERVE_MESHES[mesh], ("data", "model"))
+    fm = FakeMesh(dict(zip(("data", "model"), SERVE_MESHES[mesh])))
+    jcfg, tcfg = jreg.get_config(arch), treg.get_config(arch)
+    for shape in SERVE_SHAPES:
+        js, ts = jreg.get_shape(shape), treg.get_shape(shape)
+        want, got = JP.make_plan(jcfg, js, am), TP.make_plan(tcfg, ts, fm)
+        for f in ("rules", "batch_axes", "model_axis", "remat", "seq_shard",
+                  "cache_seq_axis", "grad_accum", "interior_tp", "notes"):
+            assert getattr(got, f) == getattr(want, f), (shape, f)
+        for depth, cache_seq in TP.SERVE_DEPTHS:
+            j = JP.estimate_serve_memory(jcfg, js, am, depth, cache_seq)
+            t = TP.estimate_serve_memory(tcfg, ts, fm, depth, cache_seq)
+            for f in ("params", "opt_state", "activations", "kv_cache",
+                      "total"):
+                assert getattr(t, f) == getattr(j, f), (shape, depth, f)
+        jtree = JM.cache_spec(jcfg, js.global_batch, js.seq_len)
+        jspecs = {jax.tree_util.keystr(p): sh.spec for p, sh in
+                  jax.tree_util.tree_flatten_with_path(
+                      jcache_shardings(jcfg, want, am, jtree))[0]}
+        tspecs = cache_specs(got, fm, TM.cache_spec(
+            tcfg, ts.global_batch, ts.seq_len), TM.batch_axes(tcfg))
+        assert sorted(tspecs) == sorted(jspecs)
+        for path, spec in jspecs.items():
+            if _rem_block(path):
+                assert tspecs[path][0] in (None, "data"), path
+                continue
+            assert tuple(tspecs[path]) == tuple(spec), (shape, path)
+
+
+def test_phi4_cache_on_two_by_two_splits_slots_and_kv_heads():
+    """The engine's cell, 4 slots x 1024 on (2, 2): k and v split their
+    slots over data and their 8 KV heads over model, pos its slots; the
+    placements follow."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.parallel.sharding import cache_specs
+    from repro_torch.serving.kv_cache import cache_shardings
+    cfg = treg.get_config("phi4-mini-3.8b")
+    mesh = FakeMesh({"data": 2, "model": 2})
+    plan = TP.make_plan(cfg, treg.get_shape("decode_s1024_b4"), mesh)
+    tree = TM.cache_spec(cfg, 4, 1024)
+    specs = cache_specs(plan, mesh, tree, TM.batch_axes(cfg))
+    assert tuple(specs["['k']"]) == (None, "data", None, "model", None)
+    assert tuple(specs["['v']"]) == (None, "data", None, "model", None)
+    assert tuple(specs["['pos']"]) == (None, "data", None)
+    places = cache_shardings(cfg, plan, mesh, tree)
+    assert places["['k']"] == (Shard(1), Shard(3))
+    assert places["['pos']"] == (Shard(1), Replicate())
+
+
+@pytest.mark.parametrize("arch,mesh,depth", [
+    ("phi4-mini-3.8b-layers4", "2x2", 1),
+    ("phi4-mini-3.8b", "2x2", 1),
+    ("llama4-scout-17b-a16e-layers8", "1x4", 1),
+])
+def test_card_serve_plan_counts_the_ranks_blocks(arch, mesh, depth):
+    """On a fake 80 GB card: each rank's share of the params and the
+    cache by their placements, the ranks sharing the card, rank 0's
+    gather of the whole cache; the plan keeps the reference's rules at
+    the depth that fits."""
+    cfg = treg.resolve_config(arch)
+    shape = treg.get_shape("decode_s1024_b4")
+    fm = FakeMesh(dict(zip(("data", "model"), SERVE_MESHES[mesh])))
+    plan = TP.card_plan(cfg, shape, 80e9, fm)
+    assert "(card)" in plan.notes and f"depth={depth}" in plan.notes
+    assert plan.rules == JS.serve_rules(depth, ("data",))
+    one = TP.estimate_card_serve_memory(cfg, shape, plan)
+    est = TP.estimate_card_serve_memory(cfg, shape, plan, fm)
+    assert est.kv_cache < one.kv_cache and est.params < one.params
+    whole = TP.serve_gather_bytes(cfg, shape, fm)
+    assert TP.serve_gather_bytes(cfg, shape) == 0
+    assert whole > one.kv_cache
+
+
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "whisper-base",
+                                  "mamba2-780m"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_s1024_b4"])
+def test_serve_input_specs_match_the_references(arch, shape):
+    """The serving steps' stand-ins: the reference's leaves, shapes and
+    dtypes, as tensors on the meta device (nothing allocated)."""
+    import jax
+    from repro.serving.engine import serve_input_specs as jspecs
+    from repro_torch.host import dtype_name
+    from repro_torch.serving.engine import serve_input_specs
+    from repro_torch.tree import flatten_with_paths
+    want = {jax.tree_util.keystr(p): v for p, v in
+            jax.tree_util.tree_flatten_with_path(jspecs(
+                jreg.get_config(arch), jreg.get_shape(shape)))[0]}
+    got = dict(flatten_with_paths(serve_input_specs(
+        treg.get_config(arch), treg.get_shape(shape))))
+    assert sorted(got) == sorted(want)
+    for path, t in got.items():
+        assert t.device.type == "meta", path
+        assert tuple(t.shape) == tuple(want[path].shape), path
+        assert dtype_name(t) == str(want[path].dtype), path
+
+
+def test_card_serve_plan_refuses_what_cannot_fit():
+    """qwen1.5-110b's params split four ways still exceed a quarter of an
+    80 GB card: the plan raises before anything is allocated, naming
+    the bytes and ROADMAP A9."""
+    cfg = treg.get_config("qwen1.5-110b")
+    with pytest.raises(MemoryError, match="ROADMAP A9"):
+        TP.card_plan(cfg, treg.get_shape("decode_s1024_b4"), 80e9,
+                     FakeMesh({"data": 2, "model": 2}))
 
 
 # --- spec_for_axes, the reference's cases --------------------------------------

@@ -563,9 +563,15 @@ def test_serve_memory_estimate_matches_jax(arch, shape):
 
 @pytest.mark.parametrize("shape", SERVE_SHAPES)
 def test_serve_memory_estimate_of_other_families_waits_for_a9(shape):
-    with pytest.raises(NotImplementedError, match="A9"):
-        estimate_serve_memory(treg.resolve_config("phi4-mini-3.8b"),
-                              treg.get_shape(shape))
+    """The other families' serving estimate is ported now (ROADMAP A9b
+    step 1): phi4-mini-3.8b's equals the reference's on one device."""
+    want = jserve_memory(jreg.resolve_config("phi4-mini-3.8b"),
+                         jreg.get_shape(shape), MESH, depth=1,
+                         cache_seq_shard=False)
+    got = estimate_serve_memory(treg.resolve_config("phi4-mini-3.8b"),
+                                treg.get_shape(shape))
+    assert (got.params, got.kv_cache, got.activations, got.total) == \
+        (want.params, want.kv_cache, want.activations, want.total)
 
 
 SMALL = dict(sparse_chunk_bytes=1024, sparse_min_bytes=2048)

@@ -365,9 +365,14 @@ def test_make_plan_matches_jax_on_one_device(arch, shape):
 
 
 def test_make_plan_refuses_serving_shapes():
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_plan(treg.resolve_config("starcoder2-3b"),
-                  treg.get_shape("decode_32k"))
+    """Serving shapes no longer raise (ROADMAP A9b step 1): on one device
+    a decode shape gets the reference's serving plan."""
+    want = jmake_plan(jreg.resolve_config("starcoder2-3b"),
+                      jreg.get_shape("decode_32k"), MESH)
+    got = make_plan(treg.resolve_config("starcoder2-3b"),
+                    treg.get_shape("decode_32k"))
+    assert (got.rules, got.remat, got.cache_seq_axis, got.notes) == \
+        (want.rules, want.remat, want.cache_seq_axis, want.notes)
 
 
 # --- the port's trainer: kill -> restore -> continue -----------------------------

@@ -5,6 +5,14 @@ values for the test process to hold against the JAX package.
 
 The smoke configs are float32 in every rank (``_f32``), as the test
 process patches them for both packages.
+
+Serving (``serve_and_restore`` in the first launch, ``serve_restores``
+in the second): phi4-mini-3.8b-smoke on 4 slots x 64, snapshots every
+``SERVE_EVERY`` steps by rank 0's session, the checkpoint of step
+``SERVE_AT`` restored onto (2, 2), (1, 4) eagerly, (4, 1) streamed,
+re-slotted onto 3 slots of (2, 2), and the JAX engine's checkpoint onto
+(2, 2); ``combine_case`` holds the sequence-split decode's combine;
+``family_raises`` calls the families that still refuse a mesh.
 """
 from __future__ import annotations
 
@@ -18,11 +26,20 @@ AXES = ("data", "model")
 SHAPE = "train_s16_b4"
 ARCH = "starcoder2-3b-smoke"
 MOE_ARCH = "kimi-k2-1t-a32b-smoke"
+SERVE_ARCH = "phi4-mini-3.8b-smoke"
+SERVE = dict(n_slots=4, max_seq=64)
+SERVE_EVERY = 3          # a snapshot every 3 engine steps
+SERVE_AT = 6             # the step every serving restore comes back at
+SMALL = dict(sparse_chunk_bytes=1024, sparse_min_bytes=2048)
+# the families whose serving over a mesh waits for ROADMAP A9b step 4
+FAMILY_ARCHS = ("mamba2-780m-smoke", "recurrentgemma-9b-smoke",
+                "whisper-base-smoke")
 
 
 def _f32():
-    from repro_torch.configs import kimi_k2_1t_a32b, starcoder2_3b
-    for mod in (starcoder2_3b, kimi_k2_1t_a32b):
+    from repro_torch.configs import (kimi_k2_1t_a32b, phi4_mini_3_8b,
+                                     starcoder2_3b)
+    for mod in (starcoder2_3b, kimi_k2_1t_a32b, phi4_mini_3_8b):
         plain = mod.smoke_config
         if getattr(plain, "f32", False):
             continue
@@ -46,11 +63,12 @@ def _mesh_factory(shape):
     return lambda: make_mesh(shape, AXES, "cpu")
 
 
-def _restore(store, shape):
+def _restore(store, shape, **kw):
     from repro_torch.api import CheckpointSession
     from repro_torch.train.loop import Trainer
     sess = CheckpointSession(f"localfs:{store}")
-    t = Trainer.restore(sess.manager, mesh_factory=_mesh_factory(shape))
+    t = Trainer.restore(sess.manager, mesh_factory=_mesh_factory(shape),
+                        **kw)
     return t, sess
 
 
@@ -63,8 +81,8 @@ def _wait_for(path, timeout_s=300.0):
         time.sleep(0.05)
 
 
-def _restore_and_step(store, shape):
-    r, rs = _restore(store, shape)
+def _restore_and_step(store, shape, **kw):
+    r, rs = _restore(store, shape, **kw)
     got = dict(digest=r.params_digest(), step=r.checkpoint_step())
     got["loss"] = r.train_steps(1)["loss"]
     got["state_digest"] = r.state_digest()
@@ -72,7 +90,137 @@ def _restore_and_step(store, shape):
     return got
 
 
-def train_and_restore(rank, world, store, jax_store, steps, moe_in):
+def _serve_params(serve_in):
+    from repro_torch import convert
+    return convert.params_from_numpy(serve_in["params"], "cpu")
+
+
+def _drain(eng):
+    """Step ``eng`` until every request is done: {step: its logits}."""
+    logits = {}
+    while eng.queue or any(eng.slot_req):
+        eng.step()
+        logits[eng.steps] = eng.last_logits.numpy().copy()
+    return logits
+
+
+def _serve_restore(store, shape, params, step, **kw):
+    """The serving checkpoint ``step`` of ``store`` restored onto a
+    ``shape`` mesh and run to the end: its cache digest on return, each
+    live request's tokens, each later step's logits."""
+    from repro_torch.api import CheckpointSession
+    sess = CheckpointSession(f"localfs:{store}")
+    eng = sess.restore(step, params=params,
+                       mesh_factory=_mesh_factory(shape), **kw)
+    live = eng.live_requests()
+    out = dict(step=eng.steps, digest=eng.cache_digest(),
+               n_slots=eng.n_slots, logits=_drain(eng))
+    out["tokens"] = {r.rid: list(r.out) for r in live}
+    sess.close()
+    return out
+
+
+def serve_and_restore(rank, world, serve_in):
+    """(2, 2): serve ``serve_in``'s prompts to the end with a snapshot
+    every ``SERVE_EVERY`` steps (rank 0 commits them, then writes
+    ``<store>/READY``), each step's logits and each snapshot step's cache
+    digest; then the checkpoint of ``SERVE_AT`` restored onto (2, 2)
+    and run to the end."""
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.serving.engine import Request, ServingEngine
+    _f32()
+    store = serve_in["store"]
+    sess = CheckpointSession(f"localfs:{store}", Policy(chain=4, **SMALL)) \
+        if rank == 0 else None
+    params = _serve_params(serve_in)
+    eng = ServingEngine.create(SERVE_ARCH, params, (2, 2), AXES,
+                               manager=sess and sess.manager, device="cpu",
+                               **SERVE)
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=serve_in["max_new"])
+            for i, p in enumerate(serve_in["prompts"])]
+    for r in reqs:
+        eng.submit(r)
+    logits, digests = {}, {}
+    while eng.queue or any(eng.slot_req):
+        eng.step()
+        logits[eng.steps] = eng.last_logits.numpy().copy()
+        if eng.steps % SERVE_EVERY == 0:
+            eng.snapshot()
+            digests[eng.steps] = eng.cache_digest()
+    if sess is not None:
+        sess.close()
+        open(os.path.join(store, "READY"), "w").close()
+    out = dict(tokens={r.rid: list(r.out) for r in reqs}, logits=logits,
+               digests=digests, plan=eng.plan,
+               local_k=tuple(eng.cache["k"].to_local().shape))
+    del eng
+    out["restore"] = _serve_restore(store, (2, 2), params, SERVE_AT)
+    return out
+
+
+def combine_case(rank, world, case):
+    """The sequence-split decode on a (1, 4) mesh: each rank's block of
+    ``case``'s keys (``partial_attention``), gathered over the model
+    axis and combined in rank order (``combine_partials``)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.parallel import context as pctx
+    from torch.distributed.tensor import Replicate
+    mesh = make_mesh((1, 4), AXES, "cpu")
+    ctx = pctx.for_mesh(mesh)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in case.items()}
+    n = t["k"].shape[1] // 4
+    lo = ctx.model_rank() * n
+    pm, pl, pacc = L.partial_attention(
+        t["q"], t["k"][:, lo:lo + n], t["v"][:, lo:lo + n], t["q_pos"],
+        t["kv_pos"][:, lo:lo + n], window=int(case["window"]))
+    every = L._gather_model(torch.cat([pm[..., None], pl[..., None], pacc],
+                                      dim=-1), ctx, Replicate())
+    return L.combine_partials(every[..., 0], every[..., 1],
+                              every[..., 2:]).numpy()
+
+
+def moe_serve(rank, world, moe_in):
+    """kimi-k2-1t-a32b-smoke served on (2, 2), expert-parallel (4 of its
+    8 experts a model rank): each request's tokens and each step's
+    logits."""
+    from repro_torch.serving.engine import Request, ServingEngine
+    _f32()
+    eng = ServingEngine.create(MOE_ARCH, _serve_params(moe_in), (2, 2), AXES,
+                               n_slots=2, max_seq=32, device="cpu")
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=4)
+            for i, p in enumerate(moe_in["prompts"])]
+    for r in reqs:
+        eng.submit(r)
+    logits = _drain(eng)
+    return dict(tokens={r.rid: list(r.out) for r in reqs}, logits=logits,
+                local_experts=eng.params["layers"]["ffn"]["w_gate"]
+                .to_local().shape[1])
+
+
+def serve_restores(rank, world, serve_in):
+    """Once ``serve_and_restore`` has committed: its checkpoint of
+    ``SERVE_AT`` onto (1, 4) eagerly, onto (4, 1) streamed and onto 3
+    slots of (2, 2); then the JAX engine's checkpoint of ``SERVE_AT``
+    (``<jax_store>/READY``) onto (2, 2)."""
+    _f32()
+    params = _serve_params(serve_in)
+    _wait_for(os.path.join(serve_in["store"], "READY"))
+    out = {"(1, 4) eager": _serve_restore(serve_in["store"], (1, 4), params,
+                                         SERVE_AT),
+           "(4, 1) streamed": _serve_restore(serve_in["store"], (4, 1),
+                                             params, SERVE_AT,
+                                             streaming=True),
+           "(2, 2) re-slotted": _serve_restore(serve_in["store"], (2, 2),
+                                               params, SERVE_AT, n_slots=3)}
+    _wait_for(os.path.join(serve_in["jax_store"], "READY"))
+    out["jax"] = _serve_restore(serve_in["jax_store"], (2, 2), params,
+                                SERVE_AT)
+    return out
+
+
+def train_and_restore(rank, world, store, jax_store, steps, moe_in,
+                      serve_in):
     """(2, 2): ``steps`` steps, a base snapshot after the second to last
     and a link after the last (rank 0 commits them, then writes
     ``<store>/READY``), one more step; then the checkpoint restored onto
@@ -110,6 +258,7 @@ def train_and_restore(rank, world, store, jax_store, steps, moe_in):
                               loss=r.train_steps(1)["loss"])
     rs.close()
     out["moe"] = moe_layer(rank, world, moe_in)
+    out["serve"] = serve_and_restore(rank, world, serve_in)
     out["stats"] = _stats()
     return out
 
@@ -203,16 +352,53 @@ def compress_and_pipeline(rank, world, ef_in, pipe_in):
                     X).numpy())
 
 
-def others(rank, world, shapes, steps, store, ef_in, pipe_in):
-    """``steps_on`` the meshes of ``shapes``, ``compress_and_pipeline``;
-    then, once ``train_and_restore`` has committed its checkpoint, that
-    checkpoint restored onto each of ``shapes`` and stepped once."""
+def family_raises(rank, world):
+    """``prefill`` and ``decode_step`` of the ssm, hybrid and
+    encoder-decoder families with DTensor tokens on a (2, 2) mesh:
+    {(arch, function): the ``NotImplementedError``'s message}."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch.configs import registry as treg
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    mesh = make_mesh((2, 2), AXES, "cpu")
+    toks = distribute_tensor(torch.zeros(4, 1, dtype=torch.int32), mesh,
+                             (Replicate(), Replicate()), src_data_rank=None)
+    pos = torch.zeros(4, dtype=torch.int32)
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = treg.resolve_config(arch)
+        calls = {"prefill": lambda: M.prefill(cfg, None, toks, None),
+                 "decode_step": lambda: M.decode_step(cfg, None, None, toks,
+                                                      pos)}
+        for fn, call in calls.items():
+            try:
+                call()
+            except NotImplementedError as e:
+                out[(arch, fn)] = str(e)
+            else:
+                out[(arch, fn)] = None
+    return out
+
+
+def others(rank, world, shapes, steps, store, ef_in, pipe_in, serve_in,
+           case, moe_in):
+    """``steps_on`` the meshes of ``shapes``, ``compress_and_pipeline``,
+    ``combine_case``, ``moe_serve``, ``family_raises``; then, once
+    ``train_and_restore`` has committed its checkpoint, that checkpoint
+    restored onto each of ``shapes`` and onto (4, 1) streamed, and
+    stepped once; then ``serve_restores``."""
     out = dict(steps=steps_on(rank, world, shapes, steps),
                gather=gather_cases(rank, world),
                gather_want=np.arange(96, dtype=np.float32).reshape(8, 12),
+               combine=combine_case(rank, world, case),
+               moe_serve=moe_serve(rank, world, moe_in),
+               family_raises=family_raises(rank, world),
                **compress_and_pipeline(rank, world, ef_in, pipe_in))
     _wait_for(os.path.join(store, "READY"))
     out["restores"] = {shape: _restore_and_step(store, shape)
                        for shape in shapes}
+    out["restores"]["(4, 1) streamed"] = _restore_and_step(
+        store, (4, 1), streaming=True)
+    out["serve"] = serve_restores(rank, world, serve_in)
     out["stats"] = _stats()
     return out
