@@ -216,6 +216,21 @@ Phases, each reported on its own line:
    rebind) and first token, and each rank's peak memory are logged; the
    second launch's peak is read before llama4-scout's forward and reset
    between them.
+   The failure loop over the mesh in the same two launches
+   (``MESH_SUPERVISE``): every rank runs one ``ClusterSupervisor`` over
+   hosts 0-3 (host h backs rank h) and host 3 dies. The training
+   checkpoint shrinks onto (2, 1) over ranks 0-1 and steps once: the
+   saved params digest, a data assignment of the survivors alone, the
+   loss within 2e-4 of the uninterrupted run's. Serving step 8 re-slots
+   onto 3 slots of (1, 2) over ranks 0-1 and drains: the saved
+   sessions' cache columns, the first step's logits within 2e-2 of a
+   one-device re-slot. The (2, 2)-restored engine's sessions move onto
+   one device on rank 0 (``migrate_sessions``): the carried columns'
+   digest the source's, the first step's logits within 2e-2 of a
+   one-device restore. Every rank's incidents must agree; each rank's
+   MTTR, the restores' phases, the peaks (ranks outside the shrunk
+   mesh hold nothing), the staged collectives, the move's blackout and
+   the token-for-token counts are logged.
    Every phase logs its seconds and the run's running total of snapshot
    bytes written.
 
@@ -3264,6 +3279,16 @@ MESH_SERVE = dict(arch=f"{ARCH}-layers2", mesh=(2, 2), n_slots=N_SLOTS,
                   policy=dict(interval=4, chain=4), at=8,
                   targets=(((1, 4), False), ((4, 1), True)),
                   logits_rel=2e-2)
+# the failure loop over the mesh (A9b step 2): in each launch every
+# rank runs one ClusterSupervisor over hosts 0-3 (host h backs rank h).
+# Host 3 dies: the training cell's checkpoint shrinks onto (2, 1) over
+# ranks 0-1 and steps once (its loss within ``loss_rtol`` of the
+# uninterrupted run's, the bf16 sums on another mesh as MESH_TRAIN's);
+# MESH_SERVE's checkpoint of step 8 re-slots onto 3 slots of (1, 2) over
+# ranks 0-1 and drains. The (2, 2)-restored engine's sessions move onto
+# one device on rank 0 with their cache columns.
+MESH_SUPERVISE = dict(dead=3, train_mesh=(2, 1), serve_mesh=(1, 2),
+                      loss_rtol=2e-4, logits_rel=2e-2)
 
 
 def _rank_counts(device):
@@ -3294,6 +3319,53 @@ def _peak(torch, device) -> int:
 def _rank_stats():
     from repro_torch.parallel import collectives
     return {k: dict(v) for k, v in collectives.STATS.items()}
+
+
+def _stats_since(before):
+    """The staged collectives run since ``before`` (``_rank_stats()``):
+    {name: [calls, bytes, seconds]}."""
+    out = {}
+    for k, v in _rank_stats().items():
+        b = before.get(k, {"calls": 0, "bytes": 0, "seconds": 0.0})
+        if v["calls"] > b["calls"]:
+            out[k] = [v["calls"] - b["calls"], v["bytes"] - b["bytes"],
+                      round(v["seconds"] - b["seconds"], 4)]
+    return out
+
+
+def columns_digest(cols):
+    """blake2b over a live move's or a re-slot's cache columns ({rid:
+    column tree}), rid by rid, leaf path by path (bf16 as its bits):
+    None for None (a rank that holds no columns)."""
+    import hashlib
+    from repro_torch.host import host_array
+    from repro_torch.tree import flatten_with_paths
+    if cols is None:
+        return None
+    h = hashlib.blake2b(digest_size=16)
+    for rid in sorted(cols):
+        for path, v in sorted(flatten_with_paths(cols[rid]),
+                              key=lambda pv: pv[0]):
+            h.update(f"{rid}{path}".encode())
+            h.update(host_array(v).tobytes())
+    return h.hexdigest()
+
+
+def _beat_until_dead(sup, now, world, dead):
+    """Seven ticks of the supervisor's clock with every host of
+    ``world`` but ``dead`` beating, then one poll."""
+    for _ in range(7):
+        now[0] += 1.0
+        for h in range(world):
+            if h != dead:
+                sup.beat(h, 0)
+    return sup.poll()
+
+
+def _free(torch, device):
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
 
 
 class _Marks:
@@ -3340,9 +3412,11 @@ def _timed_step(torch, eng, device, profile=False):
 
 
 def mesh_serve_restore(torch, store, cell, params, device, *, mesh=None,
-                       streaming=False, resnap=False, manager=None):
+                       streaming=False, resnap=False, manager=None,
+                       n_slots=None):
     """The serving checkpoint of ``cell["at"]`` restored onto ``mesh``
-    (or one device) and decoded to the end: its return time and phases,
+    (or one device; onto ``n_slots`` slots where given, a re-slot) and
+    decoded to the end: its return time and phases,
     the first token's time (the restore, the landing of a streamed cache
     and the first engine step; the digest read between them is not
     counted), the restored cache digest, the first step's logits
@@ -3356,6 +3430,8 @@ def mesh_serve_restore(torch, store, cell, params, device, *, mesh=None,
         {"device": device}
     _sync(torch, device)
     t0 = time.monotonic()
+    if n_slots is not None:
+        kw["n_slots"] = n_slots
     eng = sess.restore(cell["at"], params=params, streaming=streaming, **kw)
     eng._ensure_cache()
     _sync(torch, device)
@@ -3431,6 +3507,9 @@ def mesh_serve_rank(torch, rank, device, store, cell, mark):
             snap_s.append(time.monotonic() - t0)
             if eng.steps == cell["at"]:
                 out["digest"] = eng.cache_digest()
+                # every begun session's column, gathered onto rank 0:
+                # what a re-slot carries (MESH_SUPERVISE)
+                out["columns"] = columns_digest(eng.session_columns())
     mark("serve: uninterrupted")
     t0 = time.monotonic()
     if sess is not None:
@@ -3455,7 +3534,6 @@ def mesh_serve_rank(torch, rank, device, store, cell, mark):
         torch, store, cell, params, device,
         mesh=make_mesh(cell["mesh"], MESH_AXES, device), resnap=True,
         manager=resnap and resnap.manager)
-    out["counts"] = _rank_counts(device)
     if resnap is not None:
         resnap.wait()
         out["resnap"] = dict(resnap.stats)
@@ -3464,8 +3542,56 @@ def mesh_serve_rank(torch, rank, device, store, cell, mark):
     if rank:
         out["restore"]["logits"] = out["next_logits"] = None
     mark("serve: restored, decoded")
+    out["move"] = mesh_move(torch, rank, device, store, cell, params)
+    out["counts"] = _rank_counts(device)
+    mark("serve: moved off the mesh")
     out["peak"] = _peak(torch, device)
     del params
+    return out
+
+
+def mesh_move(torch, rank, device, store, cell, params):
+    """A live move off the mesh (MESH_SUPERVISE): the serving checkpoint
+    of ``cell["at"]`` restored onto ``cell["mesh"]``, every session moved
+    onto a one-device engine on rank 0 (``migrate_sessions``, the cache
+    columns carried through a move channel beside the store). Rank 0
+    returns the source columns' digest and the landed ones', the move's
+    blackout, the target's first step's logits and every moved
+    request's tokens; every rank the moved rids and what its source
+    has left."""
+    from repro_torch.api import CheckpointSession
+    from repro_torch.core.migration import migrate_sessions
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serving.engine import ServingEngine
+    sess = CheckpointSession(f"localfs:{store}")
+    mesh = make_mesh(cell["mesh"], MESH_AXES, device)
+    eng = sess.restore(cell["at"], params=params, mesh_factory=lambda: mesh)
+    t0 = time.monotonic()
+    cols = eng.session_columns()            # collective: rank 0's whole
+    _sync(torch, device)
+    out = dict(columns_s=time.monotonic() - t0,
+               src=columns_digest(cols) if rank == 0 else None)
+    del cols
+    target = ServingEngine.create(
+        cell["arch"], params, n_slots=cell["n_slots"],
+        max_seq=cell["max_seq"], device=device) if rank == 0 else None
+    moves = store.rstrip("/") + "-moves"
+    res = migrate_sessions(eng, target, via=f"localfs:{moves}",
+                           include_queue=True, settle=False)
+    out.update(moved=res.moved, left=len(eng.live_requests()))
+    if target is not None:
+        out.update(landed=columns_digest(dict(target._carried)),
+                   carried=res.carried, capture_s=res.capture_s,
+                   restore_s=res.restore_s)
+        wall = _timed_step(torch, target, device)[0]
+        out.update(blackout_s=res.blackout_s + wall / 1e3,
+                   logits=target.last_logits.float().cpu())
+        target.run_until_drained()
+        out["tokens"] = {r.rid: list(r.out) for r in res.requests}
+        shutil.rmtree(moves, ignore_errors=True)
+    sess.close()
+    del eng, target, sess
+    _free(torch, device)
     return out
 
 
@@ -3682,12 +3808,14 @@ def mesh_pipeline(torch, device, rank, world):
 
 
 def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned,
-                      serve_store=None, serve=None):
+                      serve_store=None, serve=None, sup=None):
     """One rank of the mesh path's second launch: the checkpoint restored
     onto each of ``cell["elastic"]`` and stepped once (the state digest
-    read after the step on the uninterrupted run's mesh); given
-    ``serve``, its serving checkpoint restored onto each of
-    ``serve["targets"]`` and decoded to the end (``mesh_serve_restore``);
+    read after the step on the uninterrupted run's mesh); given ``sup``,
+    the supervised shrink of that checkpoint (``mesh_supervise_train``);
+    given ``serve``, its serving checkpoint restored onto each of
+    ``serve["targets"]`` and decoded to the end (``mesh_serve_restore``),
+    then with ``sup`` its supervised re-slot (``mesh_supervise_serve``);
     then the expert-parallel forward, the compressed all-reduce and the
     pipeline."""
     import gc
@@ -3729,6 +3857,11 @@ def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned,
         gc.collect()
         if device == "cuda":
             torch.cuda.empty_cache()
+    peak = _peak(torch, device)
+    if sup is not None:
+        out["supervise"] = mesh_supervise_train(torch, rank, world, device,
+                                                store, cell, sup)
+        mark("supervised shrink, step")
     if serve is not None:
         from repro_torch.models import model as M
         params = M.init_params(resolve_config(serve["arch"]), seed=0,
@@ -3742,8 +3875,12 @@ def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned,
                 res["logits"] = None          # every rank's are the same
             out["serve"].append(res)
             mark(f"serve restore {shape}")
+        if sup is not None:
+            out["supervise_serve"] = mesh_supervise_serve(
+                torch, rank, world, device, serve_store, serve, sup, params)
+            mark("supervised re-slot, drained")
         del params
-    out["peak_before_moe"] = _peak(torch, device)
+    out["peak_before_moe"] = max(peak, _peak(torch, device))
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -3769,6 +3906,132 @@ def mesh_elastic_rank(rank, world, device, store, cell, moe, spawned,
     out["pipeline"] = mesh_pipeline(torch, device, rank, world)
     mark("compress, pipeline")
     out["stats"] = _rank_stats()
+    return out
+
+
+def mesh_supervise_train(torch, rank, world, device, store, cell, sup):
+    """The training half of MESH_SUPERVISE: every rank runs one
+    ``ClusterSupervisor`` over hosts 0..world-1 on the training cell's
+    checkpoint, balancing ``cell``'s batch rows as data shards; host
+    ``sup["dead"]`` goes silent and the shrink restores onto
+    ``sup["train_mesh"]`` over the first surviving ranks, which step
+    once. Every rank returns the decision, its MTTR, the mesh and
+    its peak device memory from the decision on (the ranks outside the
+    mesh hold nothing) and its staged collectives; the mesh's ranks also
+    the restore's phases, the params digest and the step's loss."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.api import CheckpointSession
+    from repro_torch.configs import get_shape
+    from repro_torch.core.supervisor import OutsideMesh
+    from repro_torch.launch.mesh import make_mesh
+    _free(torch, device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = _rank_stats()
+    survivors = [h for h in range(world) if h != sup["dead"]]
+    ranks = survivors[:int(np.prod(sup["train_mesh"]))]
+    sess = CheckpointSession(f"localfs:{store}")
+    now = [0.0]
+    sv = sess.supervise(
+        list(range(world)), heartbeat_timeout=3.0, clock=lambda: now[0],
+        n_shards=get_shape(cell["shape"]).global_batch,
+        restore_kwargs={"mesh_factory": lambda: make_mesh(
+            sup["train_mesh"], MESH_AXES, device, ranks=ranks)},
+        process_group=dist.group.WORLD)
+    target = _beat_until_dead(sv, now, world, sup["dead"])
+    inc = sv.incidents[-1]
+    tr = sv.runner
+    out = dict(action=target.action.value, hosts=target.hosts,
+               step=target.step, mttr_s=inc.wall_s, mesh=inc.mesh,
+               incident=(inc.action, inc.dead, inc.step, inc.mesh),
+               outside=isinstance(tr, OutsideMesh))
+    if not out["outside"]:
+        out.update(timings=dict(tr.incarnation.timings),
+                   ranks=[int(x) for x in tr.mesh.mesh.flatten()],
+                   assignment=tr.lower.data_assignment,
+                   digest=tr.params_digest())
+        t0 = time.monotonic()
+        out["loss"] = tr.train_steps(1)["loss"]
+        _sync(torch, device)
+        out["step_ms"] = (time.monotonic() - t0) * 1e3
+    out.update(peak=_peak(torch, device), stats=_stats_since(before))
+    sv.runner = None
+    sess.close()
+    del tr, sv, sess
+    _free(torch, device)
+    dist.barrier()
+    return out
+
+
+def mesh_supervise_serve(torch, rank, world, device, serve_store, serve,
+                         sup, params):
+    """The serving half of MESH_SUPERVISE: on a copy of ``serve``'s store
+    that ends at its checkpoint of ``serve["at"]``, every rank runs one
+    ``ClusterSupervisor`` over hosts 0..world-1; host ``sup["dead"]``
+    goes silent and the shrink re-slots the sessions onto
+    ``launch.serve.proportional_slots`` of ``sup["serve_mesh"]`` over the
+    first surviving ranks, which drain them. The mesh's ranks return the
+    re-slotted sessions' columns digest (rank 0), the restore's phases,
+    the first step's logits (rank 0), each decode step's wall ms and
+    every live request's tokens; every rank the decision and its MTTR."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.api import CheckpointSession
+    from repro_torch.core.supervisor import OutsideMesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import proportional_slots
+    copy = serve_store.rstrip("/") + "-supervised"
+    if rank == 0:
+        shutil.copytree(serve_store, copy)
+        sess = CheckpointSession(f"localfs:{copy}")
+        for step in sess.backend.list_steps():
+            if step > serve["at"]:
+                sess.backend.delete_step(step)
+        sess.close()
+    dist.barrier()
+    survivors = [h for h in range(world) if h != sup["dead"]]
+    ranks = survivors[:int(np.prod(sup["serve_mesh"]))]
+    sess = CheckpointSession(f"localfs:{copy}")
+    now = [0.0]
+    sv = sess.supervise(
+        list(range(world)), heartbeat_timeout=3.0, clock=lambda: now[0],
+        restore_kwargs=lambda t: {
+            "params": params,
+            "n_slots": proportional_slots(serve["n_slots"], world,
+                                          len(t.hosts)),
+            "mesh_factory": lambda: make_mesh(sup["serve_mesh"], MESH_AXES,
+                                              device, ranks=ranks)},
+        process_group=dist.group.WORLD)
+    target = _beat_until_dead(sv, now, world, sup["dead"])
+    inc = sv.incidents[-1]
+    eng = sv.runner
+    out = dict(action=target.action.value, step=target.step,
+               mttr_s=inc.wall_s, mesh=inc.mesh,
+               incident=(inc.action, inc.dead, inc.step, inc.mesh),
+               outside=isinstance(eng, OutsideMesh))
+    if not out["outside"]:
+        live = eng.live_requests()
+        cols = eng.session_columns(include_queue=True)
+        out.update(n_slots=eng.n_slots, columns=columns_digest(
+            cols if rank == 0 else None),
+            timings=dict(eng.incarnation.timings))
+        del cols
+        wall = _timed_step(torch, eng, device)[0]
+        out.update(first_ms=wall, logits=eng.last_logits.float().cpu()
+                   if rank == 0 else None)
+        steps_ms = []
+        while eng.queue or any(eng.slot_req):
+            steps_ms.append(_timed_step(torch, eng, device)[0])
+        out.update(step_ms=steps_ms,
+                   tokens={r.rid: list(r.out) for r in live})
+    sv.runner = None
+    sess.close()
+    del eng, sv, sess
+    _free(torch, device)
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(copy, ignore_errors=True)
     return out
 
 
@@ -3854,13 +4117,116 @@ def mesh_serve_report(torch, runs, runs2, one, cell, world, device):
     return s0["counts"]
 
 
+def mesh_supervise_report(torch, runs, runs2, one_serve, one_reslot, serve,
+                          cell, sup, world):
+    """MESH_SUPERVISE's checks and lines: raises unless every rank took
+    the same decisions; (a) the shrunk trainer came back on
+    ``sup["train_mesh"]`` over the first survivors with the saved params
+    digest, a data assignment of the survivors alone and its next loss
+    within ``sup["loss_rtol"]`` of the uninterrupted run's; (b) the
+    re-slotted engine holds the saved sessions' cache columns on
+    ``sup["serve_mesh"]`` and its first step's logits lie within
+    ``sup["logits_rel"]`` of a one-device re-slot of the same step;
+    (c) the moved sessions' landed columns are the source's, the
+    target's first logits within ``sup["logits_rel"]`` of a one-device
+    restore's, and every rank's source gave up every session."""
+    r0, s0 = runs[0], runs[0]["serve"]
+    want = s0["tokens"]
+    survivors = [h for h in range(world) if h != sup["dead"]]
+    tr = [r["supervise"] for r in runs2]
+    sv = [r["supervise_serve"] for r in runs2]
+    for name, part in (("training", tr), ("serving", sv)):
+        if len({repr(x["incident"]) for x in part}) != 1:
+            raise AssertionError(f"mesh supervise: the ranks' {name} "
+                                 f"incidents differ: "
+                                 f"{[x['incident'] for x in part]}")
+        if part[0]["action"] != "shrink":
+            raise AssertionError(f"mesh supervise: {name}: "
+                                 f"{part[0]['incident']}, not a shrink")
+    n_train = math.prod(sup["train_mesh"])
+    inside = [x for x in tr if not x["outside"]]
+    if [not x["outside"] for x in tr] != [h in survivors[:n_train]
+                                          for h in range(world)]:
+        raise AssertionError("mesh supervise: the shrunk trainer is not on "
+                             "the first survivors' ranks")
+    for x in inside:
+        if x["digest"] != r0["digest"] or x["step"] != r0["step"] or \
+                tuple(x["mesh"]) != tuple(sup["train_mesh"]):
+            raise AssertionError(f"mesh supervise: shrink onto {x['mesh']}:"
+                                 f" digest {x['digest']} step {x['step']} "
+                                 f"!= saved {r0['digest']} {r0['step']}")
+        if not {h for h, _ in x["assignment"]} <= set(survivors):
+            raise AssertionError(f"mesh supervise: data assignment "
+                                 f"{x['assignment']} names a dead host")
+        if abs(x["loss"] - r0["next_loss"]) > \
+                sup["loss_rtol"] * abs(r0["next_loss"]):
+            raise AssertionError(f"mesh supervise: the shrunk step's loss "
+                                 f"{x['loss']} off {r0['next_loss']}")
+    v0 = sv[0]
+    ok = sum(v0["tokens"][k] == want[k] for k in v0["tokens"])
+    rel = _rel_norm(torch, v0["logits"], one_reslot["logits"])
+    if v0["columns"] != s0["columns"] or \
+            tuple(v0["mesh"]) != tuple(sup["serve_mesh"]):
+        raise AssertionError(f"mesh supervise: re-slot onto {v0['mesh']}: "
+                             f"columns {v0['columns']} != saved "
+                             f"{s0['columns']}")
+    if rel > sup["logits_rel"]:
+        raise AssertionError(f"mesh supervise: the re-slotted first step's "
+                             f"logits {rel:.3e} off a one-device re-slot")
+    mv = [r["serve"]["move"] for r in runs]
+    m0 = mv[0]
+    mrel = _rel_norm(torch, m0["logits"], one_serve["logits"])
+    mok = sum(m0["tokens"][k] == want[k] for k in m0["tokens"])
+    if m0["src"] != m0["landed"] or not m0["carried"] or \
+            any(x["moved"] != m0["moved"] or x["left"] for x in mv):
+        raise AssertionError(f"mesh supervise: the move: source columns "
+                             f"{m0['src']} landed {m0['landed']}, carried "
+                             f"{m0['carried']}, moved per rank "
+                             f"{[x['moved'] for x in mv]}, left "
+                             f"{[x['left'] for x in mv]}")
+    if mrel > sup["logits_rel"]:
+        raise AssertionError(f"mesh supervise: the moved sessions' first "
+                             f"step's logits {mrel:.3e} off one device's")
+
+    def phases(t):
+        return (f"materialize {t.get('materialize_s', 0):.2f}, replay "
+                f"{t.get('replay_s', 0):.2f}, rebind "
+                f"{t.get('rebind_s', 0):.2f} s")
+    log(f"mesh supervise: {cell['arch']} shrink (host {sup['dead']} dead) "
+        f"onto {sup['train_mesh']} over ranks {inside[0]['ranks']} from "
+        f"step {inside[0]['step']}: MTTR per rank "
+        f"{[round(x['mttr_s'], 2) for x in tr]} s; restore "
+        + "; ".join(f"r{i} {phases(x['timings'])}" for i, x in
+                    enumerate(tr) if not x["outside"])
+        + f"; the saved digest, loss {[x['loss'] for x in inside]} against "
+        f"{r0['next_loss']} (limit {sup['loss_rtol']} relative), step ms "
+        f"{[round(x['step_ms'], 1) for x in inside]}; peak device memory "
+        f"per rank from the decision on GB "
+        f"{[round(x['peak'] / 1e9, 3) for x in tr]}; staged collectives "
+        f"per rank (calls, bytes, s) {[x['stats'] for x in tr]}")
+    log(f"mesh supervise: {serve['arch']} re-slot onto {v0['n_slots']} "
+        f"slots of {sup['serve_mesh']} from step {v0['step']}: MTTR per "
+        f"rank {[round(x['mttr_s'], 2) for x in sv]} s; restore "
+        f"{phases(v0['timings'])}; the saved sessions' columns, first "
+        f"step {v0['first_ms']:.0f} ms, its logits {rel:.3e} off a "
+        f"one-device re-slot, {ok} of {len(v0['tokens'])} requests token "
+        f"for token, decode {_median(v0['step_ms']):.0f} ms a step")
+    log(f"mesh supervise: live move off {serve['mesh']} onto one device: "
+        f"{len(m0['moved'])} sessions, {m0['carried']} columns carried "
+        f"(digest {m0['src']} on both ends), columns gathered in "
+        f"{m0['columns_s']:.3f} s, capture {m0['capture_s']:.3f} s, "
+        f"restore {m0['restore_s']:.3f} s, blackout {m0['blackout_s']:.3f} "
+        f"s; first step's logits {mrel:.3e} off a one-device restore; {mok} "
+        f"of {len(m0['tokens'])} requests token for token")
+
+
 def _median(xs) -> float:
     xs = sorted(xs)
     return xs[len(xs) // 2] if xs else 0.0
 
 
 def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None,
-              serve=None):
+              serve=None, sup=None):
     """Training over a device mesh and elastic restore across meshes
     (ROADMAP A9a), four ranks on the one card: (a) ``MESH_TRAIN`` on a
     (2, 2) mesh through the flash kernels on each rank's local heads, a
@@ -3873,15 +4239,17 @@ def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None,
     uninterrupted run's bit for bit; (e) llama4-scout's one-layer forward
     expert-parallel on (1, 4) against one rank; (f) ``compressed_psum``
     over the four ranks within 2 x scale of the exact mean; (g) the toy
-    pipeline against the plain layer loop. Returns the ranks' flash and
+    pipeline against the plain layer loop; ``MESH_SUPERVISE`` in both
+    launches (``mesh_supervise_report``). Returns the ranks' flash and
     codec launches summed."""
     from repro_torch.api import CheckpointSession
     from repro_torch.configs import resolve_config
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models import model as M
     from repro_torch.train.loop import Trainer
+    from repro_torch.launch.serve import proportional_slots
     cell, moe = cell or MESH_TRAIN, moe or MESH_MOE
-    serve = serve or MESH_SERVE
+    serve, sup = serve or MESH_SERVE, sup or MESH_SUPERVISE
     world = int(np.prod(cell["mesh"]))
     store = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     serve_store = tempfile.mkdtemp(prefix="chip_smoke_mesh_serve_")
@@ -3920,6 +4288,9 @@ def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None,
         one_serve = mesh_serve_restore(torch, serve_store, serve, params,
                                        device)
         one_serve_s = time.monotonic() - t0
+        one_reslot = mesh_serve_restore(
+            torch, serve_store, serve, params, device,
+            n_slots=proportional_slots(serve["n_slots"], world, world - 1))
         del params
         gc.collect()
         if device == "cuda":
@@ -3927,7 +4298,7 @@ def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None,
         t0 = time.monotonic()
         runs2 = spawn_ranks(mesh_elastic_rank, world, device=device,
                             args=(device, store, cell, moe, time.time(),
-                                  serve_store, serve),
+                                  serve_store, serve, sup),
                             timeout_s=600)
         elastic_s = time.monotonic() - t0
     finally:
@@ -4005,6 +4376,8 @@ def mesh_path(torch, np, mods, device="cuda", cell=None, moe=None,
     for r in runs:
         add(r["serve"]["counts"])
     mesh_serve_report(torch, runs, runs2, one_serve, serve, world, device)
+    mesh_supervise_report(torch, runs, runs2, one_serve, one_reslot, serve,
+                          cell, sup, world)
     log(f"mesh serving: one device in this process {one_serve_s:.2f} s "
         f"(params made included); peak device memory per rank GB in the "
         f"second launch before llama4-scout's forward (training and "

@@ -117,11 +117,14 @@ class CheckpointSession:
         optional ``session_state()`` hook wins over ``checkpoint_state()``
         (dynamic-state apps rebuild their entries per snapshot), the
         optional ``runtime_log()`` rides along for replay. Returns the
-        in-flight ``SnapshotHandle`` (None when blocking or dropped under
-        "skip" backpressure)."""
+        in-flight ``SnapshotHandle`` (None when blocking, dropped under
+        "skip" backpressure, or on a rank of a mesh whose app gathers
+        its state onto another rank: every rank of the mesh calls it)."""
         app = self._require_app()
         state_fn = getattr(app, "session_state", None)
         state = state_fn() if callable(state_fn) else app.checkpoint_state()
+        if state is None:
+            return None     # a rank of a mesh that does not commit
         log_fn = getattr(app, "runtime_log", None)
         if callable(log_fn):
             log = log_fn()
@@ -266,7 +269,8 @@ class CheckpointSession:
                   reassign: Optional[Callable[[Any, Any], None]] = None,
                   repair_storage: bool = True,
                   event_sink: Optional[
-                      Callable[[float, str, Dict[str, Any]], None]] = None):
+                      Callable[[float, str, Dict[str, Any]], None]] = None,
+                  process_group: Any = None):
         """Close the failure loop over this session: a
         ``ClusterSupervisor`` whose restore hook goes back through
         ``CheckpointSession.restore`` — so a RESTART/SHRINK decision
@@ -281,15 +285,33 @@ class CheckpointSession:
         event stream live (``core.churn.IncidentLog`` writes it as
         JSONL). The supervisor also drives the app only through
         protocol hooks (``quiesce`` at teardown, ``apply_reassignment``
-        for rebalances)."""
+        for rebalances).
+
+        A job over a mesh runs this in every rank with ``process_group``
+        (host *h* is rank *h*; ``ClusterSupervisor``), and a
+        ``mesh_factory`` in the restore kwargs builds, in every rank, the
+        ``DeviceMesh`` the app comes back on (``launch.mesh.make_mesh``,
+        with ``ranks=`` for the survivors after a shrink). A rank outside
+        that mesh restores nothing: its runner is an ``OutsideMesh``. A
+        factory that returns several devices that are no ``DeviceMesh``
+        raises ``ValueError`` (``supervisor.restore_mesh``)."""
         from repro_torch.core.supervisor import (ClusterSupervisor,
-                                                 one_device_mesh)
+                                                 OutsideMesh, restore_mesh)
+        from repro_torch.launch.mesh import in_mesh, is_device_mesh
 
         def _restore(target):
             kw = restore_kwargs(target) if callable(restore_kwargs) \
                 else dict(restore_kwargs or {})
             if kw.get("mesh_factory") is not None:
-                kw["mesh_factory"] = one_device_mesh(kw["mesh_factory"])
+                mesh = restore_mesh(kw["mesh_factory"]())
+                kw["mesh_factory"] = lambda: mesh
+                if is_device_mesh(mesh) and not in_mesh(mesh):
+                    job = self.backend.get_manifest(target.step).get("job",
+                                                                     {})
+                    app = self.attach(OutsideMesh(mesh, target.step, job))
+                    if on_restored is not None:
+                        on_restored(app, target)
+                    return app
             app = self.restore(step=target.step,
                                rewrite_op=target.rewrite_op(), **kw)
             if on_restored is not None:
@@ -302,7 +324,7 @@ class CheckpointSession:
             allow_shrink=allow_shrink, n_shards=n_shards,
             restore=_restore, teardown=teardown, reassign=reassign,
             repair_storage=repair_storage, runner=self._app,
-            event_sink=event_sink)
+            event_sink=event_sink, process_group=process_group)
         self.supervisor = sup
         return sup
 

@@ -211,13 +211,23 @@ def migrate_sessions(source: Any, target: Any, *, via: str,
     "serving again", not "queued". The source keeps decoding its
     remaining slots between batches. ``deadline_s`` is judged against
     the worst per-batch blackout and reported on the result — a planned
-    move that missed its drain deadline must be visible, not silent."""
+    move that missed its drain deadline must be visible, not silent.
+
+    A source that serves over a mesh is moved from every rank of its
+    mesh: each reads the chosen slots' columns (collective; they land
+    whole on the mesh's lead rank) and frees the slots, and only the
+    lead, which holds the target, goes on through the move channel. The
+    other ranks pass ``target=None`` and get the moved rids alone."""
     from repro_torch.api.policy import Policy
     from repro_torch.api.session import CheckpointSession
 
+    commits = getattr(source, "commits", None)
+    lead = not callable(commits) or commits()
     for attr, owner, role in (("extract_sessions", source, "source"),
                               ("submit", target, "target"),
                               ("step", target, "target")):
+        if owner is None and not lead:
+            continue
         if not callable(getattr(owner, attr, None)):
             raise MigrationError(
                 f"{role} {type(owner).__name__} has no {attr}(); live "
@@ -231,7 +241,7 @@ def migrate_sessions(source: Any, target: Any, *, via: str,
         raise MigrationError(f"batch={batch}: a move batch freezes at "
                              "least one slot")
     shapes = [getattr(e, "column_shapes", None) for e in (source, target)]
-    if chosen and all(map(callable, shapes)) and \
+    if chosen and lead and all(map(callable, shapes)) and \
             shapes[0]() != shapes[1]():
         # checked before the source gives anything up: a begun session
         # lands with its cache column, which must fit the target's cache
@@ -255,6 +265,9 @@ def migrate_sessions(source: Any, target: Any, *, via: str,
                 cols.update(columns([], include_queue=True))
             reqs += source.extract_sessions([], include_queue=True)
         if not reqs:
+            continue
+        if not lead:
+            res.moved += [r.rid for r in reqs]
             continue
         spec = _channel_spec(via, f"_moves/m{move_id:04d}_{bi}")
         with CheckpointSession(spec, policy) as chan:

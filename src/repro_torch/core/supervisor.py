@@ -45,14 +45,25 @@ reassignment logging, MTTR accounting — lives here, once, for every
 kind. ``launch/train.py --supervise`` and ``launch/serve.py
 --supervise`` route production entry points through it.
 
-The port runs on one device, so its hosts are virtual: HOT_SPARE
-rebinds the ``HostMap`` and logs a ``DataReassign``; SHRINK and GROW
-rebalance the data shards over the new world and rebuild the runner on
-the same device — an engine re-slotted onto as many slots as its
-restore hook asks for (``launch/serve.py`` gives it slots in proportion
-to the surviving hosts). The device mesh stays ``(1, 1)``: a restore
-hook that hands the runner a mesh of more than one device raises
-``NotImplementedError`` (``one_device_mesh``) until ROADMAP A9b step 2.
+The port's hosts are virtual: HOT_SPARE rebinds the ``HostMap`` and
+logs a ``DataReassign``; SHRINK and GROW rebalance the data shards over
+the new world and rebuild the runner where the restore hook says — one
+device, or a ``DeviceMesh`` — an engine re-slotted onto as many slots as
+the hook asks for (``launch/serve.py`` gives it slots in proportion to
+the surviving hosts).
+
+Over a mesh, virtual host *h* backs rank *h* of the launch
+(``launch.mesh.spawn_ranks``), and every rank runs the same supervisor
+in lockstep (``process_group``): the same beats, the same clock, so the
+same decisions. The group's rank 0 alone reads the store for the
+latest restorable step and repairs it, after every rank has drained
+its snapshot writer, and broadcasts what it found; every rank then
+calls the restore hook, whose ``mesh_factory`` builds the mesh the
+runner comes back on — the survivors' ranks after a shrink
+(``launch.mesh.make_mesh(ranks=...)``), every rank again after a grow
+or a restart. A rank outside that mesh gets an ``OutsideMesh`` runner:
+it holds no state and waits for the next mesh that takes it in. Each
+``Incident`` names the mesh shape the runner came back on.
 """
 from __future__ import annotations
 
@@ -60,6 +71,8 @@ import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.api.errors import CheckpointError
 from repro_torch.core.failure import (FailureAction, FailurePolicy,
@@ -109,6 +122,9 @@ class Incident:
     step: Optional[int]
     mttr_s: float
     wall_s: float
+    # the shape of the DeviceMesh the runner came back on (None: one
+    # device, or a runner that names no mesh)
+    mesh: Optional[Tuple[int, ...]] = None
 
 
 class SupervisorError(CheckpointError, RuntimeError):
@@ -116,30 +132,49 @@ class SupervisorError(CheckpointError, RuntimeError):
     restorable checkpoint, unrecoverable storage)."""
 
 
-def one_device_mesh(mesh_factory: Callable[[], Any]) -> Callable[[], Any]:
-    """Wrap a restore hook's ``mesh_factory``: the port's runners live on
-    one device, so a factory that builds a mesh of more than one device
-    (a sequence or array of devices, or anything with a ``shape``) raises
-    ``NotImplementedError`` naming ROADMAP A9b step 2 instead of
-    restoring onto a topology the supervisor cannot drive yet (a trainer
-    or an engine itself restores onto any mesh)."""
-    def factory():
-        mesh = mesh_factory()
-        shape = getattr(mesh, "shape", None)
-        n = None
-        if shape is not None and not isinstance(shape, dict):
-            n = 1
-            for d in tuple(shape):
-                n *= int(d)
-        elif isinstance(mesh, (list, tuple)):
-            n = len(mesh)
-        if n is not None and n != 1:
-            raise NotImplementedError(
-                f"a restore onto a device mesh of {n} devices: the port's "
-                "supervisor rebuilds runners on one device until ROADMAP "
-                "A9b step 2")
-        return mesh[0] if isinstance(mesh, (list, tuple)) else mesh
-    return factory
+def restore_mesh(mesh: Any) -> Any:
+    """What a restore hook's ``mesh_factory`` built, checked: a
+    ``DeviceMesh`` (over the world's ranks or part of them) or one device
+    passes through; a sequence or array of several devices raises
+    ``ValueError``: devices with no process group over them are no mesh,
+    and taking the first of them would drop the rest silently."""
+    from repro_torch.launch.mesh import is_device_mesh
+    if is_device_mesh(mesh) or not isinstance(mesh, (list, tuple,
+                                                     np.ndarray)):
+        return mesh
+    devices = list(np.asarray(mesh, dtype=object).ravel())
+    if len(devices) == 1:
+        return devices[0]
+    raise ValueError(
+        f"a restore onto {len(devices)} devices needs a DeviceMesh over a "
+        f"process group of {len(devices)} ranks (launch.mesh.make_mesh in "
+        "every rank of a group launch.mesh.spawn_ranks starts), not a "
+        f"{type(mesh).__name__} of devices")
+
+
+class OutsideMesh:
+    """The runner of a rank that a decision left outside the mesh it
+    restored onto (a shrink onto fewer ranks than the world has): it
+    holds no state and commits nothing, and keeps only the mesh and the
+    step the mesh's ranks resumed at. A later grow or restart whose mesh
+    takes the rank in rebuilds a real runner there."""
+
+    def __init__(self, mesh: Any, step: int, job: Dict[str, Any]) -> None:
+        self.mesh = mesh
+        self.step = int(step)
+        self.job = dict(job)
+
+    def checkpoint_state(self) -> None:
+        return None
+
+    def checkpoint_step(self) -> int:
+        return self.step
+
+    def job_meta(self) -> Dict[str, Any]:
+        return dict(self.job)
+
+    def bind(self, restore: Any) -> None:
+        raise SupervisorError("a rank outside the mesh restores nothing")
 
 
 class ClusterSupervisor:
@@ -162,6 +197,11 @@ class ClusterSupervisor:
                  duck-typing ``runner.apply_reassignment`` (Trainer).
     ``n_shards`` data shards the supervisor balances across hosts; None
                  disables shard management (serving).
+    ``process_group`` the ``torch.distributed`` group whose every rank
+                 runs this same supervisor in lockstep (a job over a
+                 mesh: host *h* is rank *h*); its rank 0 reads and
+                 repairs the store for all of them. None: this process
+                 runs the job alone.
 
     The supervisor is deliberately synchronous and single-threaded: the
     caller owns the loop (beat → poll → step), which is what makes the
@@ -184,8 +224,10 @@ class ClusterSupervisor:
                  runner: Any = None,
                  event_sink: Optional[
                      Callable[[float, str, Dict[str, Any]], None]] = None,
+                 process_group: Any = None,
                  ) -> None:
         self.clock = clock
+        self.process_group = process_group
         self.manager = manager
         self.hostmap = HostMap(hosts)
         self.monitor = HeartbeatMonitor(list(hosts),
@@ -233,12 +275,60 @@ class ClusterSupervisor:
             self._event("casualty_snapshot", error=repr(e))
 
     def latest_restorable_step(self) -> Optional[int]:
+        """The newest step whose chain is intact, once every in-flight
+        commit has landed: over a process group, after every rank has
+        drained its writer, the group's rank 0's answer on every rank."""
         if self.manager is None:
             return None
         from repro_torch.core.restore import restorable_steps
         self._quiesce()
-        ok = restorable_steps(self.manager.backend)
+        self._barrier()
+        ok = self._lead(lambda: restorable_steps(self.manager.backend))
         return ok[-1] if ok else None
+
+    def _barrier(self) -> None:
+        if self.process_group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.process_group)
+
+    def _lead(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` run by the process group's rank 0 alone, its value (or
+        its exception, raised) on every rank; ``fn()`` itself without a
+        group."""
+        if self.process_group is None:
+            return fn()
+        import torch.distributed as dist
+        box: List[Any] = [None]
+        if dist.get_rank(self.process_group) == 0:
+            try:
+                box = [(True, fn())]
+            except Exception as e:  # noqa: BLE001 — raised on every rank
+                box = [(False, e)]
+        dist.broadcast_object_list(
+            box, src=dist.get_global_rank(self.process_group, 0),
+            group=self.process_group)
+        ok, value = box[0]
+        if not ok:
+            raise value
+        return value
+
+    def _runner_mesh(self) -> Optional[Tuple[int, ...]]:
+        """The shape of the DeviceMesh the runner is on (None: one
+        device, or a runner that names no mesh)."""
+        mesh = getattr(self.runner, "mesh", None)
+        if getattr(mesh, "mesh_dim_names", None) is None:
+            return None
+        return tuple(int(n) for n in mesh.shape)
+
+    def _replayed_assignment(self):
+        """The data assignment the rebuilt runner's op-log replay landed,
+        as the process group's rank 0 reads it (a rank outside the mesh
+        holds none)."""
+        def read():
+            cur = getattr(getattr(self.runner, "lower", None),
+                          "data_assignment", None)
+            return tuple(map(tuple, cur)) if cur is not None else None
+        return self._lead(read)
 
     def _event(self, kind: str, **detail) -> None:
         t = self.clock()
@@ -273,7 +363,8 @@ class ClusterSupervisor:
             return None
         self.incidents.append(Incident(
             action=action.value, dead=list(dead), step=target.step,
-            mttr_s=self.clock() - t0, wall_s=time.monotonic() - w0))
+            mttr_s=self.clock() - t0, wall_s=time.monotonic() - w0,
+            mesh=self._runner_mesh()))
         return target
 
     def check_stragglers(self) -> List[int]:
@@ -365,7 +456,8 @@ class ClusterSupervisor:
             action = "planned_drain"
         self.incidents.append(Incident(
             action=action, dead=[], step=target.step,
-            mttr_s=self.clock() - t0, wall_s=time.monotonic() - w0))
+            mttr_s=self.clock() - t0, wall_s=time.monotonic() - w0,
+            mesh=self._runner_mesh()))
         return target
 
     def grow(self, host: Optional[int] = None) -> RestoreTarget:
@@ -410,17 +502,15 @@ class ClusterSupervisor:
             # same dance as _do_shrink: the rewrite only transforms an
             # *existing* logged DataReassign — read what replay landed
             # and log the grown assignment freshly if it didn't
-            current = getattr(getattr(self.runner, "lower", None),
-                              "data_assignment", None)
-            self._assignment = (tuple(map(tuple, current))
-                                if current is not None else None)
+            self._assignment = self._replayed_assignment()
             self._apply_assignment(assignment, reason="grow",
                                    hosts=[host])
         self._event("restored", action="grow", step=target.step,
                     hosts=hosts)
         self.incidents.append(Incident(
             action="grow", dead=[], step=target.step,
-            mttr_s=self.clock() - t0, wall_s=time.monotonic() - w0))
+            mttr_s=self.clock() - t0, wall_s=time.monotonic() - w0,
+            mesh=self._runner_mesh()))
         return target
 
     # --- decision execution ---------------------------------------------
@@ -486,10 +576,7 @@ class ClusterSupervisor:
             # DataReassign; a log that never rebalanced has none — read
             # what replay actually applied and log the survivor
             # assignment freshly if it didn't land
-            current = getattr(getattr(self.runner, "lower", None),
-                              "data_assignment", None)
-            self._assignment = (tuple(map(tuple, current))
-                                if current is not None else None)
+            self._assignment = self._replayed_assignment()
             self._apply_assignment(assignment, reason="shrink",
                                    hosts=list(dead))
         self._event("restored", action="shrink", step=target.step,
@@ -555,35 +642,30 @@ class ClusterSupervisor:
 
     def _repair(self) -> None:
         """Rebuild a degraded ShardedBackend from peer replicas before
-        the restore depends on it. Storage geometry is independent of
-        the compute world (the N virtual storage hosts are directories,
-        not processes), so repair always restores full redundancy and
-        re-admits the repaired hosts — a shrink changes who *computes*,
-        not where blobs live."""
+        the restore depends on it (over a process group, by its rank 0,
+        once every rank has drained its writer). Storage geometry is
+        independent of the compute world (the N virtual storage hosts are
+        directories, not processes), so repair always restores full
+        redundancy and re-admits the repaired hosts — a shrink changes
+        who *computes*, not where blobs live."""
         if not self.repair_storage or self.manager is None:
             return
         backend = getattr(self.manager, "backend", None)
         from repro_torch.core.backends.sharded import ShardedBackend
         if not isinstance(backend, ShardedBackend):
             return
-        # cheap probe before the O(all blobs) sweep: a host death shows
-        # up as an injected writer failure or a missing host directory.
-        # Keeps the hot-spare path O(n_hosts) when storage survived —
-        # the common case the ~ms takeover MTTR is advertised on.
-        degraded = bool(backend._failed_hosts) or any(
-            not (backend.root / f"host_{h:03d}").is_dir()
-            for h in range(backend.n_hosts))
-        if not degraded:
+        self._barrier()
+        rep = self._lead(lambda: _repair_store(backend))
+        if rep is None:
             return
-        from repro_torch.core import replication
-        rep = replication.repair(backend)
-        if rep.restored or rep.unrecoverable:
-            self._event("storage_repair", restored=rep.restored,
-                        unrecoverable=len(rep.unrecoverable))
-        if rep.unrecoverable:
+        restored, unrecoverable = rep
+        if restored or unrecoverable:
+            self._event("storage_repair", restored=restored,
+                        unrecoverable=len(unrecoverable))
+        if unrecoverable:
             raise SupervisorError(
-                f"{len(rep.unrecoverable)} blob(s) lost every copy "
-                f"(first: {rep.unrecoverable[0]}); the latest "
+                f"{len(unrecoverable)} blob(s) lost every copy "
+                f"(first: {unrecoverable[0]}); the latest "
                 "checkpoint(s) referencing them are not restorable")
 
     def _require_step(self) -> int:
@@ -628,3 +710,20 @@ class ClusterSupervisor:
         for inc in self.incidents:
             out[inc.action] = max(out.get(inc.action, 0.0), inc.wall_s)
         return out
+
+
+def _repair_store(backend) -> Optional[Tuple[Any, List[Any]]]:
+    """Repair a degraded ``ShardedBackend``: (restored, unrecoverable),
+    or None where it is not degraded. A cheap probe comes before the
+    O(all blobs) sweep: a host death shows up as an injected writer
+    failure or a missing host directory. That keeps the hot-spare path
+    O(n_hosts) when storage survived — the common case the ~ms takeover
+    MTTR is advertised on."""
+    degraded = bool(backend._failed_hosts) or any(
+        not (backend.root / f"host_{h:03d}").is_dir()
+        for h in range(backend.n_hosts))
+    if not degraded:
+        return None
+    from repro_torch.core import replication
+    rep = replication.repair(backend)
+    return rep.restored, list(rep.unrecoverable)

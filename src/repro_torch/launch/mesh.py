@@ -2,9 +2,15 @@
 ``repro.launch.mesh``.
 
 A mesh is a ``torch.distributed`` ``DeviceMesh`` with named dims over
-the ranks of the default process group; its size must equal the world
-size. Functions, not module-level constants: importing this module
-touches no device and starts no process.
+the ranks of the default process group: all of them, or the ranks a
+failure left (``make_mesh(ranks=...)``). Every rank of the world builds
+every mesh, since each of its process groups is made over the world; a
+rank outside the mesh gets it with no coordinate (``in_mesh`` is
+False), holds no state on it and takes part only in the construction of
+later meshes and in the world's barriers until a grow brings it back.
+A mesh's lowest rank (``lead_rank``) is the one that snapshots gather
+onto and that commits them. Functions, not module-level constants:
+importing this module touches no device and starts no process.
 
 ``spawn_ranks`` is the one way the tests, ``chip_smoke.py`` and the
 launcher start ranks: ``torch.multiprocessing`` with the spawn method,
@@ -24,7 +30,7 @@ import pickle
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,20 +43,72 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None):
+def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None,
+              ranks: Optional[Sequence[int]] = None):
     """A ``DeviceMesh`` of ``shape`` with dims named ``axes`` over the
-    world's ranks, on the card unless ``device="cpu"``. Raises unless the
-    process group's world size equals the mesh's size."""
-    from torch.distributed.device_mesh import init_device_mesh
+    world's ranks, or over ``ranks`` (global ranks in mesh order, a
+    subset of the world: the survivors of a shrink), on the card unless
+    ``device="cpu"``. Collective: every rank of the world calls it, the
+    ranks outside ``ranks`` too. Raises unless the world has the ranks
+    the mesh names (with ``ranks`` None: unless its size is the mesh's)."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     n = int(np.prod(shape))
-    if not dist.is_initialized() or world_size() != n:
+    world = world_size()
+    if not dist.is_initialized() or (ranks is None and world != n):
         raise ValueError(
             f"a {shape} mesh over {axes} needs a process group of {n} "
-            f"ranks; this process has {world_size()} "
+            f"ranks; this process has {world} "
             f"({'initialized' if dist.is_initialized() else 'none'})")
     dev = resolve_device(device)
-    return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    if ranks is None:
+        return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    ranks = [int(r) for r in ranks]
+    if len(ranks) != n or len(set(ranks)) != n or \
+            not all(0 <= r < world for r in ranks):
+        raise ValueError(f"a {shape} mesh needs {n} distinct ranks of the "
+                         f"world's {world}; got {ranks}")
+    mesh = DeviceMesh(dev.type, torch.tensor(ranks).reshape(shape),
+                      mesh_dim_names=axes)
+    key = tuple(sorted(ranks))
+    if n != world and key not in _GROUPS:
+        _GROUPS[key] = dist.new_group(list(key))
+    return mesh
+
+
+# the process group of each subset of the world a mesh was made over,
+# by its sorted ranks: a snapshot's gather and the digests' broadcast
+# run over the mesh's ranks alone
+_GROUPS: Dict[Tuple[int, ...], Any] = {}
+
+
+def mesh_ranks(mesh) -> List[int]:
+    """The mesh's global ranks, in mesh order."""
+    return [int(r) for r in mesh.mesh.flatten().tolist()]
+
+
+def lead_rank(mesh) -> int:
+    """The mesh's lowest rank: snapshots gather onto it and it commits."""
+    return min(mesh_ranks(mesh))
+
+
+def in_mesh(mesh) -> bool:
+    """Whether this process is one of the mesh's ranks."""
+    return mesh.get_coordinate() is not None
+
+
+def mesh_group(mesh):
+    """The process group of the mesh's ranks: None (the default group)
+    for a mesh of the whole world; raises for a subset that
+    ``make_mesh`` did not build."""
+    ranks = tuple(sorted(mesh_ranks(mesh)))
+    if len(ranks) == world_size():
+        return None
+    if ranks not in _GROUPS:
+        raise ValueError(f"no process group of ranks {list(ranks)}: build "
+                         "a mesh over part of the world with "
+                         "make_mesh(ranks=...)")
+    return _GROUPS[ranks]
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None):

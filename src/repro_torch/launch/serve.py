@@ -268,6 +268,14 @@ def _run_migrated(args, sess, eng, migrate_to, max_steps: int = 10_000,
     return eng, reg
 
 
+def proportional_slots(n_slots: int, n_hosts: int, n_live: int) -> int:
+    """The slots an engine of ``n_slots`` over ``n_hosts`` hosts keeps on
+    ``n_live`` of them: in proportion, rounded up — losing 1 of 4 hosts
+    must not halve a 2-slot engine, and a grow back to the whole world
+    gives back every slot."""
+    return max(1, -(-n_slots * n_live // n_hosts))
+
+
 def _run_supervised(args, sess, eng, params, kill, drain=None,
                     trace=None, max_steps: int = 10_000, on_step=None):
     """Drain the engine under the failure loop: one virtual-clock tick
@@ -286,10 +294,8 @@ def _run_supervised(args, sess, eng, params, kill, drain=None,
     device = eng.device
 
     def restore_kwargs(target):
-        # ceiling division: losing 1 of 4 hosts must not halve a
-        # 2-slot engine — capacity shrinks proportionally, rounded up
-        # (and a grow back to the full world restores the full slots)
-        n_slots = max(1, -(-args.slots * len(target.hosts) // args.hosts))
+        n_slots = proportional_slots(args.slots, args.hosts,
+                                     len(target.hosts))
         return {"params": params, "n_slots": n_slots, "device": device}
 
     def on_restored(e, target):

@@ -186,19 +186,22 @@ class SimWorldDriver:
     Scripted ``kill``/``drain`` events (a single (host, step) pair or a
     list of them) and a full ``trace`` compose into one ``ChurnTrace``
     driven by ``core.churn.ChurnEngine``; ``snapshot`` is the blocking
-    proactive-snapshot hook preemption notices and grows use.
+    proactive-snapshot hook preemption notices and grows use; ``say``
+    prints this object's lines (a mesh run's ranks but rank 0 pass a
+    no-op).
     """
 
     def __init__(self, kill: Spec = None, drain: Spec = None, *,
                  trace: Optional[ChurnTrace] = None,
                  snapshot=None, grow: bool = True,
-                 min_grace: float = 1.0) -> None:
+                 min_grace: float = 1.0, say=print) -> None:
         events = list(trace.events) if trace is not None else []
         events += _as_events(kill, "die")
         events += _as_events(drain, "drain")
         self.engine = ChurnEngine(ChurnTrace(events), snapshot=snapshot,
                                   grow=grow, min_grace=min_grace)
         self.sup = None
+        self.say = say
 
     def clock(self) -> float:
         return self.engine.clock()
@@ -215,8 +218,8 @@ class SimWorldDriver:
         n0 = len(self.sup.incidents)
         executed = self.engine.tick(step)
         for inc in self.sup.incidents[n0:]:
-            print(f"[supervisor] {inc.action}: dead={inc.dead} -> "
-                  f"hosts={self.sup.world} (mttr {inc.wall_s:.2f}s)")
+            self.say(f"[supervisor] {inc.action}: dead={inc.dead} -> "
+                     f"hosts={self.sup.world} (mttr {inc.wall_s:.2f}s)")
         return executed
 
     def goodput(self):
@@ -226,12 +229,12 @@ class SimWorldDriver:
         rep = self.engine.report()
         if not rep.incidents and not self.engine.trace.events:
             return
-        print(f"[{label}] goodput {rep.goodput:.2f} "
-              f"({rep.useful_steps} useful / {rep.attempted_steps} "
-              f"attempted steps, {rep.lost_steps} lost, "
-              f"{len(rep.incidents)} incidents, "
-              f"{rep.proactive_preempts} proactive preempts, "
-              f"{rep.grows} grows)")
+        self.say(f"[{label}] goodput {rep.goodput:.2f} "
+                 f"({rep.useful_steps} useful / {rep.attempted_steps} "
+                 f"attempted steps, {rep.lost_steps} lost, "
+                 f"{len(rep.incidents)} incidents, "
+                 f"{rep.proactive_preempts} proactive preempts, "
+                 f"{rep.grows} grows)")
 
     def warn_if_kill_pending(self) -> None:
         """Call after the run's loop: trace events that never fired, or
@@ -239,11 +242,11 @@ class SimWorldDriver:
         out loud — or the user believes the failure path was exercised
         when it wasn't."""
         for ev in self.engine.unfired_events():
-            print(f"[supervisor] WARNING: churn event {ev.kind} host "
-                  f"{ev.host}@{ev.t:g} never fired — the run ended "
-                  f"before its step (raise --steps)", file=sys.stderr)
+            self.say(f"[supervisor] WARNING: churn event {ev.kind} host "
+                     f"{ev.host}@{ev.t:g} never fired — the run ended "
+                     f"before its step (raise --steps)", file=sys.stderr)
         for host in self.engine.unresolved_hosts():
-            print(f"[supervisor] WARNING: host {host} went silent but "
-                  f"never produced an incident — the run ended before "
-                  f"the death could be detected (raise --steps or "
-                  f"lower --heartbeat-timeout)", file=sys.stderr)
+            self.say(f"[supervisor] WARNING: host {host} went silent but "
+                     f"never produced an incident — the run ended before "
+                     f"the death could be detected (raise --steps or "
+                     f"lower --heartbeat-timeout)", file=sys.stderr)

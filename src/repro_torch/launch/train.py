@@ -44,11 +44,19 @@ rebalance — then training continues:
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch starcoder2-3b-smoke --steps 20 --store sharded:/tmp/job1 \
       --supervise --hosts 4 --spares 1 --kill-host 2@8
+
+With a mesh every rank runs the same supervisor in lockstep over the
+same simulated world (the reference launcher's behaviour): a decision
+restores onto the rank's current ``DeviceMesh`` (the logged mesh comes
+back), the virtual hosts shrink and the data shards rebalance over the
+survivors; rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+import torch
 
 from repro_torch.core.churn import IncidentLog
 from repro_torch.core.failure import FailureAction
@@ -115,12 +123,9 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     mesh = (args.data_mesh or 1, args.model_mesh)
     if mesh != (1, 1):
-        if args.supervise:
-            print("[launch] --supervise over a mesh of more than one rank "
-                  "waits for ROADMAP A9b step 2", file=sys.stderr)
-            return 2
         spawn_ranks(_mesh_rank, mesh[0] * mesh[1], device=str(device),
-                    args=(args, spec, resume, resume_step, mesh))
+                    args=(args, spec, resume, resume_step, mesh, kill,
+                          drain, trace))
         return 0
     sess, err = build_session(spec, "launch", interval=args.ckpt_every,
                               keep_last=args.keep_last)
@@ -163,11 +168,14 @@ def main(argv=None) -> int:
     return 0
 
 
-def _mesh_rank(rank, world, args, spec, resume, resume_step, mesh):
+def _mesh_rank(rank, world, args, spec, resume, resume_step, mesh,
+               kill=(), drain=(), trace=None):
     """One rank of a (D, M) mesh run: restore onto ``mesh`` if the store
     has a checkpoint (every rank reads it), else a cold start; the step
     loop, with rank 0 printing and committing the snapshots (each one
-    collective: each leaf gathered onto rank 0, ``Trainer.save``)."""
+    collective: each leaf gathered onto rank 0, ``Trainer.save``), or
+    with ``--supervise`` ``_run_supervised`` in every rank (``kill``,
+    ``drain``, ``trace`` as ``main`` parsed them)."""
     device = resolve_device(args.device)
     say = print if rank == 0 else (lambda *a, **k: None)
     sess, err = build_session(spec, "launch", interval=args.ckpt_every,
@@ -188,10 +196,15 @@ def _mesh_rank(rank, world, args, spec, resume, resume_step, mesh):
             f"({restore_timings_line(tr.incarnation)})")
     else:
         job = TrainJob(arch=args.arch, shape_key=args.shape)
-        tr = Trainer(job, mesh, ("data", "model"), manager=sess.manager,
-                     device=device)
+        tr = sess.attach(Trainer(job, mesh, ("data", "model"),
+                                 manager=sess.manager, device=device))
         tr.init_state()
         say(f"[launch] COLD START {args.arch} on mesh {mesh} x {device}")
+    if args.supervise:
+        tr = _run_supervised(
+            args, sess, tr, list(kill), list(drain), trace, say=say,
+            restore_kwargs={"mesh_factory": lambda m=tr.mesh: m},
+            process_group=torch.distributed.group.WORLD)
     for step in range(tr.checkpoint_step(), args.steps):
         m = tr.train_steps(1)
         say(f"step {m['step']:5.0f} loss {m['loss']:.4f} "
@@ -208,37 +221,45 @@ def _mesh_rank(rank, world, args, spec, resume, resume_step, mesh):
 
 
 def _run_supervised(args, sess, tr, kill, drain=None, trace=None,
-                    device=None, on_step=None):
+                    device=None, on_step=None, *, say=print,
+                    restore_kwargs=None, process_group=None):
     """The failure loop around the step loop: every step is one tick of
     the simulated world's clock; live hosts heartbeat, the supervisor
     polls, and an executed decision swaps the runner under us — the
     restore goes back through the session's app-kind registry onto
-    ``device`` (the trainer's own by default), so the supervisor never
-    touches trainer-specific code. Scripted --drain triggers and full
-    --churn traces run through the same ``ChurnEngine``: preemption
-    notices snapshot proactively and drain before the deadline,
-    returned hosts re-enter the spare pool, and the engine grows the
-    world back when capacity is idle. ``on_step(step, metrics)``, when
-    given, observes every step's metrics. Returns the supervisor's
-    runner."""
+    ``device`` (the trainer's own by default) or, given
+    ``restore_kwargs``, where they say, so the supervisor never touches
+    trainer-specific code. Scripted --drain triggers and full --churn
+    traces run through the same ``ChurnEngine``: preemption notices
+    snapshot proactively and drain before the deadline, returned hosts
+    re-enter the spare pool, and the engine grows the world back when
+    capacity is idle. ``on_step(step, metrics)``, when given, observes
+    every step's metrics. Over a mesh every rank calls this with the
+    world's ``process_group`` and ``say`` prints on rank 0 alone.
+    Returns the supervisor's runner."""
     world = list(range(args.hosts))
     spares = list(range(args.hosts, args.hosts + args.spares))
     driver = SimWorldDriver(kill, drain, trace=trace,
-                            snapshot=lambda: sess.snapshot(block=True))
+                            snapshot=lambda: sess.snapshot(block=True),
+                            say=say)
 
     def on_restored(t, target):
-        print(f"[supervisor] restored at step "
-              f"{t.checkpoint_step()} on hosts {target.hosts}")
+        say(f"[supervisor] restored at step "
+            f"{t.checkpoint_step()} on hosts {target.hosts}")
 
-    sink = IncidentLog(args.incident_log) if args.incident_log else None
+    lead = process_group is None or torch.distributed.get_rank() == 0
+    sink = IncidentLog(args.incident_log) \
+        if args.incident_log and lead else None
+    if restore_kwargs is None:
+        restore_kwargs = {"device": device if device is not None
+                          else tr.device}
     sup = sess.supervise(
         world, spares=spares,
         heartbeat_timeout=args.heartbeat_timeout,
         clock=driver.clock, n_shards=tr.shape.global_batch,
-        allow_shrink=not args.no_shrink,
-        restore_kwargs={"device": device if device is not None
-                        else tr.device},
-        on_restored=on_restored, event_sink=sink)
+        allow_shrink=not args.no_shrink, restore_kwargs=restore_kwargs,
+        on_restored=on_restored, event_sink=sink,
+        process_group=process_group)
     driver.attach(sup)
     if sess.latest_step() is None:
         sess.snapshot(block=True)   # baseline: a death before the first
@@ -248,8 +269,8 @@ def _run_supervised(args, sess, tr, kill, drain=None, trace=None,
         tr = sup.runner
         m = tr.train_steps(1)
         step = tr.checkpoint_step()
-        print(f"step {m['step']:5.0f} loss {m['loss']:.4f} "
-              f"hosts {sup.world}", flush=True)
+        say(f"step {m['step']:5.0f} loss {m['loss']:.4f} "
+            f"hosts {sup.world}", flush=True)
         if on_step is not None:
             on_step(step, m)
         sess.maybe_snapshot(final=step == args.steps)
@@ -259,8 +280,9 @@ def _run_supervised(args, sess, tr, kill, drain=None, trace=None,
             step = sup.runner.checkpoint_step()  # rolled back
     driver.warn_if_kill_pending()
     for inc in sup.incidents:
-        print(f"[supervisor] incident {inc.action}: dead={inc.dead} "
-              f"step={inc.step} mttr={inc.wall_s:.2f}s")
+        say(f"[supervisor] incident {inc.action}: dead={inc.dead} "
+            f"step={inc.step} mttr={inc.wall_s:.2f}s"
+            + (f" mesh={inc.mesh}" if inc.mesh is not None else ""))
     driver.print_goodput()
     if sink is not None:
         sink.close()

@@ -34,6 +34,9 @@ DTensor names:
 ``gather_to`` is the snapshot's and the digests' gather: the same slots
 and barriers, but only the destination rank copies the blocks back and
 builds the whole tensor; the others hold no more than their own block.
+It runs over the ranks of the tensor's mesh, all of the world's or the
+part a failure left (``gather_block``, which a live move also uses for
+one slot's column of the cache).
 
 The pipeline's point-to-point hand-offs (``send_recv``) are staged
 through pinned host buffers and gloo's isend/irecv. Compute never leaves
@@ -271,33 +274,54 @@ def _coordinate(grid: torch.Tensor, rank: int) -> List[int]:
 
 
 def gather_to(x, dst: int = 0) -> Optional[torch.Tensor]:
-    """``x`` (a DTensor of ``Shard``/``Replicate`` placements over a mesh
-    of the whole world, or a plain tensor) whole on global rank ``dst``,
-    None on the other ranks; collective. Each rank writes its block into
-    its staging slot; ``dst`` alone copies one holder of each distinct
-    block (the rank at coordinate 0 on every replicating mesh dim) to
-    its device and places it, while the other ranks only wait at the
-    barriers. A plain tensor is every rank's own: ``dst`` returns it."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    """``x`` (a DTensor of ``Shard``/``Replicate`` placements, or a plain
+    tensor) whole on global rank ``dst``, None on the mesh's other ranks;
+    collective over the mesh's ranks (``gather_block``). A plain tensor
+    is every rank's own: ``dst`` returns it."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x if dist.get_rank() == dst else None
+    return gather_block(x.to_local(), tuple(x.shape), x.device_mesh,
+                        tuple(x.placements), dst)
+
+
+def gather_block(local: torch.Tensor, shape, mesh, placements,
+                 dst: int = 0, *, at: Optional[Dict[int, int]] = None
+                 ) -> Optional[torch.Tensor]:
+    """The tensor of global ``shape`` of which each rank of ``mesh`` holds
+    the block ``placements`` give it as ``local``, whole on global rank
+    ``dst`` (one of the mesh's ranks) and None on the others; collective
+    over the mesh's ranks (the whole world or the part a failure left).
+    Each rank writes its block into its staging slot; ``dst`` alone
+    copies one holder of each distinct block to its device and places
+    it, while the other ranks only wait at the barriers. A holder sits
+    at coordinate ``at[d]`` (default 0) on each mesh dim ``d`` the
+    placements replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.mesh import mesh_group, mesh_ranks
     from repro_torch.parallel.sharding import block_narrows
     me = dist.get_rank()
-    if not isinstance(x, DTensor):
-        return x if me == dst else None
-    places = tuple(x.placements)
+    places = tuple(placements)
     if not all(isinstance(p, (Shard, Replicate)) for p in places):
         raise ValueError(f"gather_to takes Shard/Replicate placements, "
                          f"not {places}")
-    grid = x.device_mesh.mesh
-    if grid.numel() != dist.get_world_size():
-        raise ValueError(f"gather_to needs a mesh of the whole world "
-                         f"({dist.get_world_size()} ranks), not "
-                         f"{tuple(grid.shape)}")
-    local = x.to_local().contiguous()
+    grid = mesh.mesh
+    members = mesh_ranks(mesh)
+    if me not in members or dst not in members:
+        raise ValueError(f"a gather onto rank {dst} runs on the mesh's "
+                         f"ranks {sorted(members)}; this is rank {me}")
+    group = mesh_group(mesh)
+    order = {r: i for i, r in enumerate(
+        dist.get_process_group_ranks(group) if group is not None
+        else range(dist.get_world_size()))}
+    at = dict(at or {})
+    local = local.contiguous()
     src = _bytes(local)
     n = src.numel()
-    holders = [r for r in range(grid.numel())
-               if all(c == 0 for c, p in zip(_coordinate(grid, r), places)
-                      if not isinstance(p, Shard))]
+    holders = [r for r in members
+               if all(c == at.get(d, 0) for d, (c, p) in enumerate(
+                   zip(_coordinate(grid, r), places))
+                   if not isinstance(p, Shard))]
 
     def run():
         spans = _spans(n, _staging().slot_bytes)
@@ -307,19 +331,19 @@ def gather_to(x, dst: int = 0) -> Optional[torch.Tensor]:
         def read(i, slots):
             lo, size = spans[i]
             for r, b in blocks.items():
-                b[lo:lo + size].copy_(slots[r])
-        _rounds(None, [[src[lo:lo + size]] for lo, size in spans], read)
+                b[lo:lo + size].copy_(slots[order[r]])
+        _rounds(group, [[src[lo:lo + size]] for lo, size in spans], read)
         if me != dst:
             return None
-        out = torch.empty(tuple(x.shape), dtype=x.dtype,
+        out = torch.empty(tuple(shape), dtype=local.dtype,
                           device=local.device)
         for r, b in blocks.items():
             view = out
             for d, start, size in block_narrows(
-                    tuple(x.shape), tuple(grid.shape),
+                    tuple(shape), tuple(grid.shape),
                     _coordinate(grid, r), places):
                 view = view.narrow(d, start, size)
-            view.copy_(b.view(x.dtype).view(local.shape))
+            view.copy_(b.view(local.dtype).view(local.shape))
         return out
     return _timed("gather", True, local, run)
 

@@ -201,8 +201,11 @@ def card_plan(cfg: ModelConfig, shape: ShapeConfig, total_memory: float,
     against 0.9 x that, less rank 0's snapshot gather
     (``snapshot_gather_bytes``), divided among the ranks sharing the
     card, with the port's own count (``estimate_card_train_memory``).
-    Raises ``MemoryError`` where params and moments alone exceed the
-    budget. A prefill or decode shape takes ``card_serve_plan``."""
+    The mesh's own ranks are counted, so a restore onto the survivors of
+    a shrink (a mesh over part of the world, whose ranks each hold a
+    larger share) is planned for what they hold. Raises ``MemoryError``
+    where params and moments alone exceed the budget, before anything is
+    allocated. A prefill or decode shape takes ``card_serve_plan``."""
     if shape.kind != "train":
         return card_serve_plan(cfg, shape, total_memory, mesh)
     sizes = _sizes(mesh)

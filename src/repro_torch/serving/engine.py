@@ -48,9 +48,12 @@ logits are gathered whole before the argmax, so every rank picks the
 same token. An admitted or carried column lands only in the data rank
 that owns its slot, a restored cache as each rank's block
 (``parallel.sharding.local_shard``). A snapshot or a cache digest
-gathers the cache onto rank 0 one leaf at a time
-(``collectives.gather_to``); rank 0 alone holds the session and commits,
-so the manifest's leaves are a one-device engine's.
+gathers the cache onto the mesh's lead rank one leaf at a time
+(``collectives.gather_to``); the lead alone holds the session and
+commits, so the manifest's leaves are a one-device engine's. The mesh
+may be part of the world (a supervised shrink restores onto the
+survivors' ranks): its ranks alone hold the engine. A live move reads
+each chosen slot's column whole onto the lead (``session_columns``).
 """
 from __future__ import annotations
 
@@ -73,11 +76,12 @@ from repro_torch.core.oplog import CacheAlloc, Compile, OpLog
 from repro_torch.core.split_state import (LowerHalf, UpperHalf,
                                           register_step_fn)
 from repro_torch.host import host_array, resolve_device, to_tensor
-from repro_torch.launch.mesh import is_device_mesh, make_mesh, mesh_device
+from repro_torch.launch.mesh import (is_device_mesh, lead_rank, make_mesh,
+                                     mesh_device, mesh_group)
 from repro_torch.models import model as M
 from repro_torch.models.layers import is_dtensor, local_of
 from repro_torch.parallel import context as pctx
-from repro_torch.parallel.collectives import gather_to
+from repro_torch.parallel.collectives import gather_block, gather_to
 from repro_torch.parallel.planner import make_plan
 from repro_torch.parallel.sharding import (ParallelPlan, axis_sizes,
                                            block_narrows, leaf_placements,
@@ -427,9 +431,10 @@ class ServingEngine:
         self._ensure_cache()   # never snapshot a half-paged-in cache
         cache = self.cache
         if self.mesh is not None:
-            # collective: every rank gathers, rank 0 alone keeps the leaves
-            cache = tree_map(lambda t: gather_to(t, 0), cache)
-            if not self._writes():
+            # collective: every rank gathers, the lead alone keeps them
+            lead = lead_rank(self.mesh)
+            cache = tree_map(lambda t: gather_to(t, lead), cache)
+            if not self.commits():
                 return None
         up = UpperHalf()
         up.register("kv_cache", "cache", cache)
@@ -454,28 +459,31 @@ class ServingEngine:
         return {"kind": "serving", "arch": self.arch,
                 "n_slots": self.n_slots, "max_seq": self.max_seq}
 
-    def _writes(self) -> bool:
-        """Whether this rank commits snapshots: rank 0 of a mesh."""
-        return self.mesh is None or torch.distributed.get_rank() == 0
+    def commits(self) -> bool:
+        """Whether this rank commits snapshots: a mesh's lead rank."""
+        return self.mesh is None or \
+            torch.distributed.get_rank() == lead_rank(self.mesh)
 
     def cache_digest(self) -> str:
         """blake2b over the cache's leaf paths and bytes (bfloat16 hashed
         as its bits), the same for a cache of one device and one of any
         mesh holding the same values. Over a mesh, collective: each leaf
-        gathered onto rank 0 in turn, every rank returns rank 0's
-        digest."""
+        gathered onto the lead rank in turn, every rank of the mesh
+        returns the lead's digest."""
         self._ensure_cache()
         h = hashlib.blake2b(digest_size=16)
         for path, t in sorted(flatten_with_paths(self.cache),
                               key=lambda pv: pv[0]):
-            whole = t if self.mesh is None else gather_to(t, 0)
+            whole = t if self.mesh is None else \
+                gather_to(t, lead_rank(self.mesh))
             if whole is not None:
                 h.update(path.encode())
                 h.update(np.ascontiguousarray(host_array(whole)).tobytes())
         if self.mesh is None:
             return h.hexdigest()
         box = [h.hexdigest()]
-        torch.distributed.broadcast_object_list(box, src=0)
+        torch.distributed.broadcast_object_list(
+            box, src=lead_rank(self.mesh), group=mesh_group(self.mesh))
         return box[0]
 
     # --- CheckpointableApp protocol (repro_torch.api) ------------------
@@ -496,13 +504,14 @@ class ServingEngine:
         non-blocking by default — decode keeps running while the
         pipeline encodes and writes. Returns the SnapshotHandle (None
         when blocking, or if dropped under "skip" backpressure). Over a
-        mesh every rank calls it (the cache is gathered onto rank 0) and
-        only rank 0 needs the manager; the others return None."""
-        if self.manager is None and self._writes():
+        mesh every rank of it calls it (the cache is gathered onto the
+        lead rank) and only the lead needs the manager; the others
+        return None."""
+        if self.manager is None and self.commits():
             raise RuntimeError("construct the engine with manager= to "
                                "snapshot it")
         state = self.session_state()
-        if not self._writes():
+        if not self.commits():
             return None
         return self.manager.save(self.checkpoint_step(), state,
                                  self.runtime_log(), block=block,
@@ -606,24 +615,65 @@ class ServingEngine:
         sessions still carry. Call it before ``extract_sessions`` frees
         the slots. (The JAX package's move carries no cache and
         re-prefills each history, which need not give the decode steps'
-        bits, ROADMAP C23.)"""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "moving sessions off an engine that serves over a mesh "
-                "waits for ROADMAP A9b step 2")
+        bits, ROADMAP C23.) Over a mesh, collective: every rank of the
+        mesh calls it, each column is gathered whole onto the lead rank
+        (``_column``) and the other ranks return {}."""
         self._ensure_cache()
         chosen = range(self.n_slots) if slots is None else slots
         out: Dict[int, Any] = {}
         for s in chosen:
             r = self.slot_req[s]
             if r is not None:
-                out[r.rid] = tree_map(
-                    lambda t, ax, s=s: t.narrow(ax, s, 1).clone(),
-                    self.cache, self._batch_axes)
-        if include_queue:
+                col = tree_map(lambda t, ax, s=s: self._column(t, ax, s),
+                               self.cache, self._batch_axes)
+                if self.commits():
+                    out[r.rid] = col
+        if include_queue and self.commits():
             out.update({r.rid: self._carried[r.rid] for r in self.queue
                         if r.rid in self._carried})
         return out
+
+    def _column(self, t, ax: int, s: int):
+        """Slot ``s``'s column of cache leaf ``t`` (batch axis ``ax``, a
+        copy of extent 1 there). Over a mesh, whole on the lead rank and
+        None elsewhere: each rank stages one column of its block — the
+        slot's where it holds the slot, any other of the same shape where
+        it does not — and the lead places only the holders' blocks
+        (``collectives.gather_block``), so no rank gathers the cache."""
+        if self.mesh is None:
+            return t.narrow(ax, s, 1).clone()
+        from torch.distributed.tensor import Replicate, Shard
+        places = list(t.placements)
+        split = [d for d, p in enumerate(places)
+                 if isinstance(p, Shard) and p.dim == ax]
+        for d in split:
+            places[d] = Replicate()
+        lo, n = self._rows(t, ax)
+        local = local_of(t).narrow(ax, s - lo if lo <= s < lo + n else 0, 1)
+        shape = tuple(1 if i == ax else int(x) for i, x in enumerate(t.shape))
+        return gather_block(local, shape, self.mesh, places,
+                            lead_rank(self.mesh),
+                            at=self._slot_holder(t, ax, s, split))
+
+    def _slot_holder(self, t, ax: int, s: int, split: List[int]
+                     ) -> Dict[int, int]:
+        """The coordinates, on the mesh dims ``split`` that shard leaf
+        ``t``'s batch axis ``ax``, of the ranks whose block holds slot
+        ``s``."""
+        import itertools
+        shape = tuple(self.mesh.shape)
+        for coord in itertools.product(*(range(shape[d]) for d in split)):
+            full = [0] * len(shape)
+            for d, c in zip(split, coord):
+                full[d] = c
+            lo, n = 0, int(t.shape[ax])
+            for d, start, size in block_narrows(
+                    tuple(t.shape), shape, full, t.placements):
+                if d == ax:
+                    lo, n = lo + start, size
+            if lo <= s < lo + n:
+                return dict(zip(split, coord))
+        return {}
 
     def carry(self, by_path) -> List[int]:
         """Adopt the cache columns a move brought (the "carried" entry's
@@ -869,7 +919,7 @@ class ServingEngine:
     def run_until_drained(self, max_steps: int = 10_000,
                           snapshot_every: Optional[int] = None) -> None:
         # over a mesh the ranks without a manager still join the gather
-        snaps = self.manager is not None or not self._writes()
+        snaps = self.manager is not None or not self.commits()
         while (self.queue or any(self.slot_req)) and max_steps > 0:
             self.step()
             if snapshot_every and self.steps % snapshot_every == 0 \

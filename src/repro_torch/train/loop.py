@@ -22,17 +22,20 @@ moments are updated in place by every step (``optim.apply_updates``);
 the snapshot pipeline keys its identity skip on tensor version
 counters, so in-place updates are always seen.
 
-Over a mesh every rank builds the same trainer: the params and moments
-are DTensors with the plan's placements, each rank drawing every leaf
-from the seed and keeping its block; the data stream is the mesh's
-business nowhere (every rank reads the full batch; the step splits it).
-A snapshot is collective: each leaf's shards are gathered, one leaf at
-a time, onto rank 0 alone (``collectives.gather_to``; the other ranks
-write their blocks to the staging area and wait), and rank 0 hands the
-whole state to its manager — the capture kernels, encode and commit
-then run as they do for one device, so the manifest's leaves and blobs
-are those of a one-device trainer holding the same values. Rank 0's
-device holds that whole copy until the capture has staged it
+Over a mesh every rank of the mesh builds the same trainer: the params
+and moments are DTensors with the plan's placements, each rank drawing
+every leaf from the seed and keeping its block; the data stream is the
+mesh's business nowhere (every rank reads the full batch; the step
+splits it). The mesh may be part of the world (after a shrink, the
+survivors'): its ranks alone hold the trainer. A snapshot is
+collective over the mesh: each leaf's shards are gathered, one leaf at
+a time, onto the mesh's lead rank alone (its lowest, rank 0 unless a
+shrink left rank 0 out; ``collectives.gather_to``: the other ranks
+write their blocks to the staging area and wait), and the lead hands
+the whole state to its manager — the capture kernels, encode and
+commit then run as they do for one device, so the manifest's leaves and
+blobs are those of a one-device trainer holding the same values. The
+lead's device holds that whole copy until the capture has staged it
 (``planner.card_plan`` counts it). The digests hash the leaves gathered
 the same way, one at a time, so they compare across meshes and across
 packages.
@@ -56,7 +59,8 @@ from repro_torch.core.oplog import OpLog
 from repro_torch.core.split_state import LowerHalf, UpperHalf
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.host import host_array, resolve_device
-from repro_torch.launch.mesh import is_device_mesh, make_mesh, mesh_device
+from repro_torch.launch.mesh import (is_device_mesh, lead_rank, make_mesh,
+                                     mesh_device, mesh_group)
 from repro_torch.models import model as M
 from repro_torch.optim import (abstract_opt_state, init_opt_state,
                                opt_logical_specs)
@@ -177,21 +181,23 @@ class Trainer:
     # --- CheckpointableApp protocol (repro_torch.api) ----------------------
 
     def checkpoint_state(self) -> Optional[UpperHalf]:
-        """The upper half; over a mesh (collective: every rank calls it)
-        rank 0's copy whose DTensor leaves are gathered whole, leaf by
-        leaf, and None on the other ranks."""
+        """The upper half; over a mesh (collective: every rank of the
+        mesh calls it) the lead rank's copy whose DTensor leaves are
+        gathered whole, leaf by leaf, and None on the other ranks."""
         if not self.on_mesh:
             return self.upper
         out = UpperHalf() if self._writes() else None
+        lead = lead_rank(self.mesh)
         for name, e in self.upper.items():
-            tree = tree_map(lambda v: gather_to(v, 0), e.tree)
+            tree = tree_map(lambda v: gather_to(v, lead), e.tree)
             if out is not None:
                 out.register(name, e.kind, tree, e.logical)
         return out
 
     def _writes(self) -> bool:
-        """Whether this rank commits snapshots: rank 0 of a mesh."""
-        return not self.on_mesh or torch.distributed.get_rank() == 0
+        """Whether this rank commits snapshots: a mesh's lead rank."""
+        return not self.on_mesh or \
+            torch.distributed.get_rank() == lead_rank(self.mesh)
 
     def checkpoint_step(self) -> int:
         return int(self.upper.get("step"))
@@ -293,24 +299,26 @@ class Trainer:
     def params_digest(self) -> str:
         """blake2b over the params' paths and bytes (the JAX package's
         digest; bfloat16 hashed as its bits). Over a mesh, collective:
-        each leaf gathered onto rank 0 in turn and hashed there, every
-        rank returns rank 0's digest."""
+        each leaf gathered onto the lead rank in turn and hashed there,
+        every rank of the mesh returns the lead's digest."""
         leaves = sorted(flatten_with_paths(self.upper.get("params")),
                         key=lambda pv: pv[0])
         h = hashlib.blake2b(digest_size=16)
         for path, arr in leaves:
-            whole = gather_to(arr, 0) if self.on_mesh else arr
+            whole = gather_to(arr, lead_rank(self.mesh)) if self.on_mesh \
+                else arr
             if whole is not None:
                 h.update(path.encode())
                 h.update(np.ascontiguousarray(host_array(whole)).tobytes())
-        return self._from_rank0(h.hexdigest())
+        return self._from_lead(h.hexdigest())
 
-    def _from_rank0(self, value: str) -> str:
-        """``value`` as rank 0 of the mesh has it (one device: itself)."""
+    def _from_lead(self, value: str) -> str:
+        """``value`` as the mesh's lead rank has it (one device: itself)."""
         if not self.on_mesh:
             return value
         box = [value]
-        torch.distributed.broadcast_object_list(box, src=0)
+        torch.distributed.broadcast_object_list(
+            box, src=lead_rank(self.mesh), group=mesh_group(self.mesh))
         return box[0]
 
     def state_digest(self, workers: int = 8) -> str:
@@ -326,24 +334,25 @@ class Trainer:
             return hashlib.blake2b(np.ascontiguousarray(
                 host_array(v)).tobytes(), digest_size=16).digest()
 
-        # one leaf at a time (collective on a mesh): rank 0 gathers a
+        # one leaf at a time (collective on a mesh): the lead gathers a
         # leaf and hands its host copy to the pool while the next gathers
         hashes: List[Any] = []
         with ThreadPoolExecutor(max_workers=workers) as ex:
             for _, v in leaves:
-                whole = gather_to(v, 0) if self.on_mesh else v
+                whole = gather_to(v, lead_rank(self.mesh)) \
+                    if self.on_mesh else v
                 if whole is not None:
                     hashes.append(ex.submit(leaf_hash, host_array(whole)))
                     del whole
         if not self._writes():
-            return self._from_rank0("")
+            return self._from_lead("")
         h = hashlib.blake2b(digest_size=16)
         for (path, _), lh in zip(leaves, hashes):
             h.update(path.encode())
             h.update(lh.result())
         h.update(str(int(self.upper.get("step"))).encode())
         h.update(str(int(self.upper.get("data_cursor"))).encode())
-        return self._from_rank0(h.hexdigest())
+        return self._from_lead(h.hexdigest())
 
 
 

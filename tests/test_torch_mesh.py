@@ -1,5 +1,5 @@
 """Training and serving over a device mesh and elastic restore across
-meshes, on gloo CPU ranks (ROADMAP A9a, A9b step 1).
+meshes, on gloo CPU ranks (ROADMAP A9a, A9b steps 1 and 2).
 
 Two ``spawn_ranks`` launches of four ranks each run side by side in one
 module fixture (``torch_mesh_ranks`` holds their functions); each test
@@ -48,8 +48,21 @@ packages here.
   its logits within 1e-5.
 - ``prefill`` and ``decode_step`` of mamba2, recurrentgemma and whisper
   on DTensor tokens raise, naming ROADMAP A9b step 4.
+- The failure loop over the mesh (A9b step 2), one supervisor a rank:
+  the (2, 2) checkpoint shrinks onto (2, 1) over ranks 0-1 (the saved
+  digest, the next loss within 1e-5 of one device's; ranks 2-3 hold
+  nothing), grows back onto (2, 2) and restarts there bit for bit,
+  every rank logging the same incidents; a (2, 2) engine re-slots onto
+  3 slots of (1, 2) with the one-device supervised engine's tokens; a
+  mesh engine's ``session_columns`` are a one-device restore's bits and
+  its sessions move onto one device token for token; the launcher's
+  ``--supervise`` over (2, 2) prints the one-device run's incident line
+  and hosts, its losses within 1e-5.
 """
+import contextlib
 import hashlib
+import io
+import re
 import threading
 
 import numpy as np
@@ -72,7 +85,7 @@ from repro.serving.engine import Request as JRequest
 from repro.serving.engine import ServingEngine as JEngine
 from repro.train import loop as jloop
 from repro_torch import convert
-from repro_torch.api import CheckpointSession
+from repro_torch.api import CheckpointSession, Policy
 from repro_torch.configs import kimi_k2_1t_a32b as tkimi
 from repro_torch.configs import phi4_mini_3_8b as tphi
 from repro_torch.configs import registry as treg
@@ -80,7 +93,9 @@ from repro_torch.configs import starcoder2_3b as tsc
 from repro_torch.core.backends.localfs import LocalFSBackend
 from repro_torch.core.checkpoint import CheckpointManager
 from repro_torch.host import host_array
+from repro_torch.launch import train as ttrain
 from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.launch.serve import proportional_slots
 from repro_torch.models import model as TM
 from repro_torch.models.layers import dense_attention
 from repro_torch.serving.engine import Request, ServingEngine
@@ -182,6 +197,81 @@ def _port_one_device(params, prompts, cfg=None, max_new=None, **sizes):
 
 
 SERVE_NEW = 8
+# the supervised engine: ``test_torch_supervisor.py``'s serving world
+# (its prompts, 5 new tokens, the kill after 4 steps) on 4 slots
+SUP_SERVE = dict(n_slots=4, max_seq=64)
+SUP_NEW, SUP_KILL_AT = 5, 4
+LAUNCH_STEPS, LAUNCH_KILL = 5, "2@1"
+
+
+def _sup_prompts():
+    rng = np.random.RandomState(3)
+    vocab = tphi.smoke_config().vocab_size
+    return [rng.randint(0, vocab, size=4) for _ in range(4)]
+
+
+def _one_device_supervised(params, prompts, store):
+    """The supervised engine on one device: ``prompts`` on 4 slots, a
+    snapshot after ``SUP_KILL_AT`` steps, host 3 of 0-3 silent, the
+    shrink re-slotted onto 3 slots, drained: each request's tokens."""
+    sess = CheckpointSession(f"localfs:{store}", Policy(async_save=False))
+    eng = sess.attach(ServingEngine.create(
+        R.SERVE_ARCH, params, manager=sess.manager, device="cpu",
+        **SUP_SERVE))
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=SUP_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(SUP_KILL_AT):
+        eng.step()
+    sess.snapshot(block=True)
+    now = [0.0]
+    sup = sess.supervise([0, 1, 2, 3], heartbeat_timeout=3.0,
+                         clock=lambda: now[0], restore_kwargs=lambda t: {
+                             "params": params, "device": "cpu",
+                             "n_slots": proportional_slots(
+                                 SUP_SERVE["n_slots"], 4, len(t.hosts))})
+    target = R._beat_until_dead(sup, now, (0, 1, 2))
+    assert target.action.value == "shrink" and sup.runner.n_slots == 3
+    live = sup.runner.live_requests()
+    sup.runner.run_until_drained(max_steps=200)
+    tokens = {r.rid: list(r.out) for r in reqs if r.done}
+    tokens.update({r.rid: list(r.out) for r in live})
+    sess.close()
+    return tokens
+
+
+def _jax_tokens(jparams, prompts, max_new, sizes):
+    """The JAX engine on one device, uninterrupted: each request's
+    tokens."""
+    eng = JEngine(jreg.resolve_config(R.SERVE_ARCH), jparams,
+                  _auto_mesh((1, 1), R.AXES), **sizes)
+    reqs = [JRequest(rid=i, prompt=p.copy(), max_new=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run_until_drained(max_steps=200)
+    return {r.rid: list(r.out) for r in reqs}
+
+
+def _one_device_launcher(store):
+    """``launch.train.main`` on one device with the mesh launcher's
+    supervised command line: (what it printed, each step's (step,
+    loss))."""
+    from repro_torch.train import loop
+    seen, plain = [], loop.Trainer.train_steps
+
+    def train_steps(self, n):
+        m = plain(self, n)
+        seen.append((int(m["step"]), float(m["loss"])))
+        return m
+    buf = io.StringIO()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(loop.Trainer, "train_steps", train_steps)
+        with contextlib.redirect_stdout(buf):
+            assert ttrain.main(R.launch_argv(LAUNCH_STEPS, LAUNCH_KILL) + [
+                "--store", f"localfs:{store}", "--device", "cpu"]) == 0
+    return buf.getvalue(), seen
 
 
 @pytest.fixture(scope="module")
@@ -190,6 +280,7 @@ def runs(tmp_path_factory):
     jax_store = tmp_path_factory.mktemp("jax_ckpt")
     serve_store = tmp_path_factory.mktemp("mesh_serve")
     jax_serve_store = tmp_path_factory.mktemp("jax_serve")
+    sup_root = tmp_path_factory.mktemp("mesh_supervised")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax, "make_mesh", _auto_mesh)
         for mod in (jsc, jkimi, jphi, tsc, tkimi, tphi):
@@ -213,6 +304,12 @@ def runs(tmp_path_factory):
                                     device="cpu")
         moe_in = dict(params=convert.tree_to_numpy(moe_params),
                       prompts=prompts[:3])
+        sup_prompts = _sup_prompts()
+        sup_in = dict(params=jparams_np, prompts=sup_prompts,
+                      max_new=SUP_NEW, kill_at=SUP_KILL_AT, serve=SUP_SERVE,
+                      store=str(sup_root / "engine"))
+        launch_in = dict(store=str(sup_root / "launch"), steps=LAUNCH_STEPS,
+                         kill=LAUNCH_KILL)
         out = {}
 
         def launch(key, fn, args):
@@ -226,7 +323,7 @@ def runs(tmp_path_factory):
             threading.Thread(target=launch, args=(
                 "train", R.train_and_restore,
                 (str(store), str(jax_store), STEPS,
-                 {"params": flat, "x": x}, serve_in))),
+                 {"params": flat, "x": x}, serve_in, sup_in, launch_in))),
             threading.Thread(target=launch, args=(
                 "others", R.others,
                 (SHAPES[1:], STEPS, str(store), ef_in, pipe_in, serve_in,
@@ -263,6 +360,13 @@ def runs(tmp_path_factory):
                       for p, v in flatten_with_paths(one.upper.get("params"))}
         moe_want = JMOE.moe_forward(cfg, jax.tree.map(jnp.asarray, layer),
                                     jnp.asarray(x))
+        serve_params = convert.params_from_numpy(jparams_np, "cpu")
+        sup_one = _one_device_supervised(serve_params, sup_prompts,
+                                         sup_root / "one_engine")
+        sup_plain = _port_one_device(serve_params, sup_prompts,
+                                     max_new=SUP_NEW, **SUP_SERVE)[0]
+        sup_jax = _jax_tokens(jparams, sup_prompts, SUP_NEW, SUP_SERVE)
+        launch_one = _one_device_launcher(sup_root / "one_launch")
         for t in threads:
             t.join(400)
             assert not t.is_alive()
@@ -288,6 +392,19 @@ def runs(tmp_path_factory):
         entries = {p: np.asarray(v) for p, v in
                    saved.entries["params"].items()}
         tm.close()
+        # the supervised trainer's (2, 1) snapshot on one device
+        sess = CheckpointSession(f"localfs:{store}-supervised")
+        t1 = Trainer.restore(sess.manager, step=3, device="cpu")
+        grow_want = dict(digest=t1.params_digest(),
+                         loss=t1.train_steps(1)["loss"])
+        sess.close()
+        # the serving checkpoint's live columns on one device
+        sess = CheckpointSession(f"localfs:{serve_store}")
+        eng = sess.restore(R.SERVE_AT, params=serve_params, device="cpu")
+        columns_one = {rid: {p: host_array(v) for p, v in
+                             flatten_with_paths(col)}
+                       for rid, col in eng.session_columns().items()}
+        sess.close()
         # the mesh's serving checkpoint in the JAX engine, one device
         jm = JManager(JBackend(str(serve_store)))
         with pytest.warns(DeprecationWarning):
@@ -303,7 +420,9 @@ def runs(tmp_path_factory):
                 moe_want=moe_want, ef_in=ef_in, pipe_in=pipe_in,
                 jax_tokens=jax_tokens, one_tokens=one_tokens,
                 one_logits=one_logits, serve_in_jax=serve_in_jax, case=case,
-                moe_one=moe_one)
+                moe_one=moe_one, sup_one=sup_one, sup_plain=sup_plain,
+                sup_jax=sup_jax, launch_one=launch_one, grow_want=grow_want,
+                columns_one=columns_one)
 
 
 def _mesh_run(runs, shape):
@@ -544,3 +663,158 @@ def test_other_families_refuse_serving_over_a_mesh(runs, arch, fn):
     tokens, naming the ROADMAP step they wait for."""
     msg = runs["others"][0]["family_raises"][(arch, fn)]
     assert msg is not None and "A9b step 4" in msg, msg
+
+
+# --- the failure loop over a mesh (A9b step 2) -------------------------------
+
+def test_supervised_shrink_onto_a_smaller_mesh(runs):
+    """The port of ``tests/test_supervisor.py::
+    test_shrink_onto_smaller_mesh_multidevice``: every rank runs the
+    supervisor over hosts 0-3 on the (2, 2) checkpoint; host 3 dies and
+    the shrink restores onto (2, 1) over ranks 0-1 with the decision's
+    rewrite: the saved digest bit for bit, a data assignment of the
+    survivors only, and the next loss within 1e-5 of the same
+    checkpoint restored on one device."""
+    r = runs["train"][0]
+    for rank in (0, 1):
+        got = runs["train"][rank]["supervise"]["shrink"]
+        assert got["action"] == "shrink" and got["hosts"] == [0, 1, 2]
+        assert got["step"] == r["step"] and got["digest"] == r["digest"]
+        assert got["mesh"] == (2, 1) and got["ranks"] == [0, 1]
+        assert {h for h, _ in got["assignment"]} <= {0, 1, 2}
+        assert {s for _, s in got["assignment"]} == set(range(4))
+        np.testing.assert_allclose(got["loss"], runs["on_one"]["loss"],
+                                   rtol=1e-5)
+
+
+def test_ranks_outside_the_survivors_mesh_hold_nothing(runs):
+    """After the shrink, ranks 2-3 stand outside the (2, 1) mesh: no
+    params and no moments, while ranks 0-1 hold the state between them
+    (each up to half: the leaves the model axis shards split over two
+    ranks instead of four); the grow spreads it over every rank again."""
+    sup = [x["supervise"] for x in runs["train"]]
+    held = [x["shrink"]["held"] for x in sup]
+    assert [x["shrink"]["outside"] for x in sup] == [False, False, True,
+                                                     True]
+    assert held[2] == held[3] == 0 and held[0] == held[1] > 0
+    grown = [x["grow"]["held"] for x in sup]
+    assert len(set(grown)) == 1 and grown[0] < held[0] <= 2 * grown[0]
+
+
+def test_supervised_grow_back_onto_the_whole_mesh(runs):
+    """Host 3 returns: ``grow`` restores the (2, 1) mesh's snapshot onto
+    (2, 2) over every rank with the saved digest, and its next loss lies
+    within 1e-5 of that snapshot's on one device."""
+    want = runs["grow_want"]
+    saved = runs["train"][0]["supervise"]["shrink"]["saved"]
+    assert want["digest"] == saved
+    for x in runs["train"]:
+        got = x["supervise"]["grow"]
+        assert got["action"] == "grow" and got["hosts"] == [0, 1, 2, 3]
+        assert got["step"] == 3 and got["mesh"] == (2, 2)
+        assert got["digest"] == saved
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+
+
+def test_supervised_restart_continues_bit_for_bit(runs):
+    """The last host of a one-host world dies: a restart onto the same
+    (2, 2) mesh from the latest step, whose next loss and state digest
+    are the uninterrupted run's bits."""
+    for x in runs["train"]:
+        sup = x["supervise"]
+        got, want = sup["restart"], sup["grow"]
+        assert got["action"] == "restart_last_ckpt" and got["step"] == 3
+        assert got["mesh"] == (2, 2)
+        assert got["loss"] == want["loss"] and got["state"] == want["state"]
+
+
+@pytest.mark.parametrize("launch", ["train", "engine"])
+def test_every_rank_takes_the_same_decisions(runs, launch):
+    """Every rank logs the same incidents — action, dead hosts, step and
+    the mesh the runner came back on — and reads the same latest
+    restorable step."""
+    if launch == "train":
+        sups = [x["supervise"] for x in runs["train"]]
+        assert sups[0]["incidents"] == [
+            ("shrink", [3], 2, (2, 1)), ("grow", [], 3, (2, 2)),
+            ("restart_last_ckpt", [0], 3, (2, 2))]
+        assert sups[0]["restorable"] == [2, 3, 3]
+    else:
+        sups = [x["supervise_engine"] for x in runs["train"]]
+        assert sups[0]["incidents"] == [("shrink", [3], SUP_KILL_AT,
+                                         (1, 2))]
+    for x in sups[1:]:
+        assert x["incidents"] == sups[0]["incidents"]
+        assert x.get("restorable") == sups[0].get("restorable")
+
+
+def test_supervised_mesh_engine_shrinks_token_for_token(runs):
+    """The (2, 2) engine of 4 slots loses host 3: the shrink re-slots its
+    sessions onto 3 slots of a (1, 2) mesh over ranks 0-1 (ranks 2-3
+    hold nothing), and every request finishes with the one-device
+    supervised engine's tokens, which are the uninterrupted run's and
+    the JAX engine's."""
+    assert runs["sup_one"] == runs["sup_plain"] == runs["sup_jax"]
+    got = [x["supervise_engine"] for x in runs["train"]]
+    assert [x["outside"] for x in got] == [False, False, True, True]
+    for x in got[:2]:
+        assert x["action"] == "shrink" and x["step"] == SUP_KILL_AT
+        assert x["n_slots"] == 3 and x["mesh"] == (1, 2)
+        assert x["tokens"] == runs["sup_one"]
+
+
+def test_session_columns_of_a_mesh_engine(runs):
+    """``session_columns`` on the (2, 2) engine restored at step 6: each
+    live slot's column whole on rank 0 (batch axis 1), bit for bit the
+    one-device engine's from the same checkpoint; nothing elsewhere."""
+    want = runs["columns_one"]
+    moves = [x["serve"]["move"] for x in runs["train"]]
+    got = moves[0]["columns"]
+    assert sorted(got) == sorted(want) and want
+    for rid, col in want.items():
+        assert sorted(got[rid]) == sorted(col)
+        for path, v in col.items():
+            assert v.shape[0] == tphi.smoke_config().n_layers
+            assert got[rid][path].shape == v.shape, path
+            assert got[rid][path].tobytes() == v.tobytes(), (rid, path)
+    assert all(m["columns"] == {} for m in moves[1:])
+
+
+def test_move_off_a_mesh_engine_finishes_token_for_token(runs):
+    """``migrate_sessions`` from the (2, 2) engine onto a one-device
+    engine on rank 0: every session leaves every rank's source, each
+    begun one lands with its column, and all of them finish with the
+    uninterrupted tokens."""
+    moves = [x["serve"]["move"] for x in runs["train"]]
+    want = runs["train"][0]["serve"]["tokens"]
+    m = moves[0]
+    assert m["carried"] == len(runs["columns_one"])
+    assert sorted(m["tokens"]) == sorted(m["moved"])
+    assert m["tokens"] == {rid: want[rid] for rid in m["moved"]}
+    for x in moves:
+        assert x["moved"] == m["moved"] and x["left"] == 0
+
+
+def _launcher_lines(out):
+    incidents = re.findall(r"\[supervisor\] incident (\S+): dead=(\[[^\]]*\]) "
+                           r"step=(\S+)", out)
+    hosts = re.findall(r"step +(\d+) loss \S+ hosts (\[[^\]]*\])", out)
+    return incidents, hosts
+
+
+def test_mesh_launcher_supervise_matches_one_device(runs):
+    """``launch.train`` with ``--supervise`` on (2, 2): rank 0 prints the
+    one-device run's incident line and hosts per step, the other ranks
+    print nothing, and every step's loss lies within 1e-5 of the
+    one-device run's."""
+    one_out, one_losses = runs["launch_one"]
+    got = [x["launcher"] for x in runs["train"]]
+    inc, hosts = _launcher_lines(got[0]["out"])
+    assert inc == [("shrink", "[2]", "4")]
+    assert (inc, hosts) == _launcher_lines(one_out)
+    assert "mesh=(2, 2)" in got[0]["out"]
+    assert all(x["out"] == "" for x in got[1:])
+    for x in got:
+        assert [s for s, _ in x["losses"]] == [s for s, _ in one_losses]
+        np.testing.assert_allclose([v for _, v in x["losses"]],
+                                   [v for _, v in one_losses], rtol=1e-5)

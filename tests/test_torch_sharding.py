@@ -169,6 +169,29 @@ def test_card_plan_counts_rank_zeros_snapshot_gather():
         TP.card_plan(cfg, shape, 0.9 * gather, mesh)
 
 
+def test_card_plan_counts_the_state_over_the_survivors_ranks(monkeypatch):
+    """A shrink from (2, 2) onto (2, 1) leaves each surviving rank half
+    of the state where it held a quarter: on four cards (one rank a
+    card) the plan counts the survivors' blocks and refuses before
+    anything is allocated where they do not fit, though the (2, 2)
+    blocks did."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cfg = treg.get_config("starcoder2-3b")
+    shape = treg.get_shape("train_s4096_b4")
+    big, small = FakeMesh(MESHES["2x2"]), FakeMesh({"data": 2, "model": 1})
+    four = TP.estimate_card_train_memory(cfg, shape, 1, big)
+    two = TP.estimate_card_train_memory(cfg, shape, 1, small)
+    assert two.params == 2 * four.params
+    assert two.opt_state == 2 * four.opt_state
+    n = TM.param_count(cfg)
+    gather = TP.snapshot_gather_bytes(cfg, small)
+    assert gather == TP.snapshot_gather_bytes(cfg, big)
+    card = (gather + 0.4 * n * (2 + 8)) / 0.9     # fits n/4, not n/2
+    assert "(card)" in TP.card_plan(cfg, shape, card, big).notes
+    with pytest.raises(MemoryError, match="shared by 1 rank"):
+        TP.card_plan(cfg, shape, card, small)
+
+
 @pytest.mark.parametrize("places", [("s0", "s1"), ("s1", "s0"),
                                     ("s0", "s0"), ("r", "s1"), ("r", "r")])
 def test_block_narrows_tile_the_tensor_as_dtensor_splits_it(places):

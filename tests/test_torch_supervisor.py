@@ -11,8 +11,9 @@
   package under jax 0.9 (ROADMAP C4), on the port's trainer, each held
   against the port's own uninterrupted run;
 * the other cases of that file, on the port: loud failures, storage
-  repair, stragglers, serving shrink and grow, and the one-device
-  refusal of a larger mesh (ROADMAP A9).
+  repair, stragglers, serving shrink and grow, and the restore hook's
+  mesh check (a ``DeviceMesh`` passes, several devices that are no mesh
+  raise).
 """
 import os
 import shutil
@@ -34,7 +35,7 @@ from repro_torch.core.failure import FailureAction, FailurePolicy
 from repro_torch.core.failure import rebalance_shards
 from repro_torch.core.oplog import DataReassign
 from repro_torch.core.supervisor import (ClusterSupervisor, SupervisorError,
-                                         one_device_mesh)
+                                         restore_mesh)
 from repro_torch.core.virtual_ids import StaleHandleError
 from repro_torch.examples import rl_actor_learner as trl
 from repro_torch.models import model as M
@@ -592,15 +593,22 @@ def test_serving_grow_reslot_token_identical(tmp_path):
 
 
 def test_a_restore_onto_a_larger_device_mesh_names_a9(tmp_path):
-    """The port's runners live on one device: a restore hook whose
-    ``mesh_factory`` builds more than one device raises
-    ``NotImplementedError`` naming ROADMAP A9; one device passes."""
-    assert one_device_mesh(lambda: torch.device("cpu"))() == \
-        torch.device("cpu")
-    assert one_device_mesh(lambda: [torch.device("cpu")])() == \
-        torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        one_device_mesh(lambda: np.empty((2, 1), object))()
+    """The restore hook's ``mesh_factory``: a ``DeviceMesh`` (anything
+    that names its dims and its device type) and one device pass
+    through, a one-device list gives its device, and several devices
+    that are no mesh raise ``ValueError`` naming the process group they
+    need, through the supervisor too, before anything is restored."""
+
+    class Mesh:
+        mesh_dim_names = ("data", "model")
+        device_type = "cpu"
+        shape = (2, 2)
+    mesh = Mesh()
+    assert restore_mesh(mesh) is mesh
+    assert restore_mesh(torch.device("cpu")) == torch.device("cpu")
+    assert restore_mesh([torch.device("cpu")]) == torch.device("cpu")
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
+        restore_mesh(np.empty((2, 1), object))
     sess = CheckpointSession(f"localfs:{tmp_path}", Policy(async_save=False))
     tr = sess.attach(_trainer(sess.manager))
     sess.snapshot(block=True)
@@ -611,7 +619,7 @@ def test_a_restore_onto_a_larger_device_mesh_names_a9(tmp_path):
     for t in range(1, 8):
         now[0] = float(t)
         sup.beat(0, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="DeviceMesh over a process group"):
         sup.poll()
     assert tr.checkpoint_step() == 0
 

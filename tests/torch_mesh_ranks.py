@@ -13,6 +13,14 @@ in the second): phi4-mini-3.8b-smoke on 4 slots x 64, snapshots every
 re-slotted onto 3 slots of (2, 2), and the JAX engine's checkpoint onto
 (2, 2); ``combine_case`` holds the sequence-split decode's combine;
 ``family_raises`` calls the families that still refuse a mesh.
+
+The failure loop over a mesh (in the first launch): ``supervise_trainer``
+(shrink onto (2, 1) over ranks 0-1, grow back, restart),
+``supervise_engine`` (4 slots of (2, 2) re-slotted onto 3 of (1, 2)),
+``move_off_mesh`` (``session_columns`` and ``migrate_sessions`` off the
+(2, 2) engine) and ``supervised_launcher`` (``launch.train._mesh_rank``
+with ``--supervise``). Every rank runs the same supervisor with the
+world as its ``process_group``.
 """
 from __future__ import annotations
 
@@ -155,6 +163,8 @@ def serve_and_restore(rank, world, serve_in):
                local_k=tuple(eng.cache["k"].to_local().shape))
     del eng
     out["restore"] = _serve_restore(store, (2, 2), params, SERVE_AT)
+    out["move"] = move_off_mesh(rank, store, params,
+                                store.rstrip("/") + "-moves")
     return out
 
 
@@ -220,7 +230,7 @@ def serve_restores(rank, world, serve_in):
 
 
 def train_and_restore(rank, world, store, jax_store, steps, moe_in,
-                      serve_in):
+                      serve_in, sup_in, launch_in):
     """(2, 2): ``steps`` steps, a base snapshot after the second to last
     and a link after the last (rank 0 commits them, then writes
     ``<store>/READY``), one more step; then the checkpoint restored onto
@@ -251,6 +261,10 @@ def train_and_restore(rank, world, store, jax_store, steps, moe_in,
     out["state_digest"] = t.state_digest()
     del t
     out["restores"] = {(2, 2): _restore_and_step(store, (2, 2))}
+    out["supervise"] = supervise_trainer(rank, world, store,
+                                         store.rstrip("/") + "-supervised")
+    out["supervise_engine"] = supervise_engine(rank, world, sup_in)
+    out["launcher"] = supervised_launcher(rank, world, **launch_in)
     _wait_for(os.path.join(jax_store, "READY"))
     r, rs = _restore(jax_store, (2, 2))
     out["jax_restore"] = dict(digest=r.params_digest(),
@@ -261,6 +275,242 @@ def train_and_restore(rank, world, store, jax_store, steps, moe_in,
     out["serve"] = serve_and_restore(rank, world, serve_in)
     out["stats"] = _stats()
     return out
+
+
+# --- the failure loop over a mesh (A9b step 2) ------------------------------
+
+def _beat_until_dead(sup, now, alive, step=0):
+    """Seven ticks of the supervisor's clock with only ``alive`` beating,
+    then one poll: the executed decision's target."""
+    for _ in range(7):
+        now[0] += 1.0
+        for h in alive:
+            sup.beat(h, step)
+    return sup.poll()
+
+
+def _survivor_mesh(shape_of, device="cpu"):
+    """A restore hook's mesh factory for a target: ``shape_of(n)`` is the
+    mesh over the first ranks of the n surviving hosts (host h backs
+    rank h)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    def kwargs(target):
+        shape = shape_of(len(target.hosts))
+        n = int(np.prod(shape))
+        return lambda: make_mesh(shape, AXES, device,
+                                 ranks=sorted(target.hosts)[:n])
+    return kwargs
+
+
+def _held_bytes(runner) -> int:
+    """Bytes of params and moments this rank holds (its blocks)."""
+    from repro_torch.models.layers import is_dtensor
+    from repro_torch.tree import flatten_with_paths
+    upper = getattr(runner, "upper", None)
+    if upper is None:
+        return 0
+    blocks = [v.to_local() if is_dtensor(v) else v
+              for e in ("params", "opt_state")
+              for _, v in flatten_with_paths(upper.get(e))]
+    return sum(b.numel() * b.element_size() for b in blocks
+               if isinstance(b, torch.Tensor))
+
+
+def _incidents(sup):
+    return [(i.action, list(i.dead), i.step, i.mesh) for i in sup.incidents]
+
+
+def supervise_trainer(rank, world, store, sup_store):
+    """Every rank runs one ``ClusterSupervisor`` over hosts 0-3 on a copy
+    of the (2, 2) checkpoint (its latest step): host 3 goes silent and
+    the shrink restores onto (2, 1) over ranks 0-1 (ranks 2-3 hold
+    nothing), which steps once and snapshots; host 3 comes back and
+    ``grow`` restores that snapshot onto (2, 2), which steps once; then
+    a supervisor over host 0 alone loses it and restarts the same step
+    on (2, 2), which steps once."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.core.supervisor import OutsideMesh
+    _f32()
+    if rank == 0:
+        shutil.copytree(store, sup_store)
+    dist.barrier()
+    sess = CheckpointSession(f"localfs:{sup_store}", Policy(async_save=False))
+    hook = _survivor_mesh(lambda n: (2, 2) if n == 4 else (2, 1))
+    now = [0.0]
+    sup = sess.supervise([0, 1, 2, 3], heartbeat_timeout=3.0,
+                         clock=lambda: now[0], n_shards=4,
+                         restore_kwargs=lambda t: {"mesh_factory": hook(t)},
+                         process_group=dist.group.WORLD)
+    out = {"restorable": [sup.latest_restorable_step()]}
+    target = _beat_until_dead(sup, now, (0, 1, 2))
+    r = sup.runner
+    shrink = dict(action=target.action.value, hosts=target.hosts,
+                  step=target.step, outside=isinstance(r, OutsideMesh),
+                  held=_held_bytes(r))
+    if not shrink["outside"]:
+        shrink.update(digest=r.params_digest(),
+                      mesh=tuple(r.mesh.shape),
+                      ranks=[int(x) for x in r.mesh.mesh.flatten()],
+                      assignment=r.lower.data_assignment,
+                      loss=r.train_steps(1)["loss"])
+    sess.snapshot(block=True)       # the (2, 1) state, gathered on rank 0
+    if not shrink["outside"]:
+        shrink["saved"] = r.params_digest()
+    del r
+    out["shrink"] = shrink
+    out["restorable"].append(sup.latest_restorable_step())
+    sup.policy.spares.append(3)
+    target = sup.grow()
+    r = sup.runner
+    out["grow"] = dict(action=target.action.value, hosts=target.hosts,
+                       step=target.step, digest=r.params_digest(),
+                       mesh=tuple(r.mesh.shape), held=_held_bytes(r),
+                       loss=r.train_steps(1)["loss"],
+                       state=r.state_digest())
+    del r
+    out["incidents"] = _incidents(sup)
+    out["restorable"].append(sup.latest_restorable_step())
+    sup = sess.supervise([0], heartbeat_timeout=3.0, clock=lambda: now[0],
+                         restore_kwargs=lambda t: {
+                             "mesh_factory": _mesh_factory((2, 2))},
+                         process_group=dist.group.WORLD)
+    target = _beat_until_dead(sup, now, ())
+    r = sup.runner
+    out["restart"] = dict(action=target.action.value, step=target.step,
+                          mesh=tuple(r.mesh.shape),
+                          loss=r.train_steps(1)["loss"],
+                          state=r.state_digest())
+    out["incidents"] += _incidents(sup)
+    del r
+    sess.close()
+    return out
+
+
+def supervise_engine(rank, world, sup_in):
+    """phi4-mini-3.8b-smoke served on (2, 2) with 4 slots by every rank
+    under one ``ClusterSupervisor`` over hosts 0-3: ``sup_in``'s prompts,
+    a snapshot after ``sup_in["kill_at"]`` steps, host 3 goes silent and
+    the shrink re-slots the sessions onto 3 slots of a (1, 2) mesh over
+    ranks 0-1 (``launch.serve.proportional_slots``), which drains them:
+    each request's tokens."""
+    import torch.distributed as dist
+    from repro_torch.api import CheckpointSession, Policy
+    from repro_torch.core.supervisor import OutsideMesh
+    from repro_torch.launch.serve import proportional_slots
+    from repro_torch.serving.engine import Request, ServingEngine
+    _f32()
+    params = _serve_params(sup_in)
+    sess = CheckpointSession(f"localfs:{sup_in['store']}",
+                             Policy(async_save=False))
+    eng = sess.attach(ServingEngine.create(
+        SERVE_ARCH, params, (2, 2), AXES, manager=sess.manager,
+        device="cpu", **sup_in["serve"]))
+    reqs = [Request(rid=i, prompt=p.copy(), max_new=sup_in["max_new"])
+            for i, p in enumerate(sup_in["prompts"])]
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(sup_in["kill_at"]):
+        eng.step()
+    sess.snapshot(block=True)
+    digest = eng.cache_digest()
+    del eng
+    hook = _survivor_mesh(lambda n: (1, 2))
+    slots = sup_in["serve"]["n_slots"]
+    now = [0.0]
+    sup = sess.supervise([0, 1, 2, 3], heartbeat_timeout=3.0,
+                         clock=lambda: now[0], restore_kwargs=lambda t: {
+                             "params": params, "mesh_factory": hook(t),
+                             "n_slots": proportional_slots(
+                                 slots, 4, len(t.hosts))},
+                         process_group=dist.group.WORLD)
+    target = _beat_until_dead(sup, now, (0, 1, 2))
+    e2 = sup.runner
+    out = dict(action=target.action.value, step=target.step,
+               incidents=_incidents(sup), digest=digest,
+               outside=isinstance(e2, OutsideMesh))
+    if not out["outside"]:
+        live = e2.live_requests()
+        out.update(n_slots=e2.n_slots, mesh=tuple(e2.mesh.shape))
+        e2.run_until_drained(max_steps=200)
+        tokens = {r.rid: list(r.out) for r in reqs if r.done}
+        tokens.update({r.rid: list(r.out) for r in live})
+        out["tokens"] = tokens
+    del e2
+    sess.close()
+    return out
+
+
+def move_off_mesh(rank, store, params, moves):
+    """The serving checkpoint of ``SERVE_AT`` restored onto (2, 2): each
+    live slot's cache column (``session_columns``, gathered whole onto
+    rank 0), then every session moved onto a one-device engine on rank
+    0 (``migrate_sessions``, the columns carried through ``moves``),
+    which drains them."""
+    from repro_torch.api import CheckpointSession
+    from repro_torch.core.migration import migrate_sessions
+    from repro_torch.serving.engine import ServingEngine
+    sess = CheckpointSession(f"localfs:{store}")
+    eng = sess.restore(SERVE_AT, params=params,
+                       mesh_factory=_mesh_factory((2, 2)))
+    cols = eng.session_columns()
+    out = dict(columns={rid: _whole(c) for rid, c in cols.items()})
+    target = ServingEngine.create(SERVE_ARCH, params, device="cpu",
+                                  **SERVE) if rank == 0 else None
+    res = migrate_sessions(eng, target, via=f"localfs:{moves}",
+                           include_queue=True)
+    out.update(moved=res.moved, left=len(eng.live_requests()))
+    if target is not None:
+        target.run_until_drained()
+        out.update(carried=res.carried,
+                   tokens={r.rid: list(r.out) for r in res.requests})
+    sess.close()
+    return out
+
+
+def supervised_launcher(rank, world, store, steps, kill):
+    """``launch.train._mesh_rank`` with ``--supervise`` on (2, 2): the
+    command line ``launch_argv`` gives, parsed as ``main`` parses it;
+    what the rank printed and each step's (step, loss)."""
+    import contextlib
+    import io
+    from repro_torch.launch import train as LT
+    from repro_torch.train import loop
+    from repro_torch.launch.supervise import (parse_churn_args,
+                                              parse_drain_arg,
+                                              parse_supervise_args)
+    _f32()
+    args = LT.build_parser().parse_args(
+        launch_argv(steps, kill) + ["--store", f"localfs:{store}",
+                                    "--data-mesh", "2", "--model-mesh", "2",
+                                    "--device", "cpu"])
+    kill_at, _ = parse_supervise_args(args, "launch")
+    drain, _ = parse_drain_arg(args, "launch")
+    trace, _ = parse_churn_args(args, "launch", horizon=args.steps)
+    buf, seen = io.StringIO(), []
+    plain = loop.Trainer.train_steps
+
+    def train_steps(self, n):
+        m = plain(self, n)
+        seen.append((int(m["step"]), float(m["loss"])))
+        return m
+    loop.Trainer.train_steps = train_steps
+    try:
+        with contextlib.redirect_stdout(buf):
+            LT._mesh_rank(rank, world, args, f"localfs:{store}", False,
+                          None, (2, 2), kill_at, drain, trace)
+    finally:
+        loop.Trainer.train_steps = plain
+    return dict(out=buf.getvalue(), losses=seen)
+
+
+def launch_argv(steps, kill):
+    """The supervised training command line both launcher runs take."""
+    return ["--arch", ARCH, "--shape", "train_s32_b4", "--steps",
+            str(steps), "--ckpt-every", "2", "--supervise", "--hosts", "4",
+            "--spares", "0", "--kill-host", kill]
 
 
 def _stats():
