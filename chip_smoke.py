@@ -57,6 +57,11 @@ Phases, each reported on its own line:
    with decays near one (dx, dr, di, dlam, dh0 within the same limit),
    the same bits on a second call, with its time, its bound by bytes,
    the plain version's time and each of its four launches' device time;
+4b. the dry run of one production cell (``DRYRUN_PRODUCTION``:
+   starcoder2-3b x ``train_4k`` for one rank of the reference's (16, 16)
+   mesh over a fake process group) in a subprocess under this machine's
+   PyTorch, its live bytes a rank, fit, dominant term and trace seconds
+   logged;
 5. the serving path: phi4-mini-3.8b at full width and depth (bf16
    params from seeded ``torch.Generator``s) serves 6 requests on 4
    slots under a ``CheckpointSession`` with chained snapshots, is
@@ -135,7 +140,15 @@ Phases, each reported on its own line:
    256 (4 ``rg_lru_fwd``, 2 ``rg_lru_bwd``, 2 ``flash_fwd``, 1 ``flash_dq``
    and 1 ``flash_dkv`` a step), after its full depth is refused on the
    card before anything is allocated (params and f32 moments past 0.9 x
-   the card's memory; the message names the bytes and ROADMAP A9);
+   the card's memory; the message names the bytes and ROADMAP A9). Before
+   each cell's steps its dry run (``launch.dryrun.run_cell`` on mesh
+   ``card``: the same arch, depth cut and shape traced once on fake
+   tensors for one H100) predicts the plan, the kernel launches a step
+   and the peak memory, and after them the prediction is held against
+   the card: the trainer's plan, the launches a step equal, the peak
+   within ``DRYRUN_PEAK_RTOL`` (10%) of ``max_memory_allocated`` over
+   steps 1-6 (before the snapshot), the roofline terms logged beside
+   the profiled step's device and wall ms;
 8. the codec phase, from mamba2-780m's restored trainer (``codec_path``):
    one snapshot under ``codecs={"opt_state": "int8"}`` into a
    ``sharded:`` store of 4 virtual hosts (quantize on the card, only the
@@ -267,9 +280,13 @@ if __name__ == "__main__":
     sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
     sys.dont_write_bytecode = False
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-CUDA_CORE_OPS_PER_S = 67e12     # H100 SXM peak outside the tensor cores
-BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 tensor-core peak
+# the H100 SXM's rates and each kernel's work, as the dry run's roofline
+# analyzer counts them
+from repro_torch.launch.hlo_analysis import (  # noqa: E402
+    CUDA_CORE_OPS_PER_S, HBM_BW as HBM_BYTES_PER_S, HBM_BYTES,
+    PEAK_FLOPS as BF16_OPS_PER_S, RG_LRU_DESIGN_BYTES, flash_work,
+    rg_lru_work, ssd_work)
+
 ARCH = "phi4-mini-3.8b"
 N_SLOTS, MAX_SEQ, N_REQ, MAX_NEW = 4, 1024, 6, 48
 TRAIN_STEPS = 8
@@ -588,17 +605,6 @@ def check_codec(torch, ops, ref):
     return out
 
 
-def attended_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave visible — the work the
-    attention kernels must do for these inputs."""
-    import numpy as np
-    i = np.arange(sq, dtype=np.int64)
-    hi = np.minimum(i + 1, skv) if causal else np.full(sq, skv)
-    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq,
-                                                                   np.int64)
-    return int(np.maximum(hi - lo, 0).sum())
-
-
 def flash_f64(torch, fa, q, k, v, do, lse, delta, causal, window):
     """(out, lse, dq, dk, dv) of the plain versions' math in float64: the
     forward from scratch, the backward from the given f32 ``lse`` and
@@ -762,12 +768,8 @@ def check_flash(torch, fa):
         if label not in ("training", "whisper encoder", "whisper cross",
                          "recurrentgemma", "recurrentgemma f32"):
             continue
-        pairs = B * H * attended_pairs(Sq, Skv, causal, window)
-        esz = q.element_size()
-        qb, kvb, st = q.numel() * esz, k.numel() * esz, B * H * Sq * 4
-        work = {"flash_fwd": (2 * qb + 2 * kvb + st, 2 * 2 * hd * pairs),
-                "flash_dq": (3 * qb + 2 * kvb + 2 * st, 3 * 2 * hd * pairs),
-                "flash_dkv": (2 * qb + 4 * kvb + 2 * st, 4 * 2 * hd * pairs)}
+        work = flash_work(B, H, k.shape[1], Sq, Skv, hd, q.element_size(),
+                          causal, window)
         calls = {
             "flash_fwd": (lambda: fa.flash_fwd(q, k, v, **kw),
                           lambda: fa.flash_fwd_plain(q, k, v, **kw)),
@@ -838,28 +840,6 @@ def check_flash(torch, fa):
 
 
 SSD_TRAIN_SHAPE = (8, 4096, 48, 64, 128, 256)   # B, S, H, P, N, chunk
-
-
-def ssd_work(B, S, H, P, N, q, esz):
-    """(bytes, operations) of ssd_fwd and ssd_bwd on these shapes: each
-    input read once and each output written once, and the products of
-    the model's chunk-q algorithm as the reference does them (C.B^T for
-    every head) over the causal pairs j <= i only, as ``attended_pairs``
-    counts flash attention's. The forward's outputs include the
-    chunk-start states it writes for the backward, which reads them: the
-    path's forward cannot skip them. The backward takes the gradient of
-    each product with respect to both its operands, twice the forward."""
-    blocks = B * H * (S // q)
-    pairs = q * (q + 1) // 2
-    fwd_ops = blocks * (2 * pairs * (N + P) + 4 * q * P * N)
-    x, bc = B * S * H * P * esz, 2 * B * S * N * esz
-    small = B * S * H * 4 + H * 4                  # dt, A
-    y, state = B * S * H * P * 4, B * H * P * N * 4
-    states = state * (S // q)
-    fwd_bytes = x + bc + small + y + state + states
-    bwd_bytes = (x + bc + small + states + y) + (x + bc + small)
-    return {"ssd_fwd": (fwd_bytes, fwd_ops),
-            "ssd_bwd": (bwd_bytes, 2 * fwd_ops)}
 
 
 def check_ssd(torch, ssd, R):
@@ -1022,10 +1002,7 @@ def check_rglru(torch, rg, R, within):
         del got, want
     x, r, i, lam = big
     n = x.numel()
-    # x, r, i read and h written once (lam is W floats); ~10 operations
-    # an element: the gate's product, exp, expm1, sqrt, i * x, two
-    # multiplies and the FMA of the carry
-    nbytes, ops_n = 16 * n + 4 * W, 10 * n
+    nbytes, ops_n = rg_lru_work(B, S, W)["rg_lru_fwd"]
     b, o = bound_ms(nbytes, ops_n)
     out = dict(name="rg_lru_fwd", route="cuda",
                source="src/repro_torch/csrc/rg_lru.cu",
@@ -1036,7 +1013,7 @@ def check_rglru(torch, rg, R, within):
                                 flush),
                bound_ms=b, bound_by=o, library_ms=None)
     # the three-phase design reads x, r, i twice: 28 bytes an element
-    floor = 28 * n / HBM_BYTES_PER_S * 1e3
+    floor = RG_LRU_DESIGN_BYTES["rg_lru_fwd"] * n / HBM_BYTES_PER_S * 1e3
     log(f"timing rg_lru_fwd: {out['ms']:.4f} ms (bound {b:.4f} ms by {o}: "
         f"{nbytes / 1e9:.3f} GB, {ops_n / 1e9:.1f} GFLOP; this design's "
         f"floor {floor:.4f} ms, 28 bytes an element), plain "
@@ -1104,11 +1081,7 @@ def check_rglru_bwd(torch, rg, R, within):
             del again
             x, r, i, lam = ins
             n = x.numel()
-            # x, r, i, h, dh read and dx, dr, di written once (lam, dlam
-            # and dh0 are W and B x W floats); ~20 operations an element:
-            # the gates again, the reverse scan's FMA, the five products
-            # of the gradients
-            nbytes, ops_n = 32 * n + 8 * W + 4 * B * W, 20 * n
+            nbytes, ops_n = rg_lru_work(B, S, W)["rg_lru_bwd"]
             b, o = bound_ms(nbytes, ops_n)
             row = dict(name="rg_lru_bwd", route="cuda",
                        source="src/repro_torch/csrc/rg_lru.cu",
@@ -1119,7 +1092,8 @@ def check_rglru_bwd(torch, rg, R, within):
                        plain_ms=time_ms(lambda: R.rg_lru_bwd_plain(
                            x, r, i, lam, h, dh), 2, flush),
                        bound_ms=b, bound_by=o, library_ms=None)
-            floor = 40 * n / HBM_BYTES_PER_S * 1e3
+            floor = RG_LRU_DESIGN_BYTES["rg_lru_bwd"] * n \
+                / HBM_BYTES_PER_S * 1e3
             log(f"timing rg_lru_bwd: {row['ms']:.4f} ms (bound {b:.4f} ms by "
                 f"{o}: {nbytes / 1e9:.3f} GB, {ops_n / 1e9:.1f} GFLOP; this "
                 f"design's floor {floor:.4f} ms, 40 bytes an element: r and"
@@ -2470,13 +2444,103 @@ def _kernel_name(name: str) -> str:
 
 def profile_train_step(torch, tr):
     """Wall time of one train step against the device time of its
-    kernels (torch.profiler), hence the device's idle share."""
+    kernels (torch.profiler), hence the device's idle share: (metrics,
+    wall ms, device ms)."""
     met, wall, dev, n_k, top = profile_call(torch, lambda: tr.train_steps(1),
                                             n_top=12)
     log(f"train profile: {wall:.1f} ms wall, {dev:.1f} ms of device kernels "
         f"({n_k} launches), device idle {100 * (1 - dev / wall):.1f}% of "
         "the step; by kernel: " + "; ".join(f"{n} {t:.1f} ms" for n, t in top))
-    return met, wall
+    return met, wall, dev
+
+
+# the predicted peak's limit against the measured one (phase 7)
+DRYRUN_PEAK_RTOL = 0.10
+
+
+def dryrun_predict(job_arch: str, shape_key: str) -> dict:
+    """The dry run of a training cell, before its real steps: the same
+    arch, depth cut and shape traced once on fake tensors for one H100
+    (``launch.dryrun.run_cell`` on mesh ``card``): its plan, launches a
+    step, peak memory and roofline terms."""
+    from repro_torch.launch.dryrun import run_cell
+    res = run_cell(job_arch, shape_key, "card")
+    m, r, rk = res["memory"], res["roofline"], res["roofline_kernel_adjusted"]
+    log(f"dry run {job_arch} {shape_key} (predicted, H100 constants): plan "
+        f"{res['plan']}; live {m['live_bytes'] / 1e9:.3f} GB = arguments "
+        f"{m['argument_bytes'] / 1e9:.3f} + temporaries "
+        f"{m['temp_bytes'] / 1e9:.3f} + named {m['named_terms']}; launches "
+        f"a step {res['launches']}; compute {r['compute_s'] * 1e3:.2f} ms, "
+        f"memory {r['memory_s'] * 1e3:.2f} ms raw / "
+        f"{rk['memory_s'] * 1e3:.2f} ms kernel-adjusted, bound "
+        f"{rk['bound_s'] * 1e3:.2f} ms ({rk['dominant']}); traced in "
+        f"{res['trace_s']} s")
+    return res
+
+
+def check_dryrun(res: dict, plan_notes: str, per_step: dict, peak: int,
+                 device_ms: float, wall_ms: float) -> None:
+    """The dry run's prediction against the card: the same plan, the
+    kernel launches a step equal, the peak within DRYRUN_PEAK_RTOL of
+    ``max_memory_allocated`` over the steps; the roofline terms beside
+    the measured step."""
+    if res["plan"] != plan_notes:
+        raise AssertionError(f"dry run planned {res['plan']!r}, the trainer "
+                             f"{plan_notes!r}")
+    per_step = {k: n for k, n in per_step.items() if n}
+    if res["launches"] != per_step:
+        raise AssertionError(f"dry run predicted {res['launches']} kernel "
+                             f"launches a step, the card made {per_step}")
+    pred = res["memory"]["live_bytes"]
+    err = (pred - peak) / peak
+    if abs(err) > DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dry run predicted a peak of {pred} bytes, the "
+                             f"card's max_memory_allocated is {peak} "
+                             f"({100 * err:+.1f}%, limit "
+                             f"{100 * DRYRUN_PEAK_RTOL:.0f}%)")
+    r, rk = res["roofline"], res["roofline_kernel_adjusted"]
+    log(f"dry run vs card: launches a step {per_step} equal; peak predicted "
+        f"{pred / 1e9:.3f} GB, measured {peak / 1e9:.3f} GB ({pred} against "
+        f"{peak} bytes, {100 * err:+.3f}%); terms compute {r['compute_s'] * 1e3:.2f} ms, memory "
+        f"{r['memory_s'] * 1e3:.2f} ms raw / {rk['memory_s'] * 1e3:.2f} ms "
+        f"kernel-adjusted, bound {rk['bound_s'] * 1e3:.2f} ms against a "
+        f"measured step of {device_ms:.1f} ms device ({wall_ms:.1f} ms wall):"
+        f" roofline fraction {rk['bound_s'] * 1e3 / device_ms:.3f} of the "
+        f"device time, {rk['bound_s'] * 1e3 / wall_ms:.3f} of the wall")
+
+
+# the production cell the dry run traces on the reference's (16, 16)
+# mesh, in a process of its own (its fake process group is process-wide)
+DRYRUN_PRODUCTION = ("starcoder2-3b", "train_4k", "single")
+
+
+def dryrun_production() -> None:
+    """The dry run of one production cell under this machine's PyTorch:
+    ``python -m repro_torch.launch.dryrun`` in a subprocess, its JSON
+    read back and its memory, fit, dominant term and trace time logged."""
+    arch, shape_key, mesh = DRYRUN_PRODUCTION
+    out_dir = ROOT / "build" / "dryrun_chip"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape_key, "--mesh", mesh, "--out-dir", str(out_dir)],
+        env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run of {arch} x {shape_key} on {mesh} "
+                             f"failed:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    res = json.loads((out_dir / mesh / f"{arch}__{shape_key}.json")
+                     .read_text())
+    m, r = res["memory"], res["roofline_kernel_adjusted"]
+    log(f"dry run {arch} x {shape_key} on {mesh} {res['chips']} ranks "
+        f"(predicted, H100 constants): plan {res['plan']}; live "
+        f"{m['live_bytes'] / 1e9:.3f} GB a rank, fits {m['fits']}; "
+        f"dominant {res['roofline']['dominant']} raw, {r['dominant']} "
+        f"kernel-adjusted (compute {r['compute_s']:.4f} s, memory "
+        f"{r['memory_s']:.4f} s, collective {r['collective_s']:.4f} s); "
+        f"trace_s {res['trace_s']} ({time.monotonic() - t0:.1f} s with the "
+        "process)")
 
 
 def calls_per_step(cfg, name: str) -> Tuple[int, int]:
@@ -2565,6 +2629,9 @@ def train_path(torch, np, kernel_mods, cell):
             f"~{1.5 * snap / 1e9:.0f} GB of host memory (page-locked "
             f"staging, then the restore's decode); have {disk / 1e9:.1f} "
             f"GB disk, {mem / 1e9:.1f} GB MemAvailable")
+    # the dry run's prediction, made before the steps it is held against
+    predicted = dryrun_predict(job_arch, shape_key) \
+        if cell in TRAIN_CELLS else None
     policy = Policy(**TRAIN_POLICY)
     torch.use_deterministic_algorithms(True)
     _reset_all(kernel_mods)
@@ -2577,17 +2644,21 @@ def train_path(torch, np, kernel_mods, cell):
         torch.cuda.synchronize()
         log(f"train path: cold start (seeded bf16 params, zero moments) in "
             f"{time.monotonic() - t0:.2f} s; plan {tr.plan}")
+        tr_plan = tr.plan.notes
         torch.cuda.reset_peak_memory_stats()
         losses, step_ms = [], []
         for i in range(steps):
             if i == 4:
-                met, ms = profile_train_step(torch, tr)
+                met, ms, step_dev = profile_train_step(torch, tr)
             else:
                 t1 = time.monotonic()
                 met = tr.train_steps(1)
                 ms = (time.monotonic() - t1) * 1e3
             step_ms.append(ms)
             losses.append(met["loss"])
+            if i == TRAIN_POLICY["interval"] - 1:
+                # the steps' peak, before the snapshot's capture
+                step_peak = torch.cuda.max_memory_allocated()
             if sess.maybe_snapshot() is not None:
                 log(f"train path: snapshot after step {i + 1}; "
                     f"MemAvailable {_mem_available() / 1e9:.1f} GB")
@@ -2665,6 +2736,10 @@ def train_path(torch, np, kernel_mods, cell):
         f"under remat: per step "
         f"{ {k: n // run_steps for k, n in launched.items()} }"
         f"); all counts {counts}")
+    if predicted is not None:
+        check_dryrun(predicted, tr_plan, {k: n // run_steps
+                                          for k, n in launched.items()},
+                     step_peak, step_dev, step_ms[4])
     if "flash" in names and cfg.resolved_head_dim == 256:
         # the kernels line's head-dim-256 rows (check_flash)
         launched.update({f"{k}_hd256": counts["flash"][k]
@@ -4464,6 +4539,8 @@ def main() -> int:
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
+    log(f"total_memory {torch.cuda.get_device_properties(0).total_memory} "
+        f"bytes (the dry run's H100 constant: {HBM_BYTES})")
 
     t0 = time.monotonic()
     libs = (ops.LIB, fa.LIB, fa.LIB256, ssd.LIB, rg.LIB)
@@ -4491,6 +4568,7 @@ def main() -> int:
                          ssd_ref.within))
     kernels.update(phase("check_rglru_bwd", check_rglru_bwd, torch, rg,
                          rg_ref, ssd_ref.within))
+    phase("dryrun_production", dryrun_production)
     # each kernel's launches summed over the paths' runs (every path
     # sets the counts to 0 before it runs and reads them after)
     launches = dict.fromkeys(kernels, 0)

@@ -32,7 +32,11 @@ dim outside ``HEAD_DIMS``, a tensor that is not contiguous or not
 tensor maps need). Every
 wrapper call on the card adds one to its count (``counts("cuda")``; the
 bf16 ``dk/dv`` call is two launches, the kernel and its sum), every
-plain call one to ``counts("cpu")``.
+plain call one to ``counts("cpu")``. A fake tensor of the dry run
+(``kernels.trace``) takes a third route: the CUDA route's checks but
+the address's, its outputs and scratch allocated at the same shapes, no
+launch, one added to ``counts("fake")`` and the launch recorded for the
+roofline analyzer.
 
 Layouts are the JAX kernels': q, out, dout ``[B, H, Sq, hd]``; k, v
 ``[B, Hkv, Skv, hd]``; lse and delta float32 ``[B, H, Sq]``. Masks are on
@@ -44,6 +48,7 @@ positions are ``arange(S)`` — the no-cache (training) branch of
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Tuple
 
@@ -52,6 +57,7 @@ import torch
 
 from repro_torch.kernels.numerics import exp_f32
 from repro_torch.kernels.nvcc import CudaLibrary
+from repro_torch.kernels.trace import fake_route, note_launch
 
 NEG_INF = -1e30
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
@@ -87,12 +93,14 @@ MAX_GRID_Y = 65535
 
 _count_lock = threading.Lock()
 _counts: Dict[str, Dict[str, int]] = {
-    "cuda": dict.fromkeys(KERNELS, 0), "cpu": dict.fromkeys(KERNELS, 0)}
+    "cuda": dict.fromkeys(KERNELS, 0), "cpu": dict.fromkeys(KERNELS, 0),
+    "fake": dict.fromkeys(KERNELS, 0)}
 
 
 def counts(route: str = "cuda") -> Dict[str, int]:
     """Calls per kernel since the last reset: CUDA kernel launches
-    (``"cuda"``) or plain-version calls on CPU tensors (``"cpu"``)."""
+    (``"cuda"``), plain-version calls on CPU tensors (``"cpu"``) or the
+    dry run's launches on fake tensors (``"fake"``)."""
     with _count_lock:
         return dict(_counts[route])
 
@@ -115,7 +123,7 @@ def softmax_scale(hd: int) -> float:
 
 
 def _route(name: str, q: torch.Tensor, *rest: torch.Tensor) -> str:
-    """Validate a call's tensors; returns "cuda" or "cpu"."""
+    """Validate a call's tensors; returns "cuda", "cpu" or "fake"."""
     if q.dim() != 4 or rest[0].dim() != 4:
         raise ValueError(f"{name}: q must be [B,H,Sq,hd] and k/v "
                          f"[B,Hkv,Skv,hd], got {tuple(q.shape)} and "
@@ -131,9 +139,10 @@ def _route(name: str, q: torch.Tensor, *rest: torch.Tensor) -> str:
         if t.device != q.device:
             raise ValueError(f"{name}: tensors on {q.device} and {t.device}")
     dev = q.device.type
-    if dev == "cpu":
+    fake = fake_route(q)
+    if dev == "cpu" and not fake:
         return "cpu"
-    if dev != "cuda":
+    if dev != "cuda" and not fake:
         raise ValueError(f"{name}: no kernel for device {q.device}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {hd} (the kernels take "
@@ -141,10 +150,10 @@ def _route(name: str, q: torch.Tensor, *rest: torch.Tensor) -> str:
     for t in (q, *rest):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-        if t.data_ptr() % ALIGN:
+        if not fake and t.data_ptr() % ALIGN:
             raise ValueError(f"{name}: inputs must start {ALIGN}-byte "
                              f"aligned (data_ptr {t.data_ptr():#x})")
-    return "cuda"
+    return "fake" if fake else "cuda"
 
 
 def dkv_splits(H: int, Hkv: int) -> int:
@@ -195,6 +204,18 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, ptrs,
         fn = getattr(lib.library(), name)
         head = (_DTYPE_CODE[q.dtype], q.shape[3])
     lib.check(fn(*head, *ptrs, *extra, *dims), name)
+
+
+def _note(name: str, plain, *args, causal: bool, window: int) -> None:
+    """The fake route's launch of ``name`` on ``args`` (q, k, ...), whose
+    plain version is ``plain``, passed to the roofline analyzer."""
+    q, k = args[:2]
+    B, H, Sq, hd = q.shape
+    note_launch(name, functools.partial(plain, *args, causal=causal,
+                                        window=window),
+                B=B, H=H, Hkv=k.shape[1], Sq=Sq, Skv=k.shape[2],
+                hd=hd, esz=q.element_size(), causal=bool(causal),
+                window=int(window))
 
 
 def _same_dtype(name: str, dtype: torch.dtype, *ts: torch.Tensor) -> None:
@@ -313,6 +334,10 @@ def flash_fwd(q, k, v, *, causal: bool = True, window: int = 0
         return flash_fwd_plain(q, k, v, causal=causal, window=window)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    if route == "fake":
+        _note("flash_fwd", flash_fwd_plain, q, k, v, causal=causal,
+              window=window)
+        return out, lse
     _launch("flash_fwd", q, k, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 out.data_ptr(), lse.data_ptr()), (),
             causal, window)
@@ -330,6 +355,10 @@ def flash_dq(q, k, v, dout, lse, delta, *, causal: bool = True,
         return flash_dq_plain(q, k, v, dout, lse, delta, causal=causal,
                               window=window)
     dq = torch.empty_like(q)
+    if route == "fake":
+        _note("flash_dq", flash_dq_plain, q, k, v, dout, lse, delta,
+              causal=causal, window=window)
+        return dq
     _launch("flash_dq", q, k, (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                dout.data_ptr(), lse.data_ptr(),
                                delta.data_ptr(), dq.data_ptr()), (),
@@ -353,6 +382,10 @@ def flash_dkv(q, k, v, dout, lse, delta, *, causal: bool = True,
         nsplit = dkv_splits(q.shape[1], k.shape[1])
         part = torch.empty((nsplit, 2, *k.shape), dtype=torch.float32,
                            device=k.device)
+    if route == "fake":
+        _note("flash_dkv", flash_dkv_plain, q, k, v, dout, lse, delta,
+              causal=causal, window=window)
+        return dk, dv
     _launch("flash_dkv", q, k, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.trace import on_card
+
 F32 = torch.float32
 
 # exp(x) = 2^k * e^r with k = round(x / ln 2) and r = x - k ln 2 split in
@@ -75,5 +77,7 @@ def exp_f32(x: torch.Tensor) -> torch.Tensor:
 
 def exp_stable(x: torch.Tensor) -> torch.Tensor:
     """exp of a float32 tensor with the same bits in every process:
-    :func:`exp_f32` on the CPU, ``torch.exp`` elsewhere."""
-    return exp_f32(x) if x.device.type == "cpu" else torch.exp(x)
+    :func:`exp_f32` on the CPU, ``torch.exp`` elsewhere (and on the dry
+    run's fake tensors that take the card's routes, ``trace.on_card``)."""
+    return exp_f32(x) if x.device.type == "cpu" and not on_card(x) \
+        else torch.exp(x)

@@ -20,7 +20,12 @@ implementations:
   ``ref.rg_lru_bwd_plain``).
 
 A CUDA tensor never takes the plain version. Every kernel launch adds
-one to ``counts("cuda")``, every plain call one to ``counts("cpu")``.
+one to ``counts("cuda")``, every plain call one to ``counts("cpu")``. A
+fake tensor of the dry run (``kernels.trace``) takes a third route: the
+CUDA route's checks, its outputs and scratch allocated at the same
+shapes (the chunk count from ``ref.TIME_CHUNK``, the kernel's
+``TCHUNK``), no launch, one added to ``counts("fake")`` and the launch
+recorded for the roofline analyzer.
 ``rg_lru`` is the differentiable recurrence (``RGLRU``): its backward is
 ``rg_lru_bwd``, on the card and on the CPU alike, so the CPU tests run
 the kernel's algebra.
@@ -31,13 +36,16 @@ None (a zero state). Output: h f32 ``[B,S,W]``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.nvcc import CudaLibrary
-from repro_torch.kernels.rg_lru.ref import rg_lru_bwd_plain, rg_lru_plain
+from repro_torch.kernels.rg_lru.ref import (TIME_CHUNK, rg_lru_bwd_plain,
+                                            rg_lru_plain)
+from repro_torch.kernels.trace import fake_route, note_launch
 
 KERNELS = ("rg_lru_fwd", "rg_lru_bwd")
 
@@ -50,12 +58,14 @@ LIB = CudaLibrary("rg_lru", {
 
 _count_lock = threading.Lock()
 _counts: Dict[str, Dict[str, int]] = {
-    "cuda": dict.fromkeys(KERNELS, 0), "cpu": dict.fromkeys(KERNELS, 0)}
+    "cuda": dict.fromkeys(KERNELS, 0), "cpu": dict.fromkeys(KERNELS, 0),
+    "fake": dict.fromkeys(KERNELS, 0)}
 
 
 def counts(route: str = "cuda") -> Dict[str, int]:
-    """Calls since the last reset: CUDA kernel launches (``"cuda"``) or
-    plain-version calls on CPU tensors (``"cpu"``)."""
+    """Calls since the last reset: CUDA kernel launches (``"cuda"``),
+    plain-version calls on CPU tensors (``"cpu"``) or the dry run's
+    launches on fake tensors (``"fake"``)."""
     with _count_lock:
         return dict(_counts[route])
 
@@ -69,7 +79,7 @@ def reset_counts() -> None:
 
 def _route(name, x, r, i, lam, h0, *more) -> str:
     """Validate a call's tensors (``more``: further [B,S,W] inputs);
-    returns "cuda" or "cpu"."""
+    returns "cuda", "cpu" or "fake"."""
     if x.dim() != 3 or lam.dim() != 1:
         raise ValueError(f"{name}: x, r, i must be [B,S,W] and lam [W]; "
                          f"got {tuple(x.shape)}, {tuple(lam.shape)}")
@@ -90,20 +100,37 @@ def _route(name, x, r, i, lam, h0, *more) -> str:
         if t.device != x.device:
             raise ValueError(f"{name}: tensors on {x.device} and "
                              f"{t.device}")
-    if x.device.type == "cpu":
+    fake = fake_route(x)
+    if x.device.type == "cpu" and not fake:
         return "cpu"
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not fake:
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if any(not t.is_contiguous() for t in given):
         raise ValueError(f"{name}: inputs must be contiguous")
-    return "cuda"
+    return "fake" if fake else "cuda"
 
 
-def _scratch(S: int, shape, device) -> Optional[torch.Tensor]:
+def _chunks(route: str, S: int) -> int:
+    """The kernel's chunks of a sequence of S tokens: the library's
+    count, or on the fake route the same count from ``TIME_CHUNK``."""
+    if route == "fake":
+        return -(-S // TIME_CHUNK)
+    return LIB.library().rg_lru_chunks(S)
+
+
+def _note(name: str, plain, x: torch.Tensor, *args) -> None:
+    """The fake route's launch of ``name``, whose plain version is
+    ``plain(x, *args)``, passed to the roofline analyzer."""
+    B, S, W = x.shape
+    note_launch(name, functools.partial(plain, x, *args), B=B, S=S, W=W)
+
+
+def _scratch(S: int, shape, device, route: str = "cuda"
+             ) -> Optional[torch.Tensor]:
     """The carry passes' scratch: f32 [2, *shape[:1], nc - 1, *shape[1:]]
     for the chunks but one of a sequence of S tokens, or None where there
     is one chunk."""
-    nl = LIB.library().rg_lru_chunks(S) - 1
+    nl = _chunks(route, S) - 1
     if nl <= 0:
         return None
     return torch.empty((2, shape[0], nl, shape[1]), dtype=torch.float32,
@@ -119,11 +146,14 @@ def rg_lru_fwd(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
         _counts[route]["rg_lru_fwd"] += 1
     if route == "cpu":
         return rg_lru_plain(x, r, i, lam, h0)
-    lib = LIB.library()
     B, S, W = x.shape
     h = torch.empty_like(x)
     # scratch: each chunk but the last's decay product and end value
-    sc = _scratch(S, (B, W), x.device)
+    sc = _scratch(S, (B, W), x.device, route)
+    if route == "fake":
+        _note("rg_lru_fwd", rg_lru_plain, x, r, i, lam, h0)
+        return h
+    lib = LIB.library()
     dec, loc = (None, None) if sc is None else sc
     code = lib.rg_lru_fwd(
         x.data_ptr(), r.data_ptr(), i.data_ptr(), lam.data_ptr(),
@@ -148,17 +178,20 @@ def rg_lru_bwd(x: torch.Tensor, r: torch.Tensor, i: torch.Tensor,
         _counts[route]["rg_lru_bwd"] += 1
     if route == "cpu":
         return rg_lru_bwd_plain(x, r, i, lam, h, dh, h0)
-    lib = LIB.library()
     B, S, W = x.shape
     dx, dr, di = (torch.empty_like(x) for _ in range(3))
     dlam = torch.empty_like(lam)
     dh0 = torch.empty((B, W), dtype=torch.float32, device=x.device)
     # scratch: each chunk but the first's decay product and carry, and
     # every chunk's share of dlam's sum
-    sc = _scratch(S, (B, W), x.device)
-    dec, loc = (None, None) if sc is None else sc
-    dlp = torch.empty((B, lib.rg_lru_chunks(S), W), dtype=torch.float32,
+    sc = _scratch(S, (B, W), x.device, route)
+    dlp = torch.empty((B, _chunks(route, S), W), dtype=torch.float32,
                       device=x.device)
+    if route == "fake":
+        _note("rg_lru_bwd", rg_lru_bwd_plain, x, r, i, lam, h, dh, h0)
+        return dx, dr, di, dlam, dh0
+    lib = LIB.library()
+    dec, loc = (None, None) if sc is None else sc
     ptr = lambda t: None if t is None else t.data_ptr()
     code = lib.rg_lru_bwd(
         x.data_ptr(), r.data_ptr(), i.data_ptr(), lam.data_ptr(),

@@ -25,7 +25,11 @@ Each kernel has two implementations behind one wrapper:
 
 A CUDA tensor never takes the plain version. Every kernel launch adds
 one to its count (``counts("cuda")``), every plain call one to
-``counts("cpu")``.
+``counts("cpu")``. A fake tensor of the dry run (``kernels.trace``)
+takes a third route: the CUDA route's checks, its outputs and scratch
+allocated at the same shapes (and its partials summed), no launch, one
+added to ``counts("fake")`` and the launch recorded for the roofline
+analyzer.
 
 Layouts are the model's: x ``[B,S,H,P]`` and Bm/Cm ``[B,S,N]`` in float32
 or bfloat16 (one dtype for the three), dt ``[B,S,H]`` and A ``[H]``
@@ -40,12 +44,14 @@ the card, since that would cost a sync.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.nvcc import CudaLibrary
+from repro_torch.kernels.trace import fake_route, note_launch
 from repro_torch.kernels.ssd_scan.ref import (HEAD_GROUP, ssd_fwd_plain,
                                               ssd_grads_plain)
 
@@ -62,12 +68,14 @@ LIB = CudaLibrary("ssd_scan", {
 
 _count_lock = threading.Lock()
 _counts: Dict[str, Dict[str, int]] = {
-    "cuda": dict.fromkeys(KERNELS, 0), "cpu": dict.fromkeys(KERNELS, 0)}
+    "cuda": dict.fromkeys(KERNELS, 0), "cpu": dict.fromkeys(KERNELS, 0),
+    "fake": dict.fromkeys(KERNELS, 0)}
 
 
 def counts(route: str = "cuda") -> Dict[str, int]:
     """Calls per kernel since the last reset: CUDA kernel launches
-    (``"cuda"``) or plain-version calls on CPU tensors (``"cpu"``)."""
+    (``"cuda"``), plain-version calls on CPU tensors (``"cpu"``) or the
+    dry run's launches on fake tensors (``"fake"``)."""
     with _count_lock:
         return dict(_counts[route])
 
@@ -85,7 +93,7 @@ def _count(route: str, name: str) -> None:
 
 
 def _route(name: str, x, dt, A, Bm, Cm, chunk: int, *rest) -> str:
-    """Validate a call's tensors; returns "cuda" or "cpu"."""
+    """Validate a call's tensors; returns "cuda", "cpu" or "fake"."""
     if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 3:
         raise ValueError(f"{name}: x must be [B,S,H,P], dt [B,S,H], A [H] "
                          f"and Bm/Cm [B,S,N]; got {tuple(x.shape)}, "
@@ -114,9 +122,10 @@ def _route(name: str, x, dt, A, Bm, Cm, chunk: int, *rest) -> str:
         raise ValueError(f"{name}: sequence {S} is not a multiple of the "
                          f"chunk {q}")
     dev = x.device.type
-    if dev == "cpu":
+    fake = fake_route(x)
+    if dev == "cpu" and not fake:
         return "cpu"
-    if dev != "cuda":
+    if dev != "cuda" and not fake:
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if P > MAX_HEAD_DIM or N > MAX_STATE or q > MAX_CHUNK:
         raise ValueError(f"{name}: head dim {P}, state {N}, chunk {q} (the "
@@ -125,7 +134,7 @@ def _route(name: str, x, dt, A, Bm, Cm, chunk: int, *rest) -> str:
     for t in (x, dt, A, Bm, Cm, *rest):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    return "cuda"
+    return "fake" if fake else "cuda"
 
 
 def _check_shape(name: str, what: str, t: Optional[torch.Tensor],
@@ -137,6 +146,15 @@ def _check_shape(name: str, what: str, t: Optional[torch.Tensor],
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def _note(name: str, x: torch.Tensor, N: int, q: int, plain, *args,
+          **kwargs) -> None:
+    """The fake route's launch of ``name``, whose plain version is
+    ``plain(*args, **kwargs)``, passed to the roofline analyzer."""
+    Bsz, S, H, P = x.shape
+    note_launch(name, functools.partial(plain, *args, **kwargs), B=Bsz,
+                S=S, H=H, P=P, N=N, q=q, esz=x.element_size())
 
 
 def _dims(x: torch.Tensor, N: int, q: int):
@@ -172,6 +190,10 @@ def ssd_fwd(x, dt, A, Bm, Cm, chunk: int,
     # scratch: the chunks' cum and C.B^T per chunk
     cum = torch.empty((Bsz, H, S), **f32)
     gt = torch.empty((Bsz, nc, qp, qp), **f32)
+    if route == "fake":
+        _note("ssd_fwd", x, N, q, ssd_fwd_plain, x, dt, A, Bm, Cm, chunk,
+              init_state)
+        return y, final, states if save_states else None
     code = LIB.library().ssd_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(), _ptr(init_state), y.data_ptr(),
@@ -214,13 +236,17 @@ def ssd_bwd(x, dt, A, Bm, Cm, states, dy, dfinal: Optional[torch.Tensor],
     w = torch.empty((Bsz, H, nc, P, N), **f32)
     nt = qp // 64
     dg = torch.empty((Bsz, nc, H, nt * (nt + 1) // 2, 64, 64), **f32)
-    code = LIB.library().ssd_bwd(
-        _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
-        Bm.data_ptr(), Cm.data_ptr(), states.data_ptr(), dy.data_ptr(),
-        _ptr(dfinal), dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
-        dB_part.data_ptr(), dC_part.data_ptr(), cum.data_ptr(),
-        gt.data_ptr(), w.data_ptr(), dg.data_ptr(), *_dims(x, N, q))
-    LIB.check(code, "ssd_bwd")
+    if route == "fake":
+        _note("ssd_bwd", x, N, q, ssd_grads_plain, x, dt, A, Bm, Cm, dy,
+              chunk, dfinal, init_state=states[:, :, 0])
+    else:
+        code = LIB.library().ssd_bwd(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+            Bm.data_ptr(), Cm.data_ptr(), states.data_ptr(), dy.data_ptr(),
+            _ptr(dfinal), dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
+            dB_part.data_ptr(), dC_part.data_ptr(), cum.data_ptr(),
+            gt.data_ptr(), w.data_ptr(), dg.data_ptr(), *_dims(x, N, q))
+        LIB.check(code, "ssd_bwd")
     # the partials of the head groups and of the (batch, chunk) pairs,
     # summed in a fixed order (no atomics)
     return (dx, ddt, dA_part.sum((0, 2)), dB_part.sum(1).to(Bm.dtype),

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.numerics import exp_stable
+from repro_torch.kernels.trace import on_card
 from repro_torch.models.params import P
 from repro_torch.parallel import context as pctx
 
@@ -264,12 +265,12 @@ def attention_forward(
             "cross-attention under a device mesh: the encoder-decoder over "
             "a mesh waits for ROADMAP A9b step 4")
     x = replicate_seq(x)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = head_projection(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
     if cross_kv is None:
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        k = head_projection(x, p["wk"])
+        v = head_projection(x, p["wv"])
         if "bk" in p:
             k, v = k + p["bk"], v + p["bv"]
     else:
@@ -283,18 +284,18 @@ def attention_forward(
                                      window=window, causal=causal,
                                      use_rope=use_rope,
                                      attn_chunk=attn_chunk)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        return head_output(out, p["wo"])
     if is_dtensor(q):
         out = _mesh_attention(cfg, q, k, v, causal=causal, window=window,
                               use_rope=use_rope, attn_chunk=attn_chunk)
-        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+        return head_output(out, p["wo"])
     if use_rope:
         q = rope_apply(q, positions, cfg.rope_theta)
         if cross_kv is None:
             k = rope_apply(k, positions, cfg.rope_theta)
 
     if cross_kv is not None:
-        if q.is_cuda and S > 1:
+        if on_card(q) and S > 1:
             out = _flash_no_cache(q, k, v, causal=False, window=0)
             return torch.einsum("bshk,hkd->bsd", out, p["wo"])
         skv = k.shape[1]
@@ -337,7 +338,7 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``positions`` = ``arange(S)``): q [B,S,H,hd], k/v [B,S,Hkv,hd] ->
     [B,S,H,hd]; the flash kernels on a CUDA tensor, the plain dense or
     chunked attention elsewhere."""
-    if q.is_cuda and softcap == 0.0:
+    if on_card(q) and softcap == 0.0:
         return _flash_no_cache(q, k, v, causal=causal, window=window)
     B, S, H, hd = q.shape
     out = _attend_positions(q.reshape(B, S, k.shape[2], -1, hd), k, v,
@@ -345,6 +346,70 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             window=window, softcap=softcap,
                             attn_chunk=attn_chunk)
     return out.reshape(B, S, H, hd)
+
+
+def head_projection(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)``. Over a mesh whose model axis
+    does not divide the heads (24 query heads over 16, 8 KV heads over
+    16), the product runs with the head dims flattened and its [B, S,
+    H * hd] output is gathered whole over the model axis before the
+    heads unflatten: DTensor splits that output by columns, a split that
+    cuts a head, which it cannot unflatten; so is the gradient of the
+    flattened weight before it unflattens. The reference replicates
+    such heads over the model axis; ``_mesh_attention`` then takes them
+    as replicated."""
+    d, h, k = w.shape
+    ctx = _uneven_heads(x, h)
+    if ctx is None:
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    wf = _GradWholeOverModel.apply(w.reshape(d, h * k), ctx)
+    y = _whole_over_model(torch.matmul(x, wf), ctx)
+    return y.reshape(*y.shape[:-1], h, k)
+
+
+def _uneven_heads(x, h: int):
+    """The mesh context of DTensor ``x`` where its model axis does not
+    divide ``h`` heads, else None."""
+    if not is_dtensor(x):
+        return None
+    ctx = pctx.for_mesh(x.device_mesh)
+    m = ctx.model_size()
+    return ctx if ctx.model_axis is not None and m > 1 and h % m else None
+
+
+def _whole_over_model(t, ctx):
+    """DTensor ``t`` with its model-axis placement made Replicate."""
+    from torch.distributed.tensor import Replicate
+    keep = tuple(Replicate() if a == ctx.model_axis else pl for a, pl in
+                 zip(t.device_mesh.mesh_dim_names, t.placements))
+    return t.redistribute(t.device_mesh, keep)
+
+
+class _GradWholeOverModel(torch.autograd.Function):
+    """Identity whose gradient is gathered whole over the model axis."""
+
+    @staticmethod
+    def forward(ctx, x, mctx):
+        ctx.mctx = mctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_over_model(g, ctx.mctx), None
+
+
+def head_output(o, w):
+    """``einsum("bshk,hkd->bsd", o, w)``; over a mesh whose model axis
+    does not divide the heads, with the head dims flattened and the
+    gradient that flows back into them gathered whole over the model
+    axis before they unflatten (see :func:`head_projection`)."""
+    h, k, d = w.shape
+    ctx = _uneven_heads(o, h)
+    if ctx is None:
+        return torch.einsum("bshk,hkd->bsd", o, w)
+    flat = _GradWholeOverModel.apply(o.reshape(*o.shape[:2], h * k), ctx)
+    return torch.matmul(flat, _GradWholeOverModel.apply(
+        w.reshape(h * k, d), ctx))
 
 
 def is_dtensor(x) -> bool:

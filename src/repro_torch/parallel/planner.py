@@ -86,9 +86,12 @@ def _on_card(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def _ranks_per_card(mesh) -> int:
-    """Ranks of ``mesh`` that share one card (all of them on a one-card
-    machine)."""
+def _ranks_per_card(mesh, ranks_per_card=None) -> int:
+    """Ranks of ``mesh`` that share one card: ``ranks_per_card`` where
+    given, else the mesh's ranks over this machine's cards (all of them
+    on a one-card machine)."""
+    if ranks_per_card is not None:
+        return int(ranks_per_card)
     if not is_mesh(mesh):
         return 1
     n = 1
@@ -195,7 +198,7 @@ def snapshot_gather_bytes(cfg: ModelConfig, mesh=None) -> float:
 
 
 def card_plan(cfg: ModelConfig, shape: ShapeConfig, total_memory: float,
-              mesh=None) -> ParallelPlan:
+              mesh=None, ranks_per_card=None) -> ParallelPlan:
     """The plan on a CUDA card of ``total_memory`` bytes for one rank of
     ``mesh`` (default: one device): the escalating accumulation search
     against 0.9 x that, less rank 0's snapshot gather
@@ -205,12 +208,16 @@ def card_plan(cfg: ModelConfig, shape: ShapeConfig, total_memory: float,
     a shrink (a mesh over part of the world, whose ranks each hold a
     larger share) is planned for what they hold. Raises ``MemoryError``
     where params and moments alone exceed the budget, before anything is
-    allocated. A prefill or decode shape takes ``card_serve_plan``."""
+    allocated. A prefill or decode shape takes ``card_serve_plan``.
+    ``ranks_per_card`` (default: the mesh's ranks over this machine's
+    cards) plans a mesh of other machines, as the dry run does."""
     if shape.kind != "train":
-        return card_serve_plan(cfg, shape, total_memory, mesh)
+        return card_serve_plan(cfg, shape, total_memory, mesh,
+                               ranks_per_card)
     sizes = _sizes(mesh)
     gather = snapshot_gather_bytes(cfg, mesh)
-    budget = (0.9 * total_memory - gather) / _ranks_per_card(mesh)
+    share = _ranks_per_card(mesh, ranks_per_card)
+    budget = (0.9 * total_memory - gather) / share
     est1 = estimate_card_train_memory(cfg, shape, 1, mesh)
     n = _template_params(cfg)
     pod, dp, tp = _mesh_sizes(sizes)
@@ -223,7 +230,7 @@ def card_plan(cfg: ModelConfig, shape: ShapeConfig, total_memory: float,
             f"{(est1.params + est1.opt_state) / 1e9:.1f} GB with the "
             f"gradients, past 0.9 x the card's {total_memory / 1e9:.1f} GB "
             f"less rank 0's {gather / 1e9:.1f} GB snapshot gather, shared "
-            f"by {_ranks_per_card(mesh)} rank(s) ({budget / 1e9:.1f} GB); "
+            f"by {share} rank(s) ({budget / 1e9:.1f} GB); "
             "training it needs its state sharded over cards (ROADMAP A9) "
             "or a depth cut (<arch>-layers<N>)")
     for accum in (1, 4, 16):
@@ -370,7 +377,8 @@ class _AxisSizes:
 
 
 def card_serve_plan(cfg: ModelConfig, shape: ShapeConfig,
-                    total_memory: float, mesh=None) -> ParallelPlan:
+                    total_memory: float, mesh=None,
+                    ranks_per_card=None) -> ParallelPlan:
     """The serving plan on a CUDA card of ``total_memory`` bytes for one
     rank of ``mesh`` (default: one device): the reference's escalation
     (depth 1 -> 2 -> 2 with the cache's sequence split) against 0.9 x
@@ -380,7 +388,8 @@ def card_serve_plan(cfg: ModelConfig, shape: ShapeConfig,
     ``MemoryError`` before anything is allocated where no depth fits."""
     sizes = _sizes(mesh)
     gather = serve_gather_bytes(cfg, shape, mesh)
-    budget = (0.9 * total_memory - gather) / _ranks_per_card(mesh)
+    share = _ranks_per_card(mesh, ranks_per_card)
+    budget = (0.9 * total_memory - gather) / share
     for depth, cache_seq in SERVE_DEPTHS:
         plan = _serve_plan(cfg, sizes, depth, cache_seq, "")
         est = estimate_card_serve_memory(cfg, shape, plan, mesh)
@@ -392,7 +401,7 @@ def card_serve_plan(cfg: ModelConfig, shape: ShapeConfig,
         f"and {est.kv_cache / 1e9:.1f} GB of decode state a rank at the "
         f"deepest serving split, past 0.9 x the card's "
         f"{total_memory / 1e9:.1f} GB less rank 0's {gather / 1e9:.1f} GB "
-        f"cache gather, shared by {_ranks_per_card(mesh)} rank(s) "
+        f"cache gather, shared by {share} rank(s) "
         f"({budget / 1e9:.1f} GB); serving it needs cards beyond this one "
         "(ROADMAP A9) or a depth cut (<arch>-layers<N>)")
 

@@ -1198,3 +1198,73 @@ def test_mesh_serving_on_the_card_restores_bit_for_bit(cuda_device,
         assert back["tokens"] == r0["tokens"]
         for step, v in back["logits"].items():
             assert torch.equal(v, r0["logits"][step]), step
+
+
+def _wrapper_calls(dev):
+    """(label, inputs on ``dev``, call) of each kernel wrapper on a
+    step's path, at small shapes."""
+    from repro_torch.kernels.rg_lru import ops as rg
+    from repro_torch.kernels.ssd_scan import ops as ssd
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g).to(dtype).to(dev)
+
+    def flash(hd, dtype, H, Hkv):
+        def call(q, k, v):
+            out, lse = fa.flash_fwd(q, k, v, causal=True)
+            delta = fa.attention_delta(out, out)
+            return (out, lse, fa.flash_dq(q, k, v, out, lse, delta),
+                    *fa.flash_dkv(q, k, v, out, lse, delta))
+        return tuple(rnd(2, h, 200, hd, dtype=dtype)
+                     for h in (H, Hkv, Hkv)), call
+
+    def ssd_call(x, dt, A, Bm, Cm):
+        y, final, states = ssd.ssd_fwd(x, dt, A, Bm, Cm, 256)
+        return (y, final, states,
+                *ssd.ssd_bwd(x, dt, A, Bm, Cm, states, y, None, 256))
+
+    def rg_call(x, r, i, lam):
+        h = rg.rg_lru_fwd(x, r, i, lam)
+        return (h, *rg.rg_lru_bwd(x, r, i, lam, h, h))
+    ssd_in = (rnd(2, 512, 4, 32, dtype=torch.bfloat16), rnd(2, 512, 4).abs(),
+              -rnd(4).abs(), rnd(2, 512, 64, dtype=torch.bfloat16),
+              rnd(2, 512, 64, dtype=torch.bfloat16))
+    rg_in = (rnd(2, 600, 64), rnd(2, 600, 64), rnd(2, 600, 64), rnd(64))
+    return [("flash bf16 hd 64", *flash(64, torch.bfloat16, 4, 2)),
+            ("flash bf16 hd 256", *flash(256, torch.bfloat16, 2, 1)),
+            ("flash f32 hd 32", *flash(32, torch.float32, 2, 2)),
+            ("ssd bf16", ssd_in, ssd_call), ("rg_lru", rg_in, rg_call)]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_fake_route_allocates_what_the_cuda_route_does(cuda_device, case):
+    """The dry run's fake route (fake CUDA tensors) against the card: the
+    same outputs' shapes and dtypes, and the analyzer's peak of the
+    call's temporaries within the caching allocator's rounding of the
+    card's (512 bytes a block) — the scratch each wrapper allocates."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.hlo_analysis import Analyzer
+    label, inputs, call = _wrapper_calls(cuda_device)[case]
+    call(*inputs)                             # build, cuBLAS workspaces
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    real = call(*inputs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    with FakeTensorMode() as mode:
+        fake_in = [mode.from_tensor(t) for t in inputs]
+        a = Analyzer()
+        with a:
+            fake = call(*fake_in)
+    assert [(tuple(t.shape), t.dtype) for t in fake] == \
+        [(tuple(t.shape), t.dtype) for t in real], label
+    assert all(t.is_cuda for t in fake), label
+    assert abs(peak - a.temp_bytes) <= 512 * 64, (label, peak, a.temp_bytes)
+
+
+@pytest.mark.parametrize("S", [1, 255, 256, 257, 4096, 32768])
+def test_rg_lru_fake_route_counts_the_library_chunks(cuda_device, S):
+    from repro_torch.kernels.rg_lru import ops as rg
+    assert rg._chunks("fake", S) == rg._chunks("cuda", S)

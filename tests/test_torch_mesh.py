@@ -46,6 +46,13 @@ packages here.
   plain attention over the whole cache within 1e-6. kimi-k2-smoke served
   on (2, 2), expert-parallel, gives the one-device port engine's tokens,
   its logits within 1e-5.
+- Heads the model axis does not divide, flattened and gathered whole
+  with their gradients (``layers.head_projection``): starcoder2-3b-smoke
+  (4 query, 2 KV heads) on a (1, 3) mesh over ranks 0-2 and
+  starcoder2-3b-matrix (2 query heads, 1 KV head) on (2, 2), float32:
+  the loss and every parameter's gradient within 1e-5 of the one-device
+  port's (relative, and of each gradient's largest element), the logits
+  within 1e-5 of the JAX model's largest logit.
 - ``prefill`` and ``decode_step`` of mamba2, recurrentgemma and whisper
   on DTensor tokens raise, naming ROADMAP A9b step 4.
 - The failure loop over the mesh (A9b step 2), one supervisor a rank:
@@ -135,6 +142,37 @@ def _moe_inputs():
                 treg.resolve_config(R.MOE_ARCH)))}
     x = rng.randn(4, 8, cfg.d_model).astype(np.float32)
     return cfg, tree_from_paths(flat), x, flat
+
+
+def _uneven_inputs(arch):
+    """``arch``'s float32 params from the JAX package's init (seed 1)
+    and a batch of ``R.SHAPE``, drawn with numpy: (config, JAX params,
+    numpy params, numpy batch)."""
+    cfg = jreg.resolve_config(arch).replace(dtype="float32")
+    jparams = JM.init_params(cfg, jax.random.PRNGKey(1))
+    shape = jreg.get_shape(R.SHAPE)
+    rng = np.random.RandomState(11)
+    toks = rng.randint(0, cfg.vocab_size, size=(
+        shape.global_batch, shape.seq_len + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    return cfg, jparams, jax.tree.map(np.asarray, jparams), batch
+
+
+def _uneven_one_device(arch, np_params, batch):
+    """The port's loss, gradients and logits on one device."""
+    from repro_torch.parallel.planner import make_plan
+    from repro_torch.train import step as S
+    cfg = treg.resolve_config(arch).replace(dtype="float32")
+    plan = make_plan(cfg, treg.get_shape(R.SHAPE))
+    params = convert.params_from_numpy(np_params, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    opts = S.make_call_options(plan)
+    (loss, _), grads = S.value_and_grad(S.make_loss_fn(cfg, opts), params,
+                                        tb)
+    with torch.no_grad():
+        logits, _ = TM.forward_train(cfg, params, tb, opts)
+    return dict(loss=float(loss), logits=logits.numpy(),
+                grads={p: host_array(v) for p, v in flatten_with_paths(grads)})
 
 
 def _serve_prompts():
@@ -310,6 +348,10 @@ def runs(tmp_path_factory):
                       store=str(sup_root / "engine"))
         launch_in = dict(store=str(sup_root / "launch"), steps=LAUNCH_STEPS,
                          kill=LAUNCH_KILL)
+        uneven = {name: _uneven_inputs(arch)
+                  for name, (arch, _, _) in R.UNEVEN_CASES.items()}
+        uneven_in = {name: dict(params=u[2], batch=u[3])
+                     for name, u in uneven.items()}
         out = {}
 
         def launch(key, fn, args):
@@ -323,7 +365,8 @@ def runs(tmp_path_factory):
             threading.Thread(target=launch, args=(
                 "train", R.train_and_restore,
                 (str(store), str(jax_store), STEPS,
-                 {"params": flat, "x": x}, serve_in, sup_in, launch_in))),
+                 {"params": flat, "x": x}, serve_in, sup_in, launch_in,
+                 uneven_in))),
             threading.Thread(target=launch, args=(
                 "others", R.others,
                 (SHAPES[1:], STEPS, str(store), ef_in, pipe_in, serve_in,
@@ -367,6 +410,13 @@ def runs(tmp_path_factory):
                                      max_new=SUP_NEW, **SUP_SERVE)[0]
         sup_jax = _jax_tokens(jparams, sup_prompts, SUP_NEW, SUP_SERVE)
         launch_one = _one_device_launcher(sup_root / "one_launch")
+        uneven_one = {}
+        for name, (jcfg, jp, np_params, batch) in uneven.items():
+            one = _uneven_one_device(R.UNEVEN_CASES[name][0], np_params,
+                                     batch)
+            one["jax_logits"] = np.asarray(JM.forward_train(
+                jcfg, jp, {"tokens": jnp.asarray(batch["tokens"])})[0])
+            uneven_one[name] = one
         for t in threads:
             t.join(400)
             assert not t.is_alive()
@@ -422,7 +472,7 @@ def runs(tmp_path_factory):
                 one_logits=one_logits, serve_in_jax=serve_in_jax, case=case,
                 moe_one=moe_one, sup_one=sup_one, sup_plain=sup_plain,
                 sup_jax=sup_jax, launch_one=launch_one, grow_want=grow_want,
-                columns_one=columns_one)
+                columns_one=columns_one, uneven_one=uneven_one)
 
 
 def _mesh_run(runs, shape):
@@ -654,6 +704,32 @@ def test_moe_engine_over_a_mesh_gives_the_one_device_tokens(runs):
         for step, want in logits.items():
             np.testing.assert_allclose(got["logits"][step], want, rtol=0,
                                        atol=1e-5, err_msg=str(step))
+
+
+@pytest.mark.parametrize("case", sorted(R.UNEVEN_CASES))
+def test_heads_the_model_axis_does_not_divide_train_as_on_one_device(
+        runs, case):
+    """(1, 3) over ranks 0-2: 4 query heads and 2 KV heads over a model
+    axis of 3; (2, 2): 1 KV head over 2, its flattened weights'
+    gradients partial over the data axis. Both go through
+    ``head_projection`` / ``head_output``'s flattened heads and their
+    gradients' gather; a rank outside the mesh holds no part."""
+    ranks = R.UNEVEN_CASES[case][2] or range(4)
+    got = [r["uneven"][case] for r in runs["train"]]
+    assert all((g is None) == (i not in ranks) for i, g in enumerate(got))
+    want = runs["uneven_one"][case]
+    for g in (got[i] for i in ranks):
+        assert g["loss"] == pytest.approx(want["loss"], rel=1e-5)
+        assert sorted(g["grads"]) == sorted(want["grads"])
+        for path, w in want["grads"].items():
+            np.testing.assert_allclose(g["grads"][path], w, rtol=1e-5,
+                                       atol=1e-5 * np.abs(w).max(),
+                                       err_msg=path)
+        jl = want["jax_logits"]
+        np.testing.assert_allclose(g["logits"], jl, rtol=0,
+                                   atol=1e-5 * np.abs(jl).max())
+    np.testing.assert_allclose(want["logits"], want["jax_logits"], rtol=0,
+                               atol=1e-5 * np.abs(want["jax_logits"]).max())
 
 
 @pytest.mark.parametrize("fn", ["prefill", "decode_step"])

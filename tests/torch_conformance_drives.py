@@ -1,7 +1,11 @@
-"""The reference conformance matrix's failure modes on the port.
+"""The reference conformance matrix's failure modes on the port: the
+drives, the runners and the cached references that the
+``test_torch_conformance_*.py`` files run, one file per mode (or two),
+so that ``--dist loadfile`` spreads the modes over the workers. pytest
+does not collect this module.
 
 ``tests/conformance`` holds the JAX package to five modes through its
-public API; this file runs the same sequences (the reference's function
+public API; these files run the same sequences (the reference's function
 for each in parentheses) through ``repro_torch.api`` alone, for the
 attention, moe (top-1 with a shared expert, and top-k), ssm and
 encoder-decoder families (their ``Trainer`` at ``-smoke``; whisper's
@@ -67,7 +71,6 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.api import (CheckpointSession, Policy, UpperHalf,
@@ -501,59 +504,6 @@ ENGINES = sorted(f for f, dr in DRIVES.items()
                  if dr.digest is _digest_engine)
 
 
-@pytest.mark.parametrize("backend", ["localfs", "sharded"])
-@pytest.mark.parametrize("family", FAMILIES)
-def test_kill(family, backend, tmp_path):
-    run_kill(DRIVES[family], _store(backend, tmp_path))
-
-
-@pytest.mark.parametrize("backend", ["localfs", "sharded"])
-@pytest.mark.parametrize("family", FAMILIES)
-def test_commit(family, backend, tmp_path):
-    run_commit(DRIVES[family], _store(backend, tmp_path))
-
-
-@pytest.mark.parametrize("family", FAMILIES)
-def test_swap(family, tmp_path):
-    """The full kill sequence under both store packages — swapping is
-    one spec string — with digests identical across them."""
-    dr = DRIVES[family]
-    da = run_kill(dr, _store("localfs", tmp_path, "a"))
-    db = run_kill(dr, _store("sharded", tmp_path, "b"))
-    assert da == db == reference_digest(family)
-
-
-@pytest.mark.parametrize("family", FAMILIES)
-def test_degraded(family, tmp_path):
-    run_degraded(DRIVES[family], _store("replicated", tmp_path, "d"))
-
-
-@pytest.mark.parametrize("backend", ["localfs", "sharded"])
-@pytest.mark.parametrize("family", ENGINES + ["thirdparty"])
-def test_reslot(family, backend, tmp_path):
-    if family == "thirdparty":
-        run_rl_reslot(_store(backend, tmp_path))
-    else:
-        run_reslot(DRIVES[family], _store(backend, tmp_path))
-
-
-@pytest.mark.parametrize("family", FAMILIES)
-def test_shrink(family, tmp_path):
-    run_shrink(DRIVES[family], _store("replicated", tmp_path))
-
-
-@pytest.mark.parametrize("family", FAMILIES)
-def test_churn_grow(family, tmp_path):
-    run_shrink(DRIVES[family], _store("localfs", tmp_path), grow=True)
-
-
-def test_thirdparty_reference_is_the_jax_examples():
-    """The twin's uninterrupted digest, which every thirdparty mode is
-    held to, is the JAX package's example's on the same steps."""
-    assert reference_digest("thirdparty") == \
-        _rl_digest(DRIVES["thirdparty"].total)
-
-
 # --- an entry introduced mid-chain ------------------------------------------------
 
 class _GrowingApp:
@@ -615,29 +565,7 @@ def _restore_growing(restore) -> _GrowingApp:
     return app
 
 
-@pytest.mark.parametrize("backend", ["localfs", "sharded"])
-def test_midchain(backend, tmp_path):
-    """An entry first introduced mid-chain checkpoints and restores
-    bit-identically, eager and streamed, through the public API alone."""
-    ref = _GrowingApp()
-    ref.advance(6)
-    want = ref.digest()
-    store = _store(backend, tmp_path)
-    with CheckpointSession(store, Policy(interval=1, chain=8,
-                                         keep_last=8)) as sess:
-        app = sess.attach(_GrowingApp())
-        for _ in range(4):
-            app.advance(1)
-            sess.maybe_snapshot()
-        sess.wait()
-        assert app.late is not None
-        link = sess.backend.get_manifest(4)
-        assert link.get("base_step") is not None and \
-            link["entries"]["late"]["leaves"]["['z']"].get("mode") == "xor"
-        del app                                   # hard kill
-        for streaming in (False, True):
-            app2 = sess.restore("latest", streaming=streaming)
-            assert app2.step == 4
-            app2.advance(2)
-            got = app2.digest()
-            assert got == want, (streaming, got, want)
+# the kill, commit and swap modes' families in two halves of about equal
+# time, one file each
+MOE_SSM = sorted(f for f in FAMILIES if f.startswith(("moe", "ssm")))
+OTHER_FAMILIES = sorted(f for f in FAMILIES if f not in MOE_SSM)

@@ -14,6 +14,15 @@ re-slotted onto 3 slots of (2, 2), and the JAX engine's checkpoint onto
 (2, 2); ``combine_case`` holds the sequence-split decode's combine;
 ``family_raises`` calls the families that still refuse a mesh.
 
+Heads that the model axis does not divide (in the first launch):
+``uneven_heads`` takes one loss and its gradient of each of
+``UNEVEN_CASES`` — starcoder2-3b-smoke (4 query heads, 2 KV heads) on a
+(1, 3) mesh over ranks 0-2, and starcoder2-3b-matrix (2 query heads, 1
+KV head) on (2, 2), whose data axis leaves the flattened weights'
+gradients partial — where ``models.layers.head_projection`` /
+``head_output`` flatten the heads and gather them, and their
+gradients, whole over the model axis.
+
 The failure loop over a mesh (in the first launch): ``supervise_trainer``
 (shrink onto (2, 1) over ranks 0-1, grow back, restart),
 ``supervise_engine`` (4 slots of (2, 2) re-slotted onto 3 of (1, 2)),
@@ -39,6 +48,10 @@ SERVE = dict(n_slots=4, max_seq=64)
 SERVE_EVERY = 3          # a snapshot every 3 engine steps
 SERVE_AT = 6             # the step every serving restore comes back at
 SMALL = dict(sparse_chunk_bytes=1024, sparse_min_bytes=2048)
+# (arch, mesh shape, its ranks): meshes whose model axis divides some of
+# the arch's heads not (float32 in both packages)
+UNEVEN_CASES = {"(1, 3)": ("starcoder2-3b-smoke", (1, 3), (0, 1, 2)),
+                "(2, 2)": ("starcoder2-3b-matrix", (2, 2), None)}
 # the families whose serving over a mesh waits for ROADMAP A9b step 4
 FAMILY_ARCHS = ("mamba2-780m-smoke", "recurrentgemma-9b-smoke",
                 "whisper-base-smoke")
@@ -230,7 +243,7 @@ def serve_restores(rank, world, serve_in):
 
 
 def train_and_restore(rank, world, store, jax_store, steps, moe_in,
-                      serve_in, sup_in, launch_in):
+                      serve_in, sup_in, launch_in, uneven_in):
     """(2, 2): ``steps`` steps, a base snapshot after the second to last
     and a link after the last (rank 0 commits them, then writes
     ``<store>/READY``), one more step; then the checkpoint restored onto
@@ -272,6 +285,7 @@ def train_and_restore(rank, world, store, jax_store, steps, moe_in,
                               loss=r.train_steps(1)["loss"])
     rs.close()
     out["moe"] = moe_layer(rank, world, moe_in)
+    out["uneven"] = uneven_heads(rank, world, uneven_in)
     out["serve"] = serve_and_restore(rank, world, serve_in)
     out["stats"] = _stats()
     return out
@@ -583,6 +597,47 @@ def moe_layer(rank, world, moe_in):
         y, aux = MOE.moe_forward(cfg, p, x)
     return dict(y=y.full_tensor().numpy(), aux=float(aux.full_tensor()),
                 local_experts=p["w_gate"].to_local().shape[0])
+
+
+def uneven_heads(rank, world, uneven_in):
+    """{case: one loss of ``UNEVEN_CASES[case]``'s arch at
+    ``uneven_in[case]``'s params and batch on its mesh — the loss, every
+    parameter's gradient and the logits gathered whole, or None on a
+    rank outside the mesh}."""
+    from repro_torch import convert
+    from repro_torch.configs import registry as treg
+    from repro_torch.launch.mesh import in_mesh, make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import context as pctx
+    from repro_torch.parallel.planner import make_plan
+    from repro_torch.parallel.sharding import leaf_placements, shard_tensor
+    from repro_torch.train import step as S
+    from repro_torch.tree import fill_like, flatten_with_paths
+    out = {}
+    for case, (arch, shape, ranks) in UNEVEN_CASES.items():
+        mesh = make_mesh(shape, AXES, "cpu", ranks=ranks)
+        if not in_mesh(mesh):
+            out[case] = None
+            continue
+        cfg = treg.resolve_config(arch).replace(dtype="float32")
+        plan = make_plan(cfg, treg.get_shape(SHAPE), mesh)
+        params = convert.params_from_numpy(uneven_in[case]["params"], "cpu")
+        places = leaf_placements(plan, M.param_template(cfg), mesh)
+        params = fill_like(params, {p: shard_tensor(v, mesh, places[p])
+                                    for p, v in flatten_with_paths(params)})
+        batch = {k: torch.from_numpy(v)
+                 for k, v in uneven_in[case]["batch"].items()}
+        opts = S.make_call_options(plan, mesh)
+        with pctx.mesh_context(mesh, plan.batch_axes, plan.model_axis):
+            mb = S.shard_batch(plan, mesh, batch)
+            (loss, _), grads = S.value_and_grad(S.make_loss_fn(cfg, opts),
+                                                params, mb)
+            with torch.no_grad():
+                logits, _ = M.forward_train(cfg, params, mb, opts)
+        out[case] = dict(loss=float(S._local_value(loss)),
+                         grads=_whole(grads),
+                         logits=logits.full_tensor().numpy())
+    return out
 
 
 def compress_and_pipeline(rank, world, ef_in, pipe_in):
